@@ -1,8 +1,9 @@
 """AttentionLego attention numerics: the int8 KV cache, quantize-on-write,
 the behavioral (paper-faithful) PIM attention and the fp baseline.
 
-Counterpart of the JAX package's `core/attention.py`, on its classic dense
-path (paged, ring and ragged caches belong to later slices of the port).
+Counterpart of the JAX package's `core/attention.py`: the dense cache
+(classic scalar fill or ragged per-slot lengths) and the paged pool with
+its trash page.  Ring caches belong to a later slice of the port.
 
 Score: int8 QK^T, requantized to 8-bit score codes.  Softmax: LUT exp and a
 two-phase normalization.  AV: uint8 probabilities (with the V scales folded
@@ -12,6 +13,8 @@ every operand range here (|sum| < 2^53) on the CPU and the GPU alike.
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Optional, Union
 
 import torch
 
@@ -30,13 +33,17 @@ class KVCache:
     `layer(r)` is a view of layer r that writes through to it.  The planes
     are head-major (the reference stores (B, S, Hkv, ...)), so that the
     kernels' (B * Hkv, S, ...) operands are views of them, never copies.
+
+    `length` is an int on the classic equal-length path, or a (B,) int32
+    device tensor of per-slot fills in ragged (slot) mode, where 0 marks an
+    empty slot.
     """
 
     k_q: torch.Tensor      # ([R,] B, Hkv, S, Dh * kv_bits // 8) int8
     v_q: torch.Tensor      # ([R,] B, Hkv, S, Dh * kv_bits // 8) int8
     k_scale: torch.Tensor  # ([R,] B, Hkv, S) f32
     v_scale: torch.Tensor  # ([R,] B, Hkv, S) f32
-    length: int = 0
+    length: Union[int, torch.Tensor] = 0
 
     def layer(self, r: int) -> "KVCache":
         return KVCache(self.k_q[r], self.v_q[r], self.k_scale[r],
@@ -57,8 +64,10 @@ def cache_kv_bits(stored_dim: int, head_dim: int) -> int:
 
 
 def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
-                  kv_bits: int = 8, device=None, layers=None) -> KVCache:
-    """Zeroed cache of `max_len` tokens; `layers` adds the stacked axis."""
+                  kv_bits: int = 8, device=None, layers=None,
+                  ragged: bool = False) -> KVCache:
+    """Zeroed cache of `max_len` tokens; `layers` adds the stacked axis and
+    `ragged` the (B,) per-slot lengths (all 0: every slot empty)."""
     dhp = packed_head_dim(head_dim, kv_bits)
     lead = () if layers is None else (layers,)
     z = dict(device=device)
@@ -67,7 +76,114 @@ def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
         v_q=torch.zeros(lead + (batch, n_kv, max_len, dhp), dtype=torch.int8, **z),
         k_scale=torch.zeros(lead + (batch, n_kv, max_len), dtype=torch.float32, **z),
         v_scale=torch.zeros(lead + (batch, n_kv, max_len), dtype=torch.float32, **z),
+        length=torch.zeros(batch, dtype=torch.int32, **z) if ragged else 0,
     )
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache: a global pool of fixed-size pages + per-slot page tables
+# ---------------------------------------------------------------------------
+TRASH_PAGE = 0
+"""Physical page 0 is the write sink for invalid destinations (tokens past
+a row's `seq_lens`, or positions whose page-table entry is unallocated).
+The allocator never hands it out and no slot's `kv_len` reaches into it,
+so what lands there is never read."""
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """int8 KV pool of `num_pages` pages of `page_size` tokens each, in the
+    reference's layout: (P, page_size, Hkv, Dh[/2]) int8 K/V with
+    (P, page_size, Hkv) float32 scales.  Slots own pages through rows of a
+    (B, max_pages) int32 page table (-1 = unallocated) that travels beside
+    the pool.  The kernels read a head inside a page row in place (row
+    stride Hkv * Dh[/2]), so no step transposes or copies the pool.  A
+    stacked pool carries a leading layer axis, and `layer(r)` is a view."""
+
+    k_q: torch.Tensor      # ([R,] P, page_size, Hkv, Dh * kv_bits // 8) int8
+    v_q: torch.Tensor      # ([R,] P, page_size, Hkv, Dh * kv_bits // 8) int8
+    k_scale: torch.Tensor  # ([R,] P, page_size, Hkv) f32
+    v_scale: torch.Tensor  # ([R,] P, page_size, Hkv) f32
+
+    def layer(self, r: int) -> "PagedKVCache":
+        return PagedKVCache(self.k_q[r], self.v_q[r], self.k_scale[r],
+                            self.v_scale[r])
+
+    @property
+    def num_pages(self) -> int:
+        return self.k_q.shape[-4]
+
+    @property
+    def page_size(self) -> int:
+        return self.k_q.shape[-3]
+
+
+def init_paged_kv_cache(num_pages: int, page_size: int, n_kv: int,
+                        head_dim: int, kv_bits: int = 8, device=None,
+                        layers=None) -> PagedKVCache:
+    """Zeroed pool of `num_pages` pages (page 0 reserved as the trash
+    page); `layers` adds the stacked axis."""
+    dhp = packed_head_dim(head_dim, kv_bits)
+    lead = () if layers is None else (layers,)
+    shape = lead + (num_pages, page_size, n_kv)
+    z = dict(device=device)
+    return PagedKVCache(
+        k_q=torch.zeros(shape + (dhp,), dtype=torch.int8, **z),
+        v_q=torch.zeros(shape + (dhp,), dtype=torch.int8, **z),
+        k_scale=torch.zeros(shape, dtype=torch.float32, **z),
+        v_scale=torch.zeros(shape, dtype=torch.float32, **z),
+    )
+
+
+def paged_cache_write(pool: PagedKVCache, k: torch.Tensor, v: torch.Tensor,
+                      pos: torch.Tensor, cfg: PIMConfig,
+                      page_table: torch.Tensor,
+                      seq_lens: Optional[torch.Tensor] = None) -> PagedKVCache:
+    """Write (B, S, Hkv, Dh) K/V through the page table, in place: row b's
+    token i lands in page `page_table[b, (pos_b + i) // page_size]` at
+    offset `(pos_b + i) % page_size`.  Tokens past a row's `seq_lens` and
+    tokens whose table entry is unallocated go to `TRASH_PAGE`: a stray
+    write here would clobber a page of another slot."""
+    B, S = k.shape[:2]
+    ps = pool.page_size
+    n_tables = page_table.shape[1]
+    kv_bits = cache_kv_bits(pool.k_q.shape[-1], k.shape[-1])
+    k_q, v_q, ks, vs = quantize_kv(k, v, cfg, kv_bits)
+    logical = pos.long()[:, None] + torch.arange(S, device=k.device)  # (B, S)
+    valid = logical < n_tables * ps
+    if seq_lens is not None:
+        valid = valid & (torch.arange(S, device=k.device)
+                         < seq_lens.long()[:, None])
+    page_idx = torch.clamp(logical // ps, 0, n_tables - 1)
+    pid = torch.gather(page_table.long(), 1, page_idx)
+    pid = torch.where(valid & (pid > TRASH_PAGE), pid, TRASH_PAGE)
+    slot = logical % ps
+    pool.k_q[pid, slot] = k_q
+    pool.v_q[pid, slot] = v_q
+    pool.k_scale[pid, slot] = ks
+    pool.v_scale[pid, slot] = vs
+    return pool
+
+
+def paged_gather(pool: PagedKVCache, page_table: torch.Tensor,
+                 kv_len: torch.Tensor) -> KVCache:
+    """A slot-dense `KVCache` copy of the pool: row b is row b of the page
+    table, page after page (unallocated entries read the trash page, which
+    lies past `kv_len`).  The behavioral reference of the paged path: run
+    through `pim_attention` it equals a dense slot cache holding the same
+    tokens bit for bit, since masked positions contribute exact zeros."""
+    B, n = page_table.shape
+    ps, Hkv, Dhk = pool.page_size, pool.k_q.shape[-2], pool.k_q.shape[-1]
+    pid = torch.clamp(page_table.long(), 0, pool.num_pages - 1)
+
+    def dense(x, *tail):
+        return x[pid].reshape((B, n * ps, Hkv) + tail).transpose(1, 2
+                                                                 ).contiguous()
+
+    return KVCache(dense(pool.k_q, Dhk), dense(pool.v_q, Dhk),
+                   dense(pool.k_scale), dense(pool.v_scale),
+                   torch.as_tensor(kv_len, dtype=torch.int32,
+                                   device=page_table.device).expand(B))
 
 
 def quantize_kv(k: torch.Tensor, v: torch.Tensor, cfg: PIMConfig,
@@ -100,6 +216,63 @@ def cache_write(cache: KVCache, k: torch.Tensor, v: torch.Tensor, pos: int,
     cache.k_scale[:, :, pos:pos + S] = ks.transpose(1, 2)
     cache.v_scale[:, :, pos:pos + S] = vs.transpose(1, 2)
     cache.length = pos + S
+    return cache
+
+
+DEBUG_CACHE_WRITES = bool(int(os.environ.get("REPRO_DEBUG_CACHE_WRITES", "0")))
+"""When set (or `debug=True` is passed), `cache_write_ragged` raises on rows
+whose valid tokens would not fit the buffer instead of dropping them."""
+
+
+def cache_write_ragged(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
+                       pos: torch.Tensor, cfg: PIMConfig,
+                       seq_lens: Optional[torch.Tensor] = None,
+                       debug: Optional[bool] = None) -> KVCache:
+    """Per-slot write in place: row b writes its S tokens at positions
+    [pos_b, pos_b + S), and its length becomes pos_b + seq_lens_b (default
+    S), capped at max_len.  Padding past `seq_lens` is written but never
+    advertised; a row with seq_lens 0 keeps length pos.
+
+    Drop mode, as in the reference: tokens whose position falls at or past
+    max_len vanish and the in-bounds prefix of the row is still written.
+    With `debug` (or REPRO_DEBUG_CACHE_WRITES=1) an overflow raises
+    ValueError before any write; that check reads `pos` on the host.
+
+    No host sync otherwise: each row writes the in-bounds window
+    [start_b, start_b + S) with start_b = min(pos_b, max_len - S), whose
+    leading pos_b - start_b entries get their own current contents back."""
+    B, S = k.shape[:2]
+    max_len = cache.k_q.shape[2]
+    if S > max_len:
+        raise ValueError(f"a {S}-token ragged write exceeds the {max_len}-"
+                         "token cache")
+    pos = pos.long()
+    end = pos + (S if seq_lens is None else seq_lens.long())
+    if DEBUG_CACHE_WRITES if debug is None else debug:
+        bad = torch.nonzero(end > max_len).flatten().tolist()
+        if bad:
+            raise ValueError(
+                f"cache_write_ragged overflow: rows {bad} write past "
+                f"max_len={max_len} (pos={pos[bad].tolist()}, "
+                f"end={end[bad].tolist()}); tokens beyond the buffer are "
+                "dropped and `length` is capped, pass debug=False to accept "
+                "the truncation contract")
+    kv_bits = cache_kv_bits(cache.k_q.shape[-1], k.shape[-1])
+    k_q, v_q, ks, vs = quantize_kv(k, v, cfg, kv_bits)
+    j = torch.arange(S, device=k.device)
+    start = torch.clamp(pos, max=max_len - S)
+    cols = start[:, None] + j                                  # (B, S)
+    shift = (pos - start)[:, None]
+    src = torch.clamp(j - shift, min=0)                        # (B, S)
+    keep_old = j < shift                                       # (B, S)
+    rows = torch.arange(B, device=k.device)[:, None]
+    for plane, new in ((cache.k_q, k_q), (cache.v_q, v_q),
+                       (cache.k_scale, ks), (cache.v_scale, vs)):
+        tail = (1,) * (new.dim() - 2)
+        new = torch.gather(new, 1, src.view(B, S, *tail).expand(new.shape))
+        old = plane[rows, :, cols]                             # (B, S, Hkv, ...)
+        plane[rows, :, cols] = torch.where(keep_old.view(B, S, *tail), old, new)
+    cache.length = torch.clamp(end, max=max_len).to(torch.int32)
     return cache
 
 

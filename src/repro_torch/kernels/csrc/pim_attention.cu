@@ -12,6 +12,20 @@
 // above the causal diagonal, outside the window, or a q block past q_len)
 // is skipped before any load, and the CTA counts the blocks it ran.
 //
+// Paged mode (a non-null page table, `nb` rows of `n_kblk` int32 entries):
+// block_k is the page size and KV block ki of sequence b is physical page
+// pt[b, ki] of the pool (P, page_size, Hkv, dhk), read in place: the head's
+// rows lie Hkv * dhk bytes apart, so the pool is never transposed or copied.
+// An entry < 0 (unallocated) is skipped before any load and counts no
+// iteration, even with prune off, as in the reference.  Cost on this card:
+// a 16-token page is a 16-row tile, so a prefill CTA runs 16x more and
+// smaller tile loads than at block_k 256, each with the same load latency
+// and barriers and nothing to overlap them with: 1.64 ms against the dense
+// kernel's 0.87 ms at Sq 512 (causal, batch 4, 16/8 heads, head_dim 128,
+// H100 SXM at 700 W).  A faster design walks several pages per block (one
+// table read per page, one barrier per block) and prefetches the next page
+// with cp.async while the current one computes.
+//
 // What bounds it on the H100: at serving shapes the K/V bytes of each
 // head group are re-read by every q block of every head of the group, and
 // the e * V product runs on the CUDA cores in f32 (one multiply-add per
@@ -40,6 +54,7 @@ pim_attention_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
                      const int8_t* __restrict__ k, const float* __restrict__ ks,
                      const int8_t* __restrict__ v, const float* __restrict__ vs,
                      const int* __restrict__ scalars, int nb,
+                     const int* __restrict__ pt,
                      const int* __restrict__ table, const int8_t* __restrict__ levels,
                      float* __restrict__ out, int* __restrict__ iters,
                      int sq, int dh, int dhk, int sk, int block_q, int block_k,
@@ -68,11 +83,10 @@ pim_attention_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
   const int q_offset = scalars[b];
   const int kv_len = scalars[nb + b];
   const int q_len = scalars[2 * nb + b];
-  const int bhkv = bh / q_per_kv;
-  const int8_t* k_head = k + (size_t)bhkv * sk * dhk;
-  const int8_t* v_head = v + (size_t)bhkv * sk * dhk;
-  const float* ks_head = ks + (size_t)bhkv * sk;
-  const float* vs_head = vs + (size_t)bhkv * sk;
+  // dense: the flat b * Hkv + h KV row; paged: h, of h_per_b / q_per_kv heads
+  const bool paged = pt != nullptr;
+  const int hkv = h_per_b / q_per_kv;
+  const int head = paged ? (bh / q_per_kv) % hkv : bh / q_per_kv;
 
   for (int i = tid; i < 256; i += blockDim.x) tab[i] = static_cast<float>(table[i]);
   if (tid < 16) lev_s[tid] = levels[tid];
@@ -105,6 +119,8 @@ pim_attention_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
 
   for (int ki = 0; ki < n_kblk; ++ki) {
     const int k_start = ki * block_k;
+    const int page = paged ? pt[(size_t)b * n_kblk + ki] : 0;
+    if (page < 0) continue;  // unallocated: uniform over the CTA
     bool needed = qi * block_q < q_len;
     if (prune) {
       needed = needed && k_start < kv_len;
@@ -114,13 +130,11 @@ pim_attention_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
     if (!needed) continue;  // uniform over the CTA
     ++n_iter;
     __syncthreads();        // the previous block is done with the tiles
-    pim::load_kv_tile(k_s, k_head, k_start, block_k, sk, dh, dhk, lev_s);
-    pim::load_kv_tile(v_s, v_head, k_start, block_k, sk, dh, dhk, lev_s);
-    for (int j = tid; j < block_k; j += blockDim.x) {
-      const int s = k_start + j;
-      ks_s[j] = s < sk ? ks_head[s] : 0.0f;
-      vs_s[j] = s < sk ? vs_head[s] : 0.0f;
-    }
+    const pim::KvTile t = pim::kv_tile(paged, page, head, hkv, k_start, block_k, sk);
+    pim::load_kv_tile(k_s, k + t.row0 * dhk, block_k, t.valid, t.stride * dhk, dh, dhk, lev_s);
+    pim::load_kv_tile(v_s, v + t.row0 * dhk, block_k, t.valid, t.stride * dhk, dh, dhk, lev_s);
+    pim::load_scales(ks_s, ks + t.row0, block_k, t.valid, (int)t.stride);
+    pim::load_scales(vs_s, vs + t.row0, block_k, t.valid, (int)t.stride);
     __syncthreads();
 
     // scores -> masked 8-bit codes
@@ -204,15 +218,18 @@ extern "C" int pim_attention_smem_bytes(int block_q, int block_k, int dh) {
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
+// `page_table` is null for a dense cache; otherwise (nb, n_kblk) int32 and
+// block_k is the page size.
 extern "C" int pim_attention_launch(
     const void* q, const void* qs, const void* k, const void* ks,
     const void* v, const void* vs, const void* scalars, int nb,
-    const void* table, const void* levels, void* out, void* iters, int bh,
+    const void* page_table, const void* table, const void* levels, void* out,
+    void* iters, int bh,
     int sq, int dh, int dhk, int sk, int block_q, int block_k, int n_qblk,
     int n_kblk, int q_per_kv, int h_per_b, int causal, int window, int prune,
     float sm_scale, float score_scale, float qmax, float table_scale,
     void* stream) {
-  if (block_q * dh > kMaxAccPerThread * pim::kThreads || dh % 4 != 0)
+  if (block_q * dh > kMaxAccPerThread * pim::kThreads || dhk % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = pim_attention_smem_bytes(block_q, block_k, dh);
   cudaError_t err = pim::allow_smem(pim_attention_kernel, smem, &g_smem_granted);
@@ -223,7 +240,8 @@ extern "C" int pim_attention_launch(
       static_cast<const int8_t*>(q), static_cast<const float*>(qs),
       static_cast<const int8_t*>(k), static_cast<const float*>(ks),
       static_cast<const int8_t*>(v), static_cast<const float*>(vs),
-      static_cast<const int*>(scalars), nb, static_cast<const int*>(table),
+      static_cast<const int*>(scalars), nb, static_cast<const int*>(page_table),
+      static_cast<const int*>(table),
       static_cast<const int8_t*>(levels), static_cast<float*>(out),
       static_cast<int*>(iters), sq, dh, dhk, sk, block_q, block_k, n_qblk,
       n_kblk, q_per_kv, h_per_b, causal, window, prune, sm_scale, score_scale,

@@ -22,12 +22,15 @@ __device__ inline int lut_index(float x) {
   return static_cast<int>(fminf(fmaxf(x, 0.0f), 255.0f));
 }
 
-// Copy rows [row0, row0 + nrows) of one head's K or V plane into shared
-// memory as int8 values.  `src` is the head's plane: `sk` rows of `dhk`
-// bytes.  At 4 bits (dhk == dh / 2) byte c holds code c in its low nibble
-// and code c + dh / 2 in its high nibble; each code is mapped through the
-// 16-entry level table, whose levels are exact int8 values.  Rows at or
-// past `sk` are zero.
+// Copy an `nrows`-row tile of one head's K or V into shared memory as int8
+// values.  Row r of the tile is `dhk` bytes at `src + r * stride`: the
+// stride is `dhk` for a head of the dense cache, and `Hkv * dhk` for a head
+// inside the rows of a page of the pool, which is read in place.  Rows at
+// or past `valid` are zero.  At 4 bits (dhk == dh / 2) byte c holds code c
+// in its low nibble and code c + dh / 2 in its high nibble; each code is
+// mapped through the 16-entry level table, whose levels are exact int8
+// values.  The wrapper guarantees dhk % 16 == 0, `stride` % 16 == 0 and a
+// 16-byte aligned `src`.
 //
 // A decode step reads a tile once from HBM (the cache was last touched a
 // step earlier, so it is not in L2), and a CTA has nothing to hide the load
@@ -38,10 +41,10 @@ __device__ inline int lut_index(float x) {
 constexpr int kLoadBatch = 4;
 
 __device__ inline void load_kv_tile(int8_t* dst, const int8_t* __restrict__ src,
-                                    int row0, int nrows, int sk, int dh,
-                                    int dhk, const int8_t* levels) {
+                                    int nrows, int valid, size_t stride,
+                                    int dh, int dhk, const int8_t* levels) {
   const int ld = tile_ld(dh);
-  if (dhk == dh && dh % 16 == 0) {
+  if (dhk == dh) {
     const int vecs = dh / 16;
     const int total = nrows * vecs;
     for (int i0 = threadIdx.x; i0 < total; i0 += kLoadBatch * blockDim.x) {
@@ -51,8 +54,8 @@ __device__ inline void load_kv_tile(int8_t* dst, const int8_t* __restrict__ src,
         const int i = i0 + u * blockDim.x;
         const int r = i / vecs, c = i - r * vecs;
         val[u] = make_int4(0, 0, 0, 0);
-        if (i < total && row0 + r < sk)
-          val[u] = reinterpret_cast<const int4*>(src + (size_t)(row0 + r) * dh)[c];
+        if (i < total && r < valid)
+          val[u] = reinterpret_cast<const int4*>(src + r * stride)[c];
       }
 #pragma unroll
       for (int u = 0; u < kLoadBatch; ++u) {
@@ -67,25 +70,14 @@ __device__ inline void load_kv_tile(int8_t* dst, const int8_t* __restrict__ src,
         }
       }
     }
-  } else if (dhk == dh) {
-    const int words = dh / 4;
-    for (int i = threadIdx.x; i < nrows * words; i += blockDim.x) {
-      const int r = i / words, w = i - r * words;
-      const int s = row0 + r;
-      int val = 0;
-      if (s < sk) val = reinterpret_cast<const int*>(src + (size_t)s * dh)[w];
-      reinterpret_cast<int*>(dst + r * ld)[w] = val;
-    }
   } else {
     const int words = dhk / 4;
     const int half = dh / 2;
     for (int i = threadIdx.x; i < nrows * words; i += blockDim.x) {
       const int r = i / words, w = i - r * words;
-      const int s = row0 + r;
       uint32_t lo = 0, hi = 0;
-      if (s < sk) {
-        const uint32_t val =
-            reinterpret_cast<const uint32_t*>(src + (size_t)s * dhk)[w];
+      if (r < valid) {
+        const uint32_t val = reinterpret_cast<const uint32_t*>(src + r * stride)[w];
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
           const uint32_t byte = (val >> (8 * b)) & 0xFFu;
@@ -97,6 +89,32 @@ __device__ inline void load_kv_tile(int8_t* dst, const int8_t* __restrict__ src,
       reinterpret_cast<uint32_t*>(dst + r * ld + half)[w] = hi;
     }
   }
+}
+
+// The `n` per-token scales of a tile, `stride` floats apart (1 in the dense
+// cache, Hkv in a page); entries at or past `valid` are zero.
+__device__ inline void load_scales(float* dst, const float* __restrict__ src,
+                                   int n, int valid, int stride) {
+  for (int j = threadIdx.x; j < n; j += blockDim.x)
+    dst[j] = j < valid ? src[(size_t)j * stride] : 0.0f;
+}
+
+// Where the tile of KV block `ki` of one head lies, in (token, head) units:
+// K/V bytes start at row0 * dhk with `stride` * dhk bytes between token
+// rows, scales at row0 with `stride` floats between them.  Dense: `head`
+// is the flat b * Hkv + h row of the (B * Hkv, sk) planes.  Paged: `head`
+// is h, and the tile is the head's column of physical page `page` of the
+// (P, block_k, Hkv) pool, read in place.
+struct KvTile {
+  size_t row0;
+  size_t stride;
+  int valid;     // rows of the tile that exist
+};
+
+__device__ inline KvTile kv_tile(bool paged, int page, int head, int hkv,
+                                 int k_start, int block_k, int sk) {
+  if (paged) return {(size_t)page * block_k * hkv + head, (size_t)hkv, block_k};
+  return {(size_t)head * sk + k_start, 1, sk - k_start};
 }
 
 // Exact int8 dot product of two shared-memory rows of `dh` values.

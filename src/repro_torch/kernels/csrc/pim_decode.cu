@@ -24,6 +24,23 @@
 // the tile loads (which `load_kv_tile` batches) and of the launch; a
 // persistent or CUDA-graph launch is the next step.
 //
+// Paged mode (a non-null (nb, n_kblk) int32 page table): one split-K
+// partition is one page, block_k is the page size and the grid is
+// (n_kblk, B * Hkv).  Partition ki of slot b reads physical page pt[b, ki]
+// of the pool (P, page_size, Hkv, dhk) in place, the head's rows Hkv * dhk
+// bytes apart; an unallocated entry (< 0) emits (kNeg, 0, 0) without a
+// load, like a partition past kv_len, so the combine adds exact zeros and
+// paged equals dense at block_k == page_size bit for bit.  Cost on this
+// card: 16-token pages give 16x more CTAs than block_k 256, each loading a
+// 16-row tile and writing a partial the combine reads back, so at long
+// contexts the step pays per-CTA latency and partial traffic rather than
+// KV bytes, and the combine walks every table entry: 0.153 ms against the
+// dense 0.034 ms at kv_len 4096 (batch 4, 16/8 heads, head_dim 128, H100
+// SXM at 700 W), 0.084 ms of it in the combine.  A faster design gives a
+// CTA several pages of the row (combining them online in shared memory),
+// prefetches the next page with cp.async, and combines only the allocated
+// partitions.
+//
 // Exactness: every row's arithmetic depends only on its own q row, bound
 // and the partition, never on how many rows are packed, so a verify row is
 // bit-identical to the single-step decode at its position.  The combine
@@ -39,6 +56,7 @@ pim_decode_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
                   const int8_t* __restrict__ k, const float* __restrict__ ks,
                   const int8_t* __restrict__ v, const float* __restrict__ vs,
                   const int* __restrict__ scalars, int nb,
+                  const int* __restrict__ pt,
                   const int* __restrict__ table, const int8_t* __restrict__ levels,
                   float* __restrict__ part_m, float* __restrict__ part_den,
                   float* __restrict__ part_acc, int* __restrict__ iters,
@@ -68,7 +86,9 @@ pim_decode_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
   const int k_start = ki * block_k;
   // the partition gate uses the reach of the last valid row
   const int q_hi = q_pos + n_valid - 1;
-  bool needed = q_len > 0 && k_start < kv_len;
+  const bool paged = pt != nullptr;
+  const int page = paged ? pt[(size_t)b * n_kblk + ki] : 0;
+  bool needed = page >= 0 && q_len > 0 && k_start < kv_len;
   if (causal) needed = needed && k_start <= q_hi;
   if (window) needed = needed && (k_start + block_k - 1) > (q_pos - window);
 
@@ -99,13 +119,13 @@ pim_decode_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
   }
   for (int r = tid; r < rows; r += blockDim.x) qs_s[r] = qs[(size_t)bhkv * rows + r];
   __syncthreads();  // levels are in shared memory before the tile loads
-  pim::load_kv_tile(k_s, k + (size_t)bhkv * sk * dhk, k_start, block_k, sk, dh, dhk, lev_s);
-  pim::load_kv_tile(v_s, v + (size_t)bhkv * sk * dhk, k_start, block_k, sk, dh, dhk, lev_s);
-  for (int j = tid; j < block_k; j += blockDim.x) {
-    const int s = k_start + j;
-    ks_s[j] = s < sk ? ks[(size_t)bhkv * sk + s] : 0.0f;
-    vs_s[j] = s < sk ? vs[(size_t)bhkv * sk + s] : 0.0f;
-  }
+  // dense: the flat b * Hkv + h row; paged: h, of hkv_per_b (== Hkv) heads
+  const int head = paged ? bhkv % hkv_per_b : bhkv;
+  const pim::KvTile t = pim::kv_tile(paged, page, head, hkv_per_b, k_start, block_k, sk);
+  pim::load_kv_tile(k_s, k + t.row0 * dhk, block_k, t.valid, t.stride * dhk, dh, dhk, lev_s);
+  pim::load_kv_tile(v_s, v + t.row0 * dhk, block_k, t.valid, t.stride * dhk, dh, dhk, lev_s);
+  pim::load_scales(ks_s, ks + t.row0, block_k, t.valid, (int)t.stride);
+  pim::load_scales(vs_s, vs + t.row0, block_k, t.valid, (int)t.stride);
   __syncthreads();
 
   // scores -> masked 8-bit codes; row r is query position q_pos + r / g
@@ -193,15 +213,17 @@ extern "C" int pim_decode_smem_bytes(int rows, int block_k, int dh) {
          (rows + 2 * block_k) * ld + 16;
 }
 
-// Stage 1: partials of every (partition, b * Hkv).  Returns cudaGetLastError().
+// Stage 1: partials of every (partition, b * Hkv).  `page_table` is null for
+// a dense cache; otherwise (nb, n_kblk) int32 and block_k is the page size.
+// Returns cudaGetLastError().
 extern "C" int pim_decode_launch(
     const void* q, const void* qs, const void* k, const void* ks,
     const void* v, const void* vs, const void* scalars, int nb,
-    const void* table, const void* levels, void* part_m, void* part_den,
-    void* part_acc, void* iters, int bhkv, int rows, int g, int sq, int dh,
+    const void* page_table, const void* table, const void* levels,
+    void* part_m, void* part_den, void* part_acc, void* iters, int bhkv, int rows, int g, int sq, int dh,
     int dhk, int sk, int block_k, int n_kblk, int hkv_per_b, int causal,
     int window, float sm_scale, float score_scale, float qmax, void* stream) {
-  if (dh % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dhk % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = pim_decode_smem_bytes(rows, block_k, dh);
   cudaError_t err = pim::allow_smem(pim_decode_kernel, smem, &g_smem_granted);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -210,7 +232,8 @@ extern "C" int pim_decode_launch(
       static_cast<const int8_t*>(q), static_cast<const float*>(qs),
       static_cast<const int8_t*>(k), static_cast<const float*>(ks),
       static_cast<const int8_t*>(v), static_cast<const float*>(vs),
-      static_cast<const int*>(scalars), nb, static_cast<const int*>(table),
+      static_cast<const int*>(scalars), nb, static_cast<const int*>(page_table),
+      static_cast<const int*>(table),
       static_cast<const int8_t*>(levels), static_cast<float*>(part_m),
       static_cast<float*>(part_den), static_cast<float*>(part_acc),
       static_cast<int*>(iters), rows, g, sq, dh, dhk, sk, block_k, n_kblk,

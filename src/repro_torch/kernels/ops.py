@@ -1,8 +1,9 @@
 """Public wrappers over the attention kernels, in the model's layout.
 
-Counterpart of the JAX package's `kernels/ops.py` for the dense attention
-path.  The kernels take head-major int8 operands; these wrappers quantize
-q, view the head-major cache as the kernels' operands, and route each step: Sq == 1 (or
+Counterpart of the JAX package's `kernels/ops.py` for the attention path.
+The kernels take head-major int8 operands; these wrappers quantize q, hand
+the kernels views of the cache (the head-major dense planes, or the paged
+pool as it is stored), and route each step: Sq == 1 (or
 `force_decode_kernel`) to the split-K decode kernel, everything else to
 the prefill kernel.
 """
@@ -12,7 +13,7 @@ import torch
 
 from repro_torch.configs.base import LUTSoftmaxConfig, PIMConfig
 from repro_torch.core import quant
-from repro_torch.core.attention import KVCache
+from repro_torch.core.attention import KVCache, PagedKVCache
 from repro_torch.kernels.pim_attention import pim_attention
 from repro_torch.kernels.pim_decode import pim_decode
 
@@ -65,4 +66,31 @@ def pim_flash_attention(q: torch.Tensor, cache: KVCache, q_offset,
     else:
         o = pim_attention(*operands, q_offset, cache.length, pim_cfg, lut_cfg,
                           causal=causal, window=window, q_len=q_len)
+    return o.reshape(B, H, Sq, Dh).permute(0, 2, 1, 3).to(out_dtype)
+
+
+def pim_paged_flash_attention(q: torch.Tensor, pool: PagedKVCache,
+                              page_table: torch.Tensor, kv_len: torch.Tensor,
+                              q_offset: torch.Tensor,
+                              pim_cfg: PIMConfig = PIMConfig(),
+                              lut_cfg: LUTSoftmaxConfig = LUTSoftmaxConfig(),
+                              causal: bool = True, out_dtype=torch.bfloat16,
+                              decode_kernel: bool = True, q_len=None,
+                              force_decode_kernel: bool = False
+                              ) -> torch.Tensor:
+    """Fused PIM attention over the paged pool, (B, Sq, H, Dh) out: both
+    kernels walk each slot's row of the (B, n_tables) int32 `page_table`
+    through the pool's own planes (no per-step transpose of the pool).
+    Equal bit for bit to `pim_flash_attention` over a dense cache holding
+    the same tokens at block_k == page_size.  Routing as there; paged
+    layers have no sliding window."""
+    B, Sq, H, Dh = q.shape
+    q_q, qs = _q_kernel_layout(q, pim_cfg.input_bits)
+    operands = (q_q, qs, pool.k_q, pool.k_scale, pool.v_q, pool.v_scale)
+    if decode_kernel and (Sq == 1 or force_decode_kernel):
+        o = pim_decode(*operands, q_offset, kv_len, pim_cfg, lut_cfg,
+                       causal=causal, page_table=page_table, q_len=q_len)
+    else:
+        o = pim_attention(*operands, q_offset, kv_len, pim_cfg, lut_cfg,
+                          causal=causal, page_table=page_table, q_len=q_len)
     return o.reshape(B, H, Sq, Dh).permute(0, 2, 1, 3).to(out_dtype)

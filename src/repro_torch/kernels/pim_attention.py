@@ -8,8 +8,9 @@ header says what it computes, what bounds it on the card and how.
 `pim_attention` launches the kernel for CUDA tensors and runs
 `pim_attention_plain` for CPU tensors; it never falls back from one to the
 other.  The plain version repeats the kernel's grid: the same q and KV
-blocks, block early-outs, online update order and iteration counts, so it
-is the kernel's reference on the card and the port's kernel path on the CPU.
+blocks, page walk, block early-outs, online update order and iteration
+counts, so it is the kernel's reference on the card and the port's kernel
+path on the CPU.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ _NEG = float(-(1 << 24))
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "pim_attention_launch": [_P] * 7 + [_I] + [_P] * 4 + [_I] * 14
+    "pim_attention_launch": [_P] * 7 + [_I] + [_P] * 5 + [_I] * 14
                             + [_F] * 4 + [_P],
     "pim_attention_smem_bytes": [_I] * 3,
 }
@@ -39,19 +40,28 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def scalar_table(q_offset, kv_len, q_len, device):
+def scalar_table(q_offset, kv_len, q_len, device, nb: int = 1):
     """The (3, nb) int32 table [q_offset, kv_len, q_len] of a launch; each
-    entry is a scalar or a (B,) vector."""
+    entry is an int or a (B,) tensor on `device`, and nb is at least B.
+
+    On the card a (B,) entry must already be a device tensor: converting a
+    host array here would copy it synchronously, once per layer."""
     vals = (q_offset, kv_len, q_len)
     if all(isinstance(x, int) for x in vals):
         # one asynchronous copy from pinned memory, no stream synchronize
-        host = torch.tensor([[x] for x in vals], dtype=torch.int32)
+        host = torch.tensor([[x] * nb for x in vals], dtype=torch.int32)
         if torch.device(device).type == "cuda":
             host = host.pin_memory()
         return host.to(device, non_blocking=True)
-    cols = [torch.as_tensor(x, dtype=torch.int32, device=device).reshape(-1)
-            for x in vals]
-    nb = max(c.numel() for c in cols)
+    cols = []
+    for x in vals:
+        if not isinstance(x, (int, torch.Tensor)):
+            raise TypeError(f"launch scalars are ints or tensors, not {type(x)}")
+        if isinstance(x, torch.Tensor) and x.device != torch.device(device):
+            raise ValueError(f"launch scalars on {x.device}, operands on {device}")
+        cols.append(torch.as_tensor(x, dtype=torch.int32, device=device
+                                    ).reshape(-1))
+    nb = max([nb] + [c.numel() for c in cols])
     return torch.stack([c.expand(nb) for c in cols]).contiguous()
 
 
@@ -72,20 +82,63 @@ def kv_values(x: torch.Tensor, dh: int) -> torch.Tensor:
     return kv4_decode_int8(x) if x.shape[-1] * 2 == dh else x
 
 
+def kv_blocks(k_q, k_scale, v_q, v_scale, page_table, seq, head,
+              bk: int, dh: int):
+    """The plain versions' view of the KV operands: for N KV rows, row i
+    being head `head[i]` of sequence `seq[i]`, returns int8 K and V values
+    (N, n_k, bk, dh), their scales (N, n_k, bk) and the (N, n_k) map of
+    allocated blocks.  Dense planes (B*Hkv, Sk, ...) are cut into blocks of
+    bk (head is the flat KV row, rows past Sk are zero); a pool
+    (P, page_size, Hkv, ...) is walked through `page_table[seq]`, one page
+    per block (unallocated entries read page 0 and are marked)."""
+    if page_table is None:
+        n_k = cdiv(k_q.shape[1], bk)
+        pk = n_k * bk - k_q.shape[1]
+        f = torch.nn.functional
+
+        def cut(x, *tail):
+            x = f.pad(x, (0, 0) * len(tail) + (0, pk))[head]
+            return x.reshape((len(head), n_k, bk) + tail)
+
+        alloc = torch.ones((len(head), n_k), dtype=torch.bool,
+                           device=k_q.device)
+        return (cut(kv_values(k_q, dh), dh), cut(k_scale),
+                cut(kv_values(v_q, dh), dh), cut(v_scale), alloc)
+    pid = page_table.long()[seq]                           # (N, n_tables)
+    alloc = pid >= 0
+    pid, h = torch.clamp(pid, min=0), head[:, None]
+    return (kv_values(k_q, dh)[pid, :, h], k_scale[pid, :, h],
+            kv_values(v_q, dh)[pid, :, h], v_scale[pid, :, h], alloc)
+
+
 def _check(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table):
-    if page_table is not None:
-        raise NotImplementedError(
-            "paged KV (page_table) waits for the port of the scheduler")
+    """Shapes, types and devices of a launch; returns the number of KV
+    heads a sequence has in a paged launch (None for a dense one)."""
     BH, Sq, Dh = q_q.shape
-    BHkv, Sk, Dhk = k_q.shape
+    Dhk = k_q.shape[-1]
     if Dhk not in (Dh, Dh // 2) or v_q.shape != k_q.shape:
         raise ValueError(f"K/V {tuple(k_q.shape)} do not fit q {tuple(q_q.shape)}")
-    if BH % BHkv or q_scale.shape != (BH, Sq) or k_scale.shape != (BHkv, Sk) \
-            or v_scale.shape != (BHkv, Sk):
+    if page_table is None:
+        if k_q.dim() != 3:
+            raise ValueError(f"dense K/V are (B*Hkv, Sk, Dh), got {tuple(k_q.shape)}")
+        scale_shape, hkv, BHkv = k_q.shape[:2], None, k_q.shape[0]
+    else:
+        if k_q.dim() != 4:
+            raise ValueError("a paged K/V pool is (P, page_size, Hkv, Dh), "
+                             f"got {tuple(k_q.shape)}")
+        if page_table.dim() != 2 or page_table.dtype != torch.int32:
+            raise ValueError("the page table is a (B, n_tables) int32 tensor")
+        scale_shape, hkv = k_q.shape[:3], k_q.shape[2]
+        BHkv = page_table.shape[0] * hkv
+    if BH % BHkv or q_scale.shape != (BH, Sq) or k_scale.shape != scale_shape \
+            or v_scale.shape != scale_shape:
         raise ValueError("attention operand shapes disagree")
-    devs = {t.device for t in (q_q, q_scale, k_q, k_scale, v_q, v_scale)}
+    ts = (q_q, q_scale, k_q, k_scale, v_q, v_scale) + (
+        () if page_table is None else (page_table,))
+    devs = {t.device for t in ts}
     if len(devs) != 1:
         raise ValueError(f"attention operands on several devices: {devs}")
+    return hkv
 
 
 def pim_attention(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_offset, kv_len,
@@ -107,12 +160,18 @@ def pim_attention(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_offset, kv_len,
     at q_offset[b], its cache holds kv_len[b] tokens and q_len[b] of its
     queries are valid (q blocks past it run no KV block).  `block_q` is
     clamped to the 8-rounded Sq, as in the reference, so iteration counts
-    compare block for block."""
-    _check(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table)
+    compare block for block.
+
+    With `page_table` ((B, n_tables) int32, -1 = unallocated), K/V are the
+    paged pool itself, (P, page_size, Hkv, Dh[/2]) with (P, page_size, Hkv)
+    scales: block_k is the page size, KV block ki of sequence b is page
+    page_table[b, ki], and unallocated entries run no iteration."""
+    hkv = _check(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table)
     if q_q.is_cuda:
         return _attention(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_offset,
                           kv_len, lut_cfg, causal, window, block_q, block_k,
-                          prune, return_iters, q_len, _launch)
+                          prune, return_iters, q_len, page_table, hkv,
+                          _launch)
     if q_q.device.type != "cpu":
         raise ValueError(f"no pim_attention kernel for {q_q.device}")
     return pim_attention_plain(q_q, q_scale, k_q, k_scale, v_q, v_scale,
@@ -129,47 +188,54 @@ def pim_attention_plain(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_offset,
                         prune: bool = True, return_iters: bool = False,
                         page_table: Optional[torch.Tensor] = None, q_len=None):
     """The plain PyTorch version of `pim_attention`, on any device."""
-    _check(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table)
+    hkv = _check(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table)
     return _attention(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_offset,
                       kv_len, lut_cfg, causal, window, block_q, block_k,
-                      prune, return_iters, q_len, _plain)
+                      prune, return_iters, q_len, page_table, hkv, _plain)
 
 
 def _attention(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_offset, kv_len,
                lut_cfg, causal, window, block_q, block_k, prune,
-               return_iters, q_len, impl):
+               return_iters, q_len, page_table, hkv, impl):
     BH, Sq, Dh = q_q.shape
+    paged = page_table is not None
     scalars = scalar_table(q_offset, kv_len, Sq if q_len is None else q_len,
-                           q_q.device)
-    if BH % scalars.shape[1]:
-        raise ValueError(f"{BH} q rows do not split over {scalars.shape[1]} "
-                         "sequences")
+                           q_q.device, page_table.shape[0] if paged else 1)
+    nb = scalars.shape[1]
+    if BH % nb or (paged and nb != page_table.shape[0]):
+        raise ValueError(f"{BH} q rows do not split over {nb} sequences")
+    if paged:
+        block_k = k_q.shape[1]
+    q_per_kv = BH // (nb * hkv) if paged else BH // k_q.shape[0]
     block_q = min(block_q, max(8, cdiv(Sq, 8) * 8))
     out, iters = impl(q_q, q_scale.float(), k_q, k_scale, v_q, v_scale,
-                      scalars, lut_cfg, causal, window, block_q, block_k,
-                      prune)
+                      page_table, scalars, q_per_kv, lut_cfg, causal, window,
+                      block_q, block_k, prune)
     return (out, iters) if return_iters else out
 
 
-def _plain(q_q, q_scale, k_q, k_scale, v_q, v_scale, scalars, lut_cfg,
-           causal, window, bq, bk, prune):
+def _plain(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table, scalars,
+           q_per_kv, lut_cfg, causal, window, bq, bk, prune):
     BH, Sq, Dh = q_q.shape
-    BHkv, Sk, _ = k_q.shape
     dev = q_q.device
-    nb = scalars.shape[1]
-    n_q, n_k = cdiv(Sq, bq), cdiv(Sk, bk)
-    pq, pk = n_q * bq - Sq, n_k * bk - Sk
+    # q row bh reads KV head `head` of sequence `seq`: the flat KV row of a
+    # dense launch, the head inside a page row of a paged one
+    seq = torch.arange(BH, device=dev) // (BH // scalars.shape[1])
+    head = torch.arange(BH, device=dev) // q_per_kv
+    if page_table is not None:
+        head = head % k_q.shape[2]
+    n_q = cdiv(Sq, bq)
+    pq = n_q * bq - Sq
     f = torch.nn.functional
     q4 = f.pad(q_q, (0, 0, 0, pq)).reshape(BH, n_q, bq, Dh).double()
     qs4 = f.pad(q_scale, (0, pq)).reshape(BH, n_q, bq)
-    k_v = f.pad(kv_values(k_q, Dh), (0, 0, 0, pk))
-    v_v = f.pad(kv_values(v_q, Dh), (0, 0, 0, pk))
-    ks, vs = f.pad(k_scale, (0, pk)), f.pad(v_scale, (0, pk))
+    # one KV row per q head (GQA groups read the same blocks)
+    k_v, ks, v_v, vs, alloc = kv_blocks(k_q, k_scale, v_q, v_scale,
+                                        page_table, seq, head, bk, Dh)
+    n_k = k_v.shape[1]
 
-    rows = torch.arange(BH, device=dev)
-    seq = scalars.long()[:, rows // (BH // nb)]            # (3, BH)
-    q_off, kvl, ql = seq[0, :, None], seq[1, :, None], seq[2, :, None]
-    kv_rows = rows // (BH // BHkv)
+    sc = scalars.long()[:, seq]                            # (3, BH)
+    q_off, kvl, ql = sc[0, :, None], sc[1, :, None], sc[2, :, None]
     qi = torch.arange(n_q, device=dev)[None, :]
     q_lo = q_off + qi * bq                                 # (BH, n_q)
     q_hi = q_off + torch.minimum((qi + 1) * bq, ql) - 1
@@ -185,16 +251,15 @@ def _plain(q_q, q_scale, k_q, k_scale, v_q, v_scale, scalars, lut_cfg,
     iters = torch.zeros((BH, n_q), dtype=torch.int32, device=dev)
     for ki in range(n_k):
         k_start = ki * bk
-        needed = qi * bq < ql
+        needed = (qi * bq < ql) & alloc[:, ki:ki + 1]
         if prune:
             needed = needed & block_needed(k_start, bk, q_lo, q_hi, kvl,
                                            causal, window)
         if not bool(needed.any()):
             continue
         iters += needed.to(torch.int32)
-        kb = k_v[kv_rows, k_start:k_start + bk]           # (BH, bk, Dh)
-        s_int = torch.einsum("bqid,bkd->bqik", q4, kb.double()).float()
-        ksb = ks[kv_rows, k_start:k_start + bk]
+        s_int = torch.einsum("bqid,bkd->bqik", q4, k_v[:, ki].double()).float()
+        ksb = ks[:, ki]
         s_real = s_int * qs4[..., None] * ksb[:, None, None, :] * sm_scale
         codes = torch.clamp(torch.round(s_real / lut_cfg.score_scale),
                             -qmax - 1.0, qmax)
@@ -212,8 +277,7 @@ def _plain(q_q, q_scale, k_q, k_scale, v_q, v_scale, scalars, lut_cfg,
         e = torch.where(
             mask, table[torch.clamp(m_new[..., None] - codes, 0, 255).long()],
             0.0)
-        vb = v_v[kv_rows, k_start:k_start + bk].float() \
-            * vs[kv_rows, k_start:k_start + bk][..., None]
+        vb = v_v[:, ki].float() * vs[:, ki][..., None]
         pv = torch.einsum("bqik,bkd->bqid", e, vb)
         upd = needed[..., None]
         den = torch.where(upd, den * resc + e.sum(dim=-1), den)
@@ -227,13 +291,21 @@ def _lib():
     return _build.load("pim_attention", _SIGNATURES)
 
 
-def _launch(q_q, q_scale, k_q, k_scale, v_q, v_scale, scalars, lut_cfg,
-            causal, window, bq, bk, prune):
+def check_launch_operands(ops, Dhk: int):
+    """What both kernels need of their operands: 16-byte loads of whole
+    K/V rows, from 16-byte aligned planes."""
+    if Dhk % 16:
+        raise ValueError(f"stored K/V head dim {Dhk} is not a multiple of 16")
+    for t in ops:
+        if t.data_ptr() % 16:
+            raise ValueError("attention operands must be 16-byte aligned")
+
+
+def _launch(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table, scalars,
+            q_per_kv, lut_cfg, causal, window, bq, bk, prune):
     BH, Sq, Dh = q_q.shape
-    BHkv, Sk, Dhk = k_q.shape
+    Dhk = k_q.shape[-1]
     dev = q_q.device
-    if Dh % 4 or Dhk % 4:
-        raise ValueError(f"head dim {Dh} (stored {Dhk}) is not a multiple of 4")
     if bq * Dh > 32 * 256:
         raise ValueError(f"block_q * head_dim = {bq * Dh} exceeds 8192")
     lib = _lib()
@@ -243,19 +315,21 @@ def _launch(q_q, q_scale, k_q, k_scale, v_q, v_scale, scalars, lut_cfg,
                          "bytes of shared memory")
     ops = [t.contiguous() for t in
            (q_q, q_scale, k_q, k_scale.float(), v_q, v_scale.float())]
-    for t in ops:
-        if t.data_ptr() % 16:
-            raise ValueError("attention operands must be 16-byte aligned")
+    check_launch_operands(ops, Dhk)
+    pt = None if page_table is None else page_table.contiguous()
     table, frac = build_exp_table(lut_cfg, dev)
     levels = kv4_levels(dev)
-    n_q, n_k = cdiv(Sq, bq), cdiv(Sk, bk)
+    Sk = k_q.shape[1]
+    n_q = cdiv(Sq, bq)
+    n_k = cdiv(Sk, bk) if pt is None else pt.shape[1]
     out = torch.empty((BH, Sq, Dh), dtype=torch.float32, device=dev)
     iters = torch.empty((BH, n_q), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.pim_attention_launch(
         *[t.data_ptr() for t in ops], scalars.data_ptr(), scalars.shape[1],
-        table.data_ptr(), levels.data_ptr(), out.data_ptr(), iters.data_ptr(),
-        BH, Sq, Dh, Dhk, Sk, bq, bk, n_q, n_k, BH // BHkv,
+        None if pt is None else pt.data_ptr(), table.data_ptr(),
+        levels.data_ptr(), out.data_ptr(), iters.data_ptr(),
+        BH, Sq, Dh, Dhk, Sk, bq, bk, n_q, n_k, q_per_kv,
         BH // scalars.shape[1], int(causal), int(window), int(prune),
         1.0 / (Dh ** 0.5), lut_cfg.score_scale,
         float((1 << (lut_cfg.input_bits - 1)) - 1), 1.0 / (1 << frac), stream)

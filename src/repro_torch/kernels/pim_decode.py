@@ -8,7 +8,7 @@ says what they compute, what bounds them on the card and how.
 `pim_decode` launches the kernels for CUDA tensors and runs the plain
 version for CPU tensors, never one in place of the other.  The plain
 version repeats the kernel's grid: the same row packing r = l * G + g, the
-same per-partition early-outs and partials, and the same combine, which
+same page walk, per-partition early-outs and partials, and the same combine, which
 runs the partitions in order with separately rounded multiply and add.
 Rows are computed one at a time, so that a row's arithmetic never depends
 on how many rows share the launch (verify rows stay bit-identical to
@@ -26,11 +26,12 @@ from repro_torch.core.lut_softmax import build_exp_table
 from repro_torch.core.quant import kv4_levels
 from repro_torch.kernels import _build
 from repro_torch.kernels.pim_attention import (
-    MAX_SMEM, _NEG, _check, block_needed, cdiv, kv_values, scalar_table)
+    MAX_SMEM, _NEG, _check, block_needed, cdiv, check_launch_operands,
+    kv_blocks, scalar_table)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "pim_decode_launch": [_P] * 7 + [_I] + [_P] * 6 + [_I] * 12 + [_F] * 3
+    "pim_decode_launch": [_P] * 7 + [_I] + [_P] * 7 + [_I] * 12 + [_F] * 3
                          + [_P],
     "pim_decode_combine_launch": [_P] * 5 + [_I] * 4 + [_F] + [_P],
     "pim_decode_smem_bytes": [_I] * 3,
@@ -50,12 +51,17 @@ def pim_decode(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_offset, kv_len,
     Operands as in `pim_attention`.  Sq is 1, or k + 1 speculative verify
     positions: slot b's queries sit at q_offset[b] .. q_offset[b] +
     q_len[b] - 1 (q_len defaults to Sq; 0 runs no partition and returns
-    zeros).  Rows past q_len are fully masked; callers slice them away."""
-    _check(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table)
+    zeros).  Rows past q_len are fully masked; callers slice them away.
+
+    With `page_table`, K/V are the paged pool as in `pim_attention`: one
+    partition is one page (block_k is the page size, the grid is
+    (n_tables, B * Hkv)), and an unallocated page emits (_NEG, 0, 0), an
+    exact zero in the combine."""
+    hkv = _check(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table)
     if q_q.is_cuda:
         return _decode(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_offset,
                        kv_len, lut_cfg, causal, window, block_k,
-                       return_iters, q_len, _launch)
+                       return_iters, q_len, page_table, hkv, _launch)
     if q_q.device.type != "cpu":
         raise ValueError(f"no pim_decode kernel for {q_q.device}")
     return pim_decode_plain(q_q, q_scale, k_q, k_scale, v_q, v_scale,
@@ -70,30 +76,34 @@ def pim_decode_plain(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_offset,
                      return_iters: bool = False,
                      page_table: Optional[torch.Tensor] = None, q_len=None):
     """The plain PyTorch version of `pim_decode`, on any device."""
-    _check(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table)
+    hkv = _check(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table)
     return _decode(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_offset,
                    kv_len, lut_cfg, causal, window, block_k, return_iters,
-                   q_len, _plain)
+                   q_len, page_table, hkv, _plain)
 
 
 def _decode(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_offset, kv_len,
-            lut_cfg, causal, window, block_k, return_iters, q_len, impl):
+            lut_cfg, causal, window, block_k, return_iters, q_len,
+            page_table, hkv, impl):
     BH, Sq, Dh = q_q.shape
-    BHkv = k_q.shape[0]
+    paged = page_table is not None
+    BHkv = page_table.shape[0] * hkv if paged else k_q.shape[0]
     G = BH // BHkv
     R = Sq * G
     scalars = scalar_table(q_offset, kv_len, Sq if q_len is None else q_len,
-                           q_q.device)
-    if BHkv % scalars.shape[1]:
-        raise ValueError(f"{BHkv} KV rows do not split over "
-                         f"{scalars.shape[1]} sequences")
+                           q_q.device, page_table.shape[0] if paged else 1)
+    nb = scalars.shape[1]
+    if BHkv % nb or (paged and nb != page_table.shape[0]):
+        raise ValueError(f"{BHkv} KV rows do not split over {nb} sequences")
+    if paged:
+        block_k = k_q.shape[1]
     # pack the q heads of each KV group and the verify positions as rows
     # r = l * G + g of one tile per KV head
     qg = q_q.reshape(BHkv, G, Sq, Dh).transpose(1, 2).reshape(BHkv, R, Dh)
     qsg = q_scale.float().reshape(BHkv, G, Sq).transpose(1, 2).reshape(BHkv, R)
     out, iters = impl(qg.contiguous(), qsg.contiguous(), k_q, k_scale, v_q,
-                      v_scale, scalars, lut_cfg, G, Sq, causal, window,
-                      block_k)
+                      v_scale, page_table, scalars, lut_cfg, G, Sq, causal,
+                      window, block_k)
     out = out.reshape(BHkv, Sq, G, Dh).transpose(1, 2).reshape(BH, Sq, Dh)
     return (out, iters) if return_iters else out
 
@@ -115,25 +125,24 @@ def combine_plain(part_m, part_den, part_acc, lut_cfg: LUTSoftmaxConfig):
     return acc / torch.clamp_min(den, 1.0)[..., None]
 
 
-def _plain(qg, qsg, k_q, k_scale, v_q, v_scale, scalars, lut_cfg, G, Sq,
-           causal, window, bk):
+def _plain(qg, qsg, k_q, k_scale, v_q, v_scale, page_table, scalars,
+           lut_cfg, G, Sq, causal, window, bk):
     BHkv, R, Dh = qg.shape
-    Sk = k_q.shape[1]
     dev = qg.device
-    nb = scalars.shape[1]
-    n_k = cdiv(Sk, bk)
-    pk = n_k * bk - Sk
-    f = torch.nn.functional
-    kv = f.pad(kv_values(k_q, Dh), (0, 0, 0, pk)).reshape(BHkv, n_k, bk, Dh)
-    vv = f.pad(kv_values(v_q, Dh), (0, 0, 0, pk)).reshape(BHkv, n_k, bk, Dh)
-    ks = f.pad(k_scale, (0, pk)).reshape(BHkv, n_k, bk)
-    vdeq = vv.float() * f.pad(v_scale, (0, pk)).reshape(BHkv, n_k, bk)[..., None]
+    rows = torch.arange(BHkv, device=dev)
+    hkv_per_b = BHkv // scalars.shape[1]
+    seq = rows // hkv_per_b
+    head = rows if page_table is None else rows % hkv_per_b
+    kv, ks, vv, vs, alloc = kv_blocks(k_q, k_scale, v_q, v_scale,
+                                      page_table, seq, head, bk, Dh)
+    n_k = kv.shape[1]
+    vdeq = vv.float() * vs[..., None]
 
-    seq = scalars.long()[:, torch.arange(BHkv, device=dev) // (BHkv // nb)]
-    q_pos, kvl, ql = seq[0], seq[1], seq[2]                # (BHkv,)
+    sc = scalars.long()[:, seq]
+    q_pos, kvl, ql = sc[0], sc[1], sc[2]                   # (BHkv,)
     n_valid = torch.clamp(ql, max=Sq)
     k_start = torch.arange(n_k, device=dev) * bk
-    needed = (ql[:, None] > 0) & block_needed(
+    needed = alloc & (ql[:, None] > 0) & block_needed(
         k_start[None, :], bk, q_pos[:, None], (q_pos + n_valid - 1)[:, None],
         kvl[:, None], causal, window)                      # (BHkv, n_k)
     k_pos = (k_start[:, None] + torch.arange(bk, device=dev))[None]
@@ -174,13 +183,11 @@ def _lib():
     return _build.load("pim_decode", _SIGNATURES)
 
 
-def _launch(qg, qsg, k_q, k_scale, v_q, v_scale, scalars, lut_cfg, G, Sq,
-            causal, window, bk):
+def _launch(qg, qsg, k_q, k_scale, v_q, v_scale, page_table, scalars,
+            lut_cfg, G, Sq, causal, window, bk):
     BHkv, R, Dh = qg.shape
-    Sk, Dhk = k_q.shape[1], k_q.shape[2]
+    Sk, Dhk = k_q.shape[1], k_q.shape[-1]
     dev = qg.device
-    if Dh % 4 or Dhk % 4:
-        raise ValueError(f"head dim {Dh} (stored {Dhk}) is not a multiple of 4")
     lib = _lib()
     smem = lib.pim_decode_smem_bytes(R, bk, Dh)
     if smem > MAX_SMEM:
@@ -188,12 +195,11 @@ def _launch(qg, qsg, k_q, k_scale, v_q, v_scale, scalars, lut_cfg, G, Sq,
                          f"{smem} bytes of shared memory")
     ops = [qg, qsg] + [t.contiguous() for t in
                        (k_q, k_scale.float(), v_q, v_scale.float())]
-    for t in ops:
-        if t.data_ptr() % 16:
-            raise ValueError("attention operands must be 16-byte aligned")
+    check_launch_operands(ops, Dhk)
+    pt = None if page_table is None else page_table.contiguous()
     table, frac = build_exp_table(lut_cfg, dev)
     levels = kv4_levels(dev)
-    n_k = cdiv(Sk, bk)
+    n_k = cdiv(Sk, bk) if pt is None else pt.shape[1]
     part_m = torch.empty((BHkv, n_k, R), dtype=torch.float32, device=dev)
     part_den = torch.empty_like(part_m)
     part_acc = torch.empty((BHkv, n_k, R, Dh), dtype=torch.float32, device=dev)
@@ -202,8 +208,9 @@ def _launch(qg, qsg, k_q, k_scale, v_q, v_scale, scalars, lut_cfg, G, Sq,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.pim_decode_launch(
         *[t.data_ptr() for t in ops], scalars.data_ptr(), scalars.shape[1],
-        table.data_ptr(), levels.data_ptr(), part_m.data_ptr(),
-        part_den.data_ptr(), part_acc.data_ptr(), iters.data_ptr(),
+        None if pt is None else pt.data_ptr(), table.data_ptr(),
+        levels.data_ptr(), part_m.data_ptr(), part_den.data_ptr(),
+        part_acc.data_ptr(), iters.data_ptr(),
         BHkv, R, G, Sq, Dh, Dhk, Sk, bk, n_k, BHkv // scalars.shape[1],
         int(causal), int(window), 1.0 / (Dh ** 0.5), lut_cfg.score_scale,
         float((1 << (lut_cfg.input_bits - 1)) - 1), stream)

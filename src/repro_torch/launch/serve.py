@@ -4,6 +4,13 @@ KV cache, greedy by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
       --attn-impl kernel --batch 4 --prompt-len 128 --new-tokens 32
 
+`--continuous-batching` serves the batch through the slot scheduler
+(`--max-batch-slots`, retirement at `--eos-id`); `--page-size N` puts the
+slots on the paged KV pool of `--num-pages` pages (greedy only):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+      --attn-impl kernel --continuous-batching --page-size 16 --batch 8
+
 Runs on the GPU; `--device cpu` runs the plain PyTorch versions instead
 (use `--smoke` there).  Weights are random, drawn from `--seed`.
 """
@@ -49,7 +56,25 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain versions)")
-    return ap.parse_args(argv)
+    ap.add_argument("--continuous-batching", action="store_true",
+                    help="serve through the ragged slot scheduler (per-"
+                         "sequence KV lengths + EOS retirement; greedy)")
+    ap.add_argument("--max-batch-slots", type=int, default=0,
+                    help="KV cache slots for the scheduler (0 = --batch)")
+    ap.add_argument("--eos-id", type=int, default=-1,
+                    help="retire sequences on this token id (-1 = never)")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="tokens per KV page: >0 switches the scheduler to "
+                         "the paged pool (requires --continuous-batching)")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="KV pool pages incl. the reserved trash page "
+                         "(0 = match the dense slot footprint)")
+    args = ap.parse_args(argv)
+    if args.page_size and not args.continuous_batching:
+        ap.error("--page-size requires --continuous-batching")
+    if args.num_pages and not args.page_size:
+        ap.error("--num-pages requires --page-size")
+    return args
 
 
 def main(argv=None):
@@ -71,14 +96,22 @@ def main(argv=None):
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
 
     t0 = time.perf_counter()
-    out = serve_lib.generate(model, params, batch, args.new_tokens, max_len,
-                             temperature=args.temperature, top_k=args.top_k,
-                             top_p=args.top_p, generator=gen)
+    out = serve_lib.generate(
+        model, params, batch, args.new_tokens, max_len,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        generator=gen, continuous_batching=args.continuous_batching,
+        eos_id=None if args.eos_id < 0 else args.eos_id,
+        max_batch_slots=args.max_batch_slots or None,
+        page_size=args.page_size, num_pages=args.num_pages)
     out = out.cpu()
     dt = time.perf_counter() - t0
     toks = args.batch * args.new_tokens
+    mode = "classic"
+    if args.continuous_batching:
+        mode = (f"scheduler({args.max_batch_slots or args.batch} slots"
+                + (f", paged ps={args.page_size})" if args.page_size else ")"))
     print(f"[serve] arch={cfg.name} attn={cfg.attn_impl} device={model.device} "
-          f"kv{cfg.kv_bits} temp={args.temperature} top_k={args.top_k} "
+          f"{mode} kv{cfg.kv_bits} temp={args.temperature} top_k={args.top_k} "
           f"top_p={args.top_p} generated {tuple(out.shape)} in {dt:.2f}s "
           f"({toks / dt:.1f} tok/s incl. prefill and kernel build)")
     print("[serve] first sequences:", out[:2, :12].tolist())

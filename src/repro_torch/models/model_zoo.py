@@ -25,8 +25,8 @@ class Model(NamedTuple):
     cfg: ModelConfig
     device: torch.device
     init: Callable[..., Any]            # (generator=None, seed=0) -> params
-    init_cache: Callable[..., Any]      # (batch, max_len) -> cache
-    forward_serve: Callable[..., Any]   # (params, batch, cache, offset)
+    init_cache: Callable[..., Any]      # (batch, max_len[, ragged, page_size, num_pages])
+    forward_serve: Callable[..., Any]   # (params, batch, cache, offset[, seq_lens, pages])
 
 
 def _is_linear(node) -> bool:
@@ -98,10 +98,14 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
             generator = torch.Generator(device=device).manual_seed(seed)
         return deploy_tree(T.init_params(generator, cfg, device), cfg)
 
-    def init_cache(batch: int, max_len: int):
-        return T.init_cache(cfg, batch, max_len, device)
+    def init_cache(batch: int, max_len: int, ragged: bool = False,
+                   page_size: int = 0, num_pages: int = 0):
+        return T.init_cache(cfg, batch, max_len, device, ragged=ragged,
+                            page_size=page_size, num_pages=num_pages)
 
-    def forward_serve(params, batch, cache, offset: int):
-        return T.forward_serve(params, batch, cache, offset, cfg)
+    def forward_serve(params, batch, cache, offset, seq_lens=None,
+                      pages=None):
+        return T.forward_serve(params, batch, cache, offset, cfg,
+                               seq_lens=seq_lens, pages=pages)
 
     return Model(cfg, device, init, init_cache, forward_serve)

@@ -1,11 +1,12 @@
 """Model assembly for attention stacks: parameter init, the serve cache and
 the serve forward.
 
-Counterpart of the JAX package's `models/transformer.py` on the classic
-dense path.  Parameters keep the reference's tree: `"blocks"` is a tuple
-with one stack per block-pattern position, each leaf carrying a leading
-layer-repetition axis.  The reference scans over that axis; here it is a
-Python loop over layer views.
+Counterpart of the JAX package's `models/transformer.py` for serving
+attention stacks: the classic dense cache, ragged slots and the paged pool.
+Parameters keep the reference's tree: `"blocks"` is a tuple with one stack
+per block-pattern position, each leaf carrying a leading layer-repetition
+axis.  The reference scans over that axis; here it is a Python loop over
+layer views.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as A
-from repro_torch.models import blocks as B
+from repro_torch.models import blocks
 from repro_torch.models import layers as L
 
 
@@ -103,15 +104,46 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     return params
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+               ragged: bool = False, page_size: int = 0, num_pages: int = 0):
     """Serve state: one preallocated KV cache per layer, stacked like the
-    parameters.  Forward steps update it in place."""
+    parameters; forward steps update it in place.  `ragged` gives every
+    cache (B,) per-slot lengths (all 0: every slot empty), the layout the
+    continuous-batching scheduler needs.  With `page_size` every layer
+    holds instead a `PagedKVCache` pool of `num_pages` pages (page 0 is the
+    trash page); slots are rows of the page table that the caller passes
+    to `forward_serve(pages=...)`, the same row naming the same pages in
+    every layer."""
     pat, R, tail = pattern_layout(cfg)
+    if page_size:
+        mk = dict(num_pages=num_pages, page_size=page_size,
+                  n_kv=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+                  kv_bits=cfg.kv_bits, device=device)
+        return {"blocks": tuple(A.init_paged_kv_cache(layers=R, **mk)
+                                for _ in pat),
+                "tail": tuple(A.init_paged_kv_cache(**mk) for _ in tail)}
     mk = dict(batch=batch, max_len=max_len, n_kv=cfg.num_kv_heads,
               head_dim=cfg.resolved_head_dim, kv_bits=cfg.kv_bits,
-              device=device)
+              device=device, ragged=ragged)
     return {"blocks": tuple(A.init_kv_cache(layers=R, **mk) for _ in pat),
             "tail": tuple(A.init_kv_cache(**mk) for _ in tail)}
+
+
+def cache_scatter(big, sub, slots: torch.Tensor):
+    """Copy the batch rows of a sub-batch ragged cache into slots of a big
+    one, in place: big[..., slots[i], :, :L] = sub[..., i] for every plane,
+    where L, the sub-batch cache's max_len, is at most the big one's; the
+    per-slot lengths follow.  A slot's bytes up to its length are then those
+    of the reference's whole-row scatter (what lies past it is never read).
+    `slots` is an (n,) int64 device tensor."""
+    for b, s in zip(big["blocks"] + big["tail"], sub["blocks"] + sub["tail"]):
+        ax = b.k_q.dim() - 4                  # 1 with the stacked layer axis
+        L = s.k_q.shape[ax + 2]
+        for f in ("k_q", "v_q", "k_scale", "v_scale"):
+            getattr(b, f).narrow(ax + 2, 0, L).index_copy_(ax, slots,
+                                                           getattr(s, f))
+        b.length.index_copy_(0, slots, s.length)
+    return big
 
 
 def _index(tree, r: int):
@@ -120,25 +152,45 @@ def _index(tree, r: int):
     return tree[r]
 
 
-def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset: int,
-                  cfg: ModelConfig):
-    """One serve step: prefill (offset 0, S prompt tokens) or decode (S == 1
-    at offset = tokens already cached).  Writes the step's K/V into `cache`
-    in place and returns (logits (B, V) at the last position, cache)."""
+def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
+                  cfg: ModelConfig, seq_lens=None, pages=None):
+    """One serve step: a prefill chunk or a single-token decode.  Writes the
+    step's K/V into `cache` in place and returns (logits (B, V), cache).
+
+    Classic: `offset` is an int and logits come from the last position.
+    Ragged slots (`offset` a (B,) int32 tensor on the tokens' device): row
+    b writes at offset_b and `seq_lens` counts its valid tokens (padding
+    past it is written but never advertised); logits come from each row's
+    last valid position (a row with seq_lens 0 reads position 0: garbage
+    the caller masks).  Paged: `cache` holds `PagedKVCache` pools and
+    `pages` is the (B, max_pages) page table every layer writes and attends
+    through.  Every layer reuses the step's offsets, lengths and table as
+    they are: callers bring them to the device once per step."""
     pat, R, tail = pattern_layout(cfg)
     tokens = batch["tokens"]
-    S = tokens.shape[1]
+    B, S = tokens.shape
+    ragged = isinstance(offset, torch.Tensor)
     x = L.embed_apply(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
+    kw = dict(causal=cfg.causal, seq_lens=seq_lens, pages=pages)
     for r in range(R):
         for j in range(len(pat)):
-            x = B.attn_block_fwd_serve(_index(params["blocks"][j], r), x,
-                                       cache["blocks"][j].layer(r), offset,
-                                       cfg, causal=cfg.causal)
+            x = blocks.attn_block_fwd_serve(
+                _index(params["blocks"][j], r), x,
+                cache["blocks"][j].layer(r), offset, cfg, **kw)
     for i in range(len(tail)):
-        x = B.attn_block_fwd_serve(params["tail"][i], x, cache["tail"][i],
-                                   offset, cfg, causal=cfg.causal)
-    for c in cache["blocks"] + cache["tail"]:
-        c.length = offset + S
-    x = L.norm_apply(params["final_norm"], x[:, -1:], cfg.norm)
+        x = blocks.attn_block_fwd_serve(params["tail"][i], x,
+                                        cache["tail"][i], offset, cfg, **kw)
+    if pages is None:
+        for c in cache["blocks"] + cache["tail"]:
+            max_len = c.k_q.shape[-2]
+            c.length = offset + S if not ragged else torch.clamp(
+                offset + (S if seq_lens is None else seq_lens), max=max_len
+            ).to(torch.int32)
+    if seq_lens is not None:
+        idx = torch.clamp(seq_lens.long(), min=1) - 1
+        x = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[-1]))
+    else:
+        x = x[:, -1:]
+    x = L.norm_apply(params["final_norm"], x, cfg.norm)
     head = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return L.unembed_apply(head, x)[:, 0], cache

@@ -188,9 +188,13 @@ def test_wrapper_refuses_devices_without_a_kernel(fn):
 
 
 def test_paged_mode_raises_until_ported():
+    """Paged mode is ported (tests/test_torch_paged.py); it reads the pool's
+    own (P, page_size, Hkv, Dh) planes, and dense operands with a page
+    table raise instead of being misread."""
     _, _, tc, _, tl = _setup(3, 1, 1, 32, 16, 2, 1, 32, with_jax=False)
-    with pytest.raises(NotImplementedError):
-        pim_decode(*tl, 15, 16, page_table=torch.zeros(1, 1, dtype=torch.int32))
+    for fn in (pim_attention, pim_decode):
+        with pytest.raises(ValueError):
+            fn(*tl, 15, 16, page_table=torch.zeros(1, 1, dtype=torch.int32))
 
 
 @pytest.fixture
