@@ -43,6 +43,25 @@
    paged prefill logits equal bit for bit; prints where and by how much
    the two storages' streams and logits part; then profiles the first 3
    steps of the paged run as phase 6 does.
+8. (Run right after phase 3, beside the other kernel checks.)  Holds the
+   PIM matmul (kernel 3) in both ADC modes and the LUT softmax (kernel 4)
+   against their plain versions bit for bit: the linears' shapes (K 2048
+   -> N 1024/2048/8192, K 8192 -> N 2048) at M 4, 512 and 2048, a K that
+   is not a multiple of 16, a row-major layer view of stacked weights and
+   the deployed (K, N) view of an (N, K) store; softmax rows of the served
+   prefill (8192 x 160) and decode (64 x 4096), an all-masked row, flat
+   rows whose sum of exps passes 2^24, int8 codes.  Times both at the
+   served shapes beside their plain versions, their bounds and, for the
+   ideal mode, `torch._int_mm` (no one PyTorch call computes the ADC or
+   the LUT softmax).
+9. Serves internlm2-1.8b at the paper's fidelity, with the phase 6
+   weights: `adc_mode="quantized"` (every PIM linear through kernel 3) and
+   behavioral attention (kernel 4 once per layer).  The classic request
+   and the phase 7 trace on the paged pool, each with its launch counts
+   held to 168 and 24 per forward, no plain-version call, the peak device
+   memory, a replay of served launches of both kernels (a prefill and a
+   decode step) against their plain versions, and a profile as in phases
+   6 and 7.
 
 Exits non-zero, printing no result, when there is no GPU or any check
 fails.  The last line is the device JSON.
@@ -71,7 +90,10 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import attention as A  # noqa: E402
 from repro_torch.core.attention import expected_kv_block_iters  # noqa: E402
 from repro_torch.data import pipeline as data  # noqa: E402
+from repro_torch.core import pim as core_pim  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import lut_softmax as sm_k  # noqa: E402
+from repro_torch.kernels import pim_matmul as mm_k  # noqa: E402
 from repro_torch.kernels.pim_attention import (  # noqa: E402
     pim_attention, pim_attention_plain)
 from repro_torch.kernels.pim_decode import pim_decode, pim_decode_plain  # noqa: E402
@@ -126,8 +148,9 @@ def device_us(events) -> dict:
 
 
 def kernel_us(times: dict, kernel: str):
-    """(device us, launches) of the device kernel named `kernel`."""
-    hits = [v for k, v in times.items() if f"{kernel}(" in k]
+    """(device us, launches) of the device kernel named `kernel` (any
+    template instance)."""
+    hits = [v for k, v in times.items() if f"{kernel}(" in k or f"{kernel}<" in k]
     return sum(us for us, _ in hits), sum(n for _, n in hits)
 
 
@@ -147,13 +170,19 @@ def per_call_ms(times: dict, iters: int) -> float:
     return sum(us for us, _ in times.values()) / iters / 1e3
 
 
+ATTENTION_KERNELS = (("pim_attention_kernel", "pim_attention"),
+                     ("pim_decode_kernel", "pim_decode"),
+                     ("pim_decode_combine_kernel", "pim_decode"))
+
+
 def profile_report(prof, wall_s: float, prof_s: float, label: str,
-                   launches: dict) -> dict:
+                   launches: dict, kernel_names=ATTENTION_KERNELS) -> dict:
     """Print where a profiled run's device time went: busy share of the
-    unprofiled wall `wall_s` of the same run, each attention kernel's
-    device time per launch and the top device operators.  `launches` are
-    the wrapper counts of the profiled run: the profiler should see as many
-    launches of each kernel (a pim_decode call runs two kernels)."""
+    unprofiled wall `wall_s` of the same run, each (device kernel, wrapper)
+    of `kernel_names`' device time per launch and the top device operators.
+    `launches` are the wrapper counts of the profiled run: the profiler
+    should see as many launches of each kernel (a pim_decode call runs two
+    kernels)."""
     stamp(f"profile of the {label} taken")
     events = prof.key_averages()
     times = device_us(events)
@@ -167,15 +196,24 @@ def profile_report(prof, wall_s: float, prof_s: float, label: str,
           f"profiled wall {prof_s * 1e3:.1f} ms); {n_dev} device kernels and "
           f"copies, {host_launches} cudaLaunchKernel calls")
     kernels = {}
-    for kernel, wrapper in (("pim_attention_kernel", "pim_attention"),
-                            ("pim_decode_kernel", "pim_decode"),
-                            ("pim_decode_combine_kernel", "pim_decode")):
+    for names, wrapper in kernel_names:
+        # a wrapper launch runs the first device kernel once, and may run the
+        # others (kernel 3's split-K sum): their time counts as its own
+        kernel, *more = (names,) if isinstance(names, str) else names
         us, n = kernel_us(times, kernel)
         check(n > 0, f"profiled {label} ran {kernel}")
-        kernels[kernel] = dict(device_us=us, count=n, us_per_launch=us / n,
-                               launched=launches.get(wrapper, 0))
+        more_us = {k: kernel_us(times, k) for k in more}
+        total = us + sum(u for u, _ in more_us.values())
+        kernels[kernel] = dict(device_us=total, count=n, us_per_launch=total / n,
+                               launched=launches.get(wrapper, 0),
+                               **({"of_which": more_us} if more else {}))
         print(f"  {kernel}: {n} launches seen of {launches.get(wrapper, 0)} "
-              f"made, {us / 1e3:.3f} ms, {us / n:.2f} us each")
+              f"made, {total / 1e3:.3f} ms, {total / n:.2f} us each"
+              + "".join(f"; of it {k} {u / 1e3:.3f} ms in {c} launches"
+                        for k, (u, c) in more_us.items()))
+        for key, (u, c) in times.items():
+            if any(f"{k}(" in key or f"{k}<" in key for k in (kernel, *more)):
+                print(f"    {key[:64]}: {c} launches, {u / c:.2f} us each")
     print(events.table(sort_by="self_cuda_time_total", row_limit=12,
                        max_name_column_width=48))
     return dict(profiled_wall_ms=prof_s * 1e3, device_busy_ms=busy_ms,
@@ -380,12 +418,14 @@ def prefill_logits(model, params, prompts):
 
 
 @contextlib.contextmanager
-def recorded(pick):
+def recorded(pick, targets=None):
     """Within the block, keeps copies of the operands of the serving path's
-    kernel launches that `pick(name, index)` labels ("pim_attention" or
-    "pim_decode", index of the launch among that wrapper's in the block):
-    yields {label: (name, args, kwargs)}.  The copies are taken at launch,
-    since the scheduler writes its cache in place afterwards."""
+    kernel launches that `pick(name, index)` labels (name a key of
+    `targets`, {name: (module, attribute)} of the wrappers the path calls,
+    by default the attention wrappers of `ops`; index of the launch among
+    that wrapper's in the block): yields {label: (name, args, kwargs)}.  The
+    copies are taken at launch, since the scheduler writes its cache in
+    place afterwards."""
     def copied(x):
         return x.clone() if isinstance(x, torch.Tensor) else x
 
@@ -401,14 +441,16 @@ def recorded(pick):
             return fn(*args, **kw)
         return launch
 
-    for name in ("pim_attention", "pim_decode"):
-        wrapped[name] = getattr(ops, name)
-        setattr(ops, name, wrap(name, wrapped[name]))
+    if targets is None:
+        targets = {name: (ops, name) for name in ("pim_attention", "pim_decode")}
+    for name, (mod, attr) in targets.items():
+        wrapped[name] = getattr(mod, attr)
+        setattr(mod, attr, wrap(name, wrapped[name]))
     try:
         yield kept
     finally:
-        for name, fn in wrapped.items():
-            setattr(ops, name, fn)
+        for name, (mod, attr) in targets.items():
+            setattr(mod, attr, wrapped[name])
 
 
 def replay_served(storage: str, kept: dict, compare) -> None:
@@ -431,8 +473,13 @@ def replay_served(storage: str, kept: dict, compare) -> None:
                 ref(*args, **kw, return_iters=True))
 
 
-def full_scheduler(model, params, cfg, entries, compare) -> dict:
-    V = cfg.vocab_size
+SCHED_KW = dict(max_batch_slots=8, max_len=512, decode_chunk=8)
+
+
+def sched_trace(V: int):
+    """The 16-request trace of phases 7 and 9: prompts of 16-256 tokens and
+    budgets of 16-64 drawn from seed 0 (one prompt a whole number of pages).
+    Returns (trace [(prompt, budget)], prompt lengths, budgets)."""
     rng = np.random.RandomState(0)
     n_req = 16
     lens = rng.randint(16, 257, n_req)
@@ -441,8 +488,15 @@ def full_scheduler(model, params, cfg, entries, compare) -> dict:
     budgets = rng.randint(16, 65, n_req)
     toks = data.lm_batch(0, n_req, 256, V)
     trace = [(toks[i, :n].tolist(), int(b)) for i, (n, b) in enumerate(zip(lens, budgets))]
+    return trace, lens, budgets
+
+
+def full_scheduler(model, params, cfg, entries, compare) -> dict:
+    V = cfg.vocab_size
+    trace, lens, budgets = sched_trace(V)
+    n_req = len(trace)
     n_tok = int(budgets.sum())
-    kw = dict(max_batch_slots=8, max_len=512, decode_chunk=8)
+    kw = SCHED_KW
     print(f"scheduler at full width: {n_req} requests, prompts {lens.tolist()}, "
           f"budgets {budgets.tolist()} ({n_tok} tokens), {kw}", flush=True)
 
@@ -552,6 +606,389 @@ def full_scheduler(model, params, cfg, entries, compare) -> dict:
         f"trace ({sched.model_steps} forwards)", dict(_build.LAUNCHES))
     return dict(dense=dense_info, paged=paged_info, agree=agree,
                 prompts=lens.tolist(), budgets=budgets.tolist())
+
+
+# ---- 8. kernels 3 and 4 against their plain versions ------------------------
+# (K, N) of the PIM linears of internlm2-1.8b: wk/wv, wq/wo, w_gate/w_in, w_out
+LINEARS = ((2048, 1024), (2048, 2048), (2048, 8192), (8192, 2048))
+LINEARS_PER_LAYER = 7
+HEAD_MM = (4, 2048, 8192)   # (M, K, N) of kernel 3's line in the JSON: decode w_gate / w_in
+
+
+def int8_codes(shape, gen, dev, scale: float = 40.0) -> torch.Tensor:
+    """Random int8 codes, roughly as a per-token quantize spreads them."""
+    x = torch.randn(shape, generator=gen, device=dev) * scale
+    return torch.clamp(torch.round(x), -128, 127).to(torch.int8)
+
+
+def matmul_bound(M: int, K: int, N: int, quantized: bool):
+    """Least time of an (M, K) x (K, N) PIM matmul on the H100: x, w and the
+    f32 output moved once over HBM, against 2 int8 operations per
+    multiply-add at the int8 tensor-core rate plus, under the ADC, 5 float32
+    operations per 16-row group and output (divide, round, two clamps, add)
+    at the float32 rate."""
+    t_bytes = (M * K + K * N + 4 * M * N) / HBM_BPS * 1e3
+    t_ops = (2 * M * N * K / INT8_OPS
+             + (5 * M * N * -(-K // 16) / F32_OPS if quantized else 0.0)) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def softmax_bound(R: int, S: int):
+    """Least time of the LUT softmax over (R, S): int32 scores, bool mask and
+    int32 codes moved once (a few operations per element are far below)."""
+    return R * S * 9 / HBM_BPS * 1e3, "bytes"
+
+
+def adc_kernels(dev, cfg, gen, entries) -> None:
+    """Kernel 3 in both ADC modes and kernel 4, each against its plain
+    version bit for bit at the served shapes, then timed (device time from
+    torch.profiler)."""
+    pim_q = dataclasses.replace(cfg.pim, adc_mode="quantized")
+    pim_i = dataclasses.replace(cfg.pim, adc_mode="ideal")
+    err = {"pim_matmul": 0.0, "lut_softmax": 0.0}
+
+    def same(what, name, kern, plain):
+        torch.cuda.synchronize()
+        e = (kern.double() - plain.double()).abs().max().item() if kern.numel() else 0.0
+        check(kern.shape == plain.shape and torch.equal(kern, plain),
+              f"{what}: kernel == plain bit for bit (max|diff| {e:.3g})")
+        err[name] = max(err[name], e)
+
+    def deployed(K, N, layers=3, r=1):
+        """Layer r of a stack in the deployed layout: a (K, N) view of an
+        (N, K) store, at an offset into the stack."""
+        return int8_codes((layers, N, K), gen, dev).transpose(1, 2)[r]
+
+    print("kernel 3 (pim_matmul) vs its plain version, bit for bit:", flush=True)
+    for K, N in LINEARS:
+        w = deployed(K, N)
+        for M in (4, 512, 2048):
+            x = int8_codes((M, K), gen, dev)
+            for pc in (pim_q, pim_i):
+                same(f"M{M} K{K} N{N} {pc.adc_mode}", "pim_matmul",
+                     mm_k.pim_matmul_int(x, w, pc), mm_k.pim_matmul_int_plain(x, w, pc))
+    stack = int8_codes((3, 2000, 1024), gen, dev)
+    w = stack[1]
+    check(w.storage_offset() == 2000 * 1024 and w.stride() == (1024, 1),
+          "a row-major layer view of a stacked (3, 2000, 1024) block")
+    for M in (4, 512):
+        x = int8_codes((M, 2000), gen, dev)
+        for pc in (pim_q, pim_i):
+            same(f"M{M} K2000 (not a multiple of 16) N1024 row-major layer view "
+                 f"{pc.adc_mode}", "pim_matmul", mm_k.pim_matmul_int(x, w, pc),
+                 mm_k.pim_matmul_int_plain(x, w, pc))
+            same(f"M{M} K2000 deployed view {pc.adc_mode}", "pim_matmul",
+                 mm_k.pim_matmul_int(x, w.t().contiguous().t(), pc),
+                 mm_k.pim_matmul_int_plain(x, w, pc))
+    x, w = int8_codes((3, 200), gen, dev), deployed(200, 24)
+    same("M3 K200 N24 quantized", "pim_matmul", mm_k.pim_matmul_int(x, w, pim_q),
+         mm_k.pim_matmul_int_plain(x, w, pim_q))
+
+    print("kernel 4 (lut_softmax) vs its plain version, bit for bit:", flush=True)
+    lut = cfg.lut
+
+    def scores(shape):
+        return torch.clamp(torch.round(torch.randn(shape, generator=gen, device=dev)
+                                       * 24), -128, 127).to(torch.int32)
+
+    # behavioral prefill rows of the classic request: 4 x 16 heads x 128
+    # queries over its 160-row cache, causal; decode rows: 4 x 16 heads
+    # over 4096 positions, 4000 valid
+    k_pos = torch.arange(160, device=dev)
+    pre_mask = ((k_pos[None, :] <= torch.arange(128, device=dev)[:, None])
+                & (k_pos < 128)).expand(4, 16, 128, 160).reshape(8192, 160)
+    pre = scores((8192, 160))
+    same("prefill rows 8192 x 160, causal", "lut_softmax",
+         sm_k.lut_softmax(pre, pre_mask, lut), sm_k.lut_softmax_plain(pre, pre_mask, lut))
+    dec_mask = (torch.arange(4096, device=dev) < 4000).expand(64, 4096).clone()
+    dec_mask[5] = False                                 # an all-masked row
+    dec = scores((64, 4096))
+    out = sm_k.lut_softmax(dec, dec_mask, lut)
+    same("decode rows 64 x 4096 with an all-masked row", "lut_softmax", out,
+         sm_k.lut_softmax_plain(dec, dec_mask, lut))
+    check(int(out[5].abs().max()) == 0, "the all-masked row's codes are all 0")
+    flat = torch.zeros((2, 4096), dtype=torch.int32, device=dev)
+    flat_mask = torch.ones_like(flat, dtype=torch.bool)
+    out = sm_k.lut_softmax(flat, flat_mask, lut)
+    same("flat rows of 4096 table maxima (sum of exps 2^27 > 2^24)", "lut_softmax",
+         out, sm_k.lut_softmax_plain(flat, flat_mask, lut))
+    check(bool((out == 16).all()), "flat rows: every code is 2^16 / 4096 = 16")
+    s8 = dec.to(torch.int8)
+    same("int8 score codes", "lut_softmax", sm_k.lut_softmax(s8, dec_mask, lut),
+         sm_k.lut_softmax_plain(s8, dec_mask, lut))
+
+    # ---- timing at the served shapes -----------------------------------
+    print("kernel 3 and 4 times, device ms per call (torch.profiler):", flush=True)
+    rows = []
+    for M in (4, 512):
+        for K, N in LINEARS:
+            x, w = int8_codes((M, K), gen, dev), deployed(K, N)
+            xp = F.pad(x, (0, 0, 0, max(0, 32 - M)))       # cuBLAS takes > 16 rows
+            t = {}
+            for mode, pc in (("quantized", pim_q), ("ideal", pim_i)):
+                times = profiled(lambda: mm_k.pim_matmul_int(x, w, pc), 20)
+                _, n = kernel_us(times, "pim_matmul_kernel")
+                check(n == 20, f"profiler saw the 20 {mode} pim_matmul launches ({n})")
+                t[mode] = per_call_ms(times, 20)
+            t["plain"] = per_call_ms(profiled(lambda: mm_k.pim_matmul_int_plain(x, w, pim_q), 2), 2)
+            t["int_mm"] = per_call_ms(profiled(lambda: torch._int_mm(xp, w), 20), 20)
+            b_ms, b_by = matmul_bound(M, K, N, True)
+            bi_ms, _ = matmul_bound(M, K, N, False)
+            rows.append(dict(M=M, K=K, N=N, ms=t["quantized"], ideal_ms=t["ideal"],
+                             plain_ms=t["plain"], int_mm_ms=t["int_mm"], bound_ms=b_ms,
+                             bound_by=b_by, ideal_bound_ms=bi_ms))
+            print(f"  pim_matmul M{M} K{K} N{N}: quantized {t['quantized']:.4f} (bound "
+                  f"{b_ms:.4f}, {b_by}), ideal {t['ideal']:.4f} (bound {bi_ms:.4f}), "
+                  f"plain (quantized) {t['plain']:.4f}, torch._int_mm {t['int_mm']:.4f}",
+                  flush=True)
+    head = next(r for r in rows if (r["M"], r["K"], r["N"]) == HEAD_MM)
+    entries["pim_matmul"] = dict(
+        name="pim_matmul", route="cuda",
+        source="src/repro_torch/kernels/csrc/pim_matmul.cu",
+        replaces="src/repro/kernels/pim_matmul.py:69",
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None, ideal_ms=head["ideal_ms"],
+        int_mm_ms=head["int_mm_ms"], timed=rows,
+        shape="M4 K2048 N8192 quantized ADC (decode w_gate / w_in); library: "
+              "no one PyTorch call computes the ADC; int_mm_ms is torch._int_mm "
+              "of the ideal mode")
+    srows = []
+    for what, sc, mk in (("prefill rows 8192 x 160", pre, pre_mask),
+                         ("decode rows 64 x 4096", dec, dec_mask)):
+        times = profiled(lambda: sm_k.lut_softmax(sc, mk, lut), 20)
+        _, n = kernel_us(times, "lut_softmax_kernel")
+        check(n == 20, f"profiler saw the 20 lut_softmax launches ({n})")
+        ms = per_call_ms(times, 20)
+        plain_ms = per_call_ms(profiled(lambda: sm_k.lut_softmax_plain(sc, mk, lut), 3), 3)
+        b_ms, b_by = softmax_bound(*sc.shape)
+        srows.append(dict(rows=sc.shape[0], S=sc.shape[1], ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by))
+        print(f"  lut_softmax {what}: kernel {ms:.4f}, plain {plain_ms:.4f}, bound "
+              f"{b_ms:.4f} ({b_by})", flush=True)
+    entries["lut_softmax"] = dict(
+        name="lut_softmax", route="cuda",
+        source="src/repro_torch/kernels/csrc/lut_softmax.cu",
+        replaces="src/repro/kernels/lut_softmax.py:73",
+        ms=srows[0]["ms"], plain_ms=srows[0]["plain_ms"], bound_ms=srows[0]["bound_ms"],
+        bound_by=srows[0]["bound_by"], library_ms=None, timed=srows,
+        shape="8192 x 160 prefill rows of the classic request; library: no one "
+              "PyTorch call computes the LUT softmax")
+    for name in err:
+        entries[name]["max_abs_err"] = err[name]
+
+
+# ---- 9. paper-fidelity serving: 6-bit ADC linears, behavioral attention ----
+ADC_KERNELS = ((("pim_matmul_kernel", "pim_matmul_splits_kernel"), "pim_matmul"),
+               ("lut_softmax_kernel", "lut_softmax"))
+ADC_TARGETS = {"pim_matmul": (core_pim, "_adc_matmul"),
+               "lut_softmax": (A, "_lut_softmax_kernel")}
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Counts calls of the plain versions of kernels 3 and 4 in the block
+    (the served path on the card must make none): yields the counter."""
+    counts = {}
+    saved = {"pim_matmul": (mm_k, "pim_matmul_int_plain"),
+             "lut_softmax": (sm_k, "lut_softmax_plain")}
+    fns = {name: getattr(mod, attr) for name, (mod, attr) in saved.items()}
+
+    def counting(name):
+        def call(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return fns[name](*a, **k)
+        return call
+
+    for name, (mod, attr) in saved.items():
+        setattr(mod, attr, counting(name))
+    try:
+        yield counts
+    finally:
+        for name, (mod, attr) in saved.items():
+            setattr(mod, attr, fns[name])
+
+
+def replay_adc(label: str, kept: dict, rows: dict) -> None:
+    """Hold recorded served launches of kernels 3 and 4 against their plain
+    versions on the same operands, bit for bit.  `rows` {what: tokens} names
+    every launch that must have been recorded (a prefill and a decode
+    forward of each kernel) and the tokens its operands hold: kernel 3's M,
+    kernel 4's batch x query rows."""
+    plain = {"pim_matmul": (mm_k.pim_matmul_int, mm_k.pim_matmul_int_plain),
+             "lut_softmax": (sm_k.lut_softmax, sm_k.lut_softmax_plain)}
+    check(sorted(kept) == sorted(rows),
+          f"{label}: recorded served launches {sorted(kept)}, expected {sorted(rows)}")
+    for what, (name, args, kw) in kept.items():
+        s = args[0].shape
+        tokens = s[0] if name == "pim_matmul" else s[0] * s[-2]
+        check(tokens == rows[what], f"{label}, {what}: {name} operands hold "
+              f"{tokens} tokens, expected {rows[what]}")
+        kern, ref = plain[name]
+        o_k, o_p = kern(*args, **kw), ref(*args, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(o_k, o_p), f"{label}, {what}: {name} operands "
+              f"{tuple(args[0].shape)} x {tuple(args[1].shape)}, kernel == plain "
+              "bit for bit")
+
+
+def expect_launches(label: str, launches: dict, forwards: int, L: int) -> None:
+    """Kernel 3 once per PIM linear and kernel 4 once per layer (every query
+    block here is one chunk) in every forward; no attention kernel."""
+    want = {"pim_matmul": LINEARS_PER_LAYER * L * forwards, "lut_softmax": L * forwards}
+    for name, n in want.items():
+        check(launches.get(name, 0) == n,
+              f"{label}: {name} launched {launches.get(name, 0)} times, expected {n}")
+    check(not launches.get("pim_attention") and not launches.get("pim_decode"),
+          f"{label}: no attention kernel on the behavioral path")
+
+
+def paper_fidelity(cfg, params, entries) -> dict:
+    """internlm2-1.8b at full width and depth under the paper's numerics:
+    every PIM linear through the 6-bit ADC (kernel 3) and the behavioral
+    Score -> LUT softmax (kernel 4) -> AV attention, with the phase 6
+    weights.  The classic request and the phase 7 trace on the paged
+    pool."""
+    pcfg = dataclasses.replace(cfg, attn_impl="behavioral",
+                               pim=dataclasses.replace(cfg.pim, adc_mode="quantized"))
+    model = build_model(pcfg)
+    dev, L, V = model.device, pcfg.num_layers, pcfg.vocab_size
+    print(f"paper fidelity: {pcfg.pim}, attn_impl {pcfg.attn_impl}", flush=True)
+    out = {}
+
+    Bs, P, T = 4, 128, 32
+    batch = {"tokens": torch.from_numpy(data.lm_batch(0, Bs, P, V)).long()}
+    logits, _ = model.forward_serve(params, {"tokens": batch["tokens"].to(dev)},
+                                    model.init_cache(Bs, P + T), 0)
+    check(tuple(logits.shape) == (Bs, V) and bool(torch.isfinite(logits).all()),
+          "paper fidelity: prefill logits finite, (4, 92544)")
+    serve_lib.generate(model, params, batch, 2, P + T)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve_lib.generate(model, params, batch, 1, P + T)          # prefill only
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+
+    def pick(name, i):
+        """Layer 0 of the prefill (w_gate for kernel 3), layer 3 of the
+        sixth forward, a decode step (w_out)."""
+        mm = name == "pim_matmul"
+        per = LINEARS_PER_LAYER if mm else 1
+        if i == (4 if mm else 0):
+            return "prefill layer 0" + (" w_gate" if mm else "")
+        if i == 5 * per * L + 3 * per + (6 if mm else 0):
+            return "decode forward 6 layer 3" + (" w_out" if mm else "")
+        return None
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    with plain_calls() as n_plain, recorded(pick, ADC_TARGETS) as kept:
+        t0 = time.perf_counter()
+        toks = serve_lib.generate(model, params, batch, T, P + T)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(not n_plain, f"classic request: no plain-version call on the path ({n_plain})")
+    check(tuple(toks.shape) == (Bs, T) and int(toks.min()) >= 0 and int(toks.max()) < V,
+          "paper fidelity: served (4, 32) token ids in the vocabulary")
+    expect_launches("classic request", launches, T, L)
+    replay_adc("classic request", kept, {
+        "prefill layer 0 w_gate": Bs * P, "prefill layer 0": Bs * P,
+        "decode forward 6 layer 3 w_out": Bs, "decode forward 6 layer 3": Bs})
+    decode_ms = (total_s - prefill_s) / (T - 1) * 1e3
+    print(f"  classic request: prefill {prefill_s * 1e3:.1f} ms, decode {decode_ms:.2f} "
+          f"ms/token, {Bs * T / total_s:.1f} tokens/s, peak {peak:.2f} GiB; launches "
+          f"{launches}; first sequence {toks[0, :12].tolist()}", flush=True)
+    for name in ("pim_matmul", "lut_softmax"):
+        entries[name]["launches"] = launches.get(name, 0)
+    walls = []
+    for profiled_run in (False, True):
+        _build.LAUNCHES.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                     ) if profiled_run else contextlib.nullcontext() as prof:
+            t0 = time.perf_counter()
+            serve_lib.generate(model, params, batch, PROFILED_TOKENS, P + T)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    out["classic"] = dict(
+        prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_ms,
+        tokens_per_s=Bs * T / total_s, total_s=total_s, launches=launches,
+        peak_gib=peak, **profile_report(
+            prof, walls[0], walls[1], f"paper-fidelity request cut to "
+            f"{PROFILED_TOKENS} new tokens", dict(_build.LAUNCHES), ADC_KERNELS))
+
+    trace, lens, budgets = sched_trace(V)
+    n_tok = int(budgets.sum())
+
+    def pick_sched(name, i):
+        """Layer 0 of the first admission wave (8 prompts bucketed to 256
+        rows) and of the fourth forward, a decode step."""
+        mm = name == "pim_matmul"
+        if i == (4 if mm else 0):
+            return "wave 1 prefill layer 0" + (" w_gate" if mm else "")
+        if i == 3 * (LINEARS_PER_LAYER if mm else 1) * L + (6 if mm else 0):
+            return "decode forward 4 layer 0" + (" w_out" if mm else "")
+        return None
+
+    sched = serve_lib.Scheduler(model, params, page_size=PAGE, **SCHED_KW)
+    rids = [sched.submit(p, b) for p, b in trace]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    with plain_calls() as n_plain, recorded(pick_sched, ADC_TARGETS) as kept:
+        t0 = time.perf_counter()
+        res = sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = sched.stats
+    check(not n_plain, f"paged trace: no plain-version call on the path ({n_plain})")
+    streams = [res.get(r, []) for r in rids]
+    check(all(len(s) == b for s, (_, b) in zip(streams, trace))
+          and all(0 <= t < V for s in streams for t in s),
+          "paper fidelity, paged trace: every request got its budget of "
+          "in-vocabulary tokens")
+    expect_launches("paged trace", launches, st["model_steps"], L)
+    slots = SCHED_KW["max_batch_slots"]
+    wave = slots * sched._bucket(int(lens[:slots].max()))
+    replay_adc("paged trace", kept, {
+        "wave 1 prefill layer 0 w_gate": wave, "wave 1 prefill layer 0": wave,
+        "decode forward 4 layer 0 w_out": slots, "decode forward 4 layer 0": slots})
+    sched.audit()
+    check(len(sched.free_pages) == sched.num_pages - 1,
+          "paper fidelity, paged trace: every page returned to the free list")
+    print(f"  paged trace: {wall:.2f} s, {n_tok / wall:.1f} tokens/s, "
+          f"{wall / st['steps'] * 1e3:.1f} ms per scheduler step ({st['steps']} steps, "
+          f"{st['model_steps']} forwards), peak {peak:.2f} GiB, peak pages "
+          f"{sched.peak_pages_in_use}, launches {launches}", flush=True)
+    entries["pim_matmul"]["paged_launches"] = launches.get("pim_matmul", 0)
+    entries["lut_softmax"]["paged_launches"] = launches.get("lut_softmax", 0)
+    peak_pages = sched.peak_pages_in_use
+    walls = []
+    for profiled_run in (False, True):
+        sched = serve_lib.Scheduler(model, params, page_size=PAGE, **SCHED_KW)
+        for p, b in trace:
+            sched.submit(p, b)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                     ) if profiled_run else contextlib.nullcontext() as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILED_STEPS):
+                sched.step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    out["paged"] = dict(
+        wall_s=wall, tokens_per_s=n_tok / wall, ms_per_step=wall / st["steps"] * 1e3,
+        steps=st["steps"], model_steps=st["model_steps"], launches=launches,
+        peak_gib=peak, peak_pages_in_use=peak_pages,
+        profile=profile_report(
+            prof, walls[0], walls[1], f"first {PROFILED_STEPS} steps of the "
+            f"paper-fidelity paged trace ({sched.model_steps} forwards)",
+            dict(_build.LAUNCHES), ADC_KERNELS))
+    return out
 
 
 def main(argv=None) -> int:
@@ -744,6 +1181,8 @@ def main(argv=None) -> int:
 
     stamp("phase 3")
     paged_kernels(dev, cfg, gen, compare, bound, entries)
+    stamp("phase 8")
+    adc_kernels(dev, cfg, gen, entries)
 
     # ---- 4. a small model: kernel path on the GPU vs plain path on the CPU
     small = dataclasses.replace(get_config("internlm2-1.8b", smoke=True),
@@ -810,7 +1249,7 @@ def main(argv=None) -> int:
           f"(batch {Bs}, prompt {P}, {T} new tokens)")
     print(f"  first sequence: {out[0, :12].tolist()}")
     print(f"  launches: {launches}")
-    for name in entries:
+    for name in ("pim_attention", "pim_decode"):
         check(launches.get(name, 0) > 0, f"main path launched {name}")
         entries[name]["launches"] = launches.get(name, 0)
 
@@ -833,9 +1272,11 @@ def main(argv=None) -> int:
 
     stamp("phase 7")
     results["scheduler"] = full_scheduler(model, params, cfg, entries, compare)
-    stamp("phase 7 done")
-    for name, entry in entries.items():
-        entry["max_abs_err"] = max_err[name]
+    stamp("phase 9")
+    results["paper_fidelity"] = paper_fidelity(cfg, params, entries)
+    stamp("phase 9 done: every check passed")
+    for name in max_err:
+        entries[name]["max_abs_err"] = max_err[name]
     results["kernels"] = list(entries.values())
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -845,7 +1286,7 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("wrapper_ms", "combine_ms", "paged_ms", "paged_bound_ms",
-             "paged_launches", "dense_sched_launches")
+             "paged_launches", "dense_sched_launches", "ideal_ms", "int_mm_ms")
     print(json.dumps({"kernels": [{**{k: e[k] for k in keys},
                                    **{k: e[k] for k in extra if k in e}}
                                   for e in entries.values()]}))

@@ -6,9 +6,13 @@ Counterpart of the JAX package's `core/attention.py`: the dense cache
 its trash page.  Ring caches belong to a later slice of the port.
 
 Score: int8 QK^T, requantized to 8-bit score codes.  Softmax: LUT exp and a
-two-phase normalization.  AV: uint8 probabilities (with the V scales folded
-in) times int8 V.  Integer contractions are float64 products, exact for
-every operand range here (|sum| < 2^53) on the CPU and the GPU alike.
+two-phase normalization, in the shifted mode through the LUT softmax kernel
+(`kernels/lut_softmax.py`: CUDA for CUDA tensors, its plain version on the
+CPU).  AV: uint8 probabilities (with the V scales folded in) times int8 V.
+Under the quantized ADC every 16-element partial sum of Score and AV passes
+through the ADC, on a head-expanded cache.  Integer contractions are float64
+products, exact for every operand range here (|sum| < 2^53) on the CPU and
+the GPU alike (CUDA has no integer bmm).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 from repro_torch.configs.base import LUTSoftmaxConfig, PIMConfig
 from repro_torch.core import quant
 from repro_torch.core.lut_softmax import lut_softmax_codes, probs_to_uint8
+from repro_torch.kernels.lut_softmax import lut_softmax as _lut_softmax_kernel
 
 
 @dataclasses.dataclass
@@ -318,11 +323,48 @@ def _int_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.double(), b.double()).float()
 
 
+def _group(x: torch.Tensor, dim: int, g: int) -> torch.Tensor:
+    """Zero-pad `dim` to a multiple of g and split it into (size / g, g)."""
+    rem = (-x.shape[dim]) % g
+    if rem:
+        pad = [0, 0] * (x.dim() - 1 - dim) + [0, rem]
+        x = torch.nn.functional.pad(x, pad)
+    return x.unflatten(dim, (x.shape[dim] // g, g))
+
+
+def pim_scores_int(q_q: torch.Tensor, k_q: torch.Tensor,
+                   cfg: PIMConfig) -> torch.Tensor:
+    """int8 QK^T through the ADC: (B, Sq, H, Dh) x (B, Sk, H, Dh) ->
+    (B, H, Sq, Sk) on the ADC grid (each 16-element group of the head dim is
+    one analog step).  The ideal mode's GQA-grouped product is inline in
+    `_pim_attend_block`."""
+    g = cfg.wordline_group
+    psum = torch.einsum("bqhge,bkhge->bhqkg", _group(q_q, 3, g).double(),
+                        _group(k_q, 3, g).double())
+    return quant.adc_transfer(psum, cfg.adc_bits,
+                              quant.adc_full_range(cfg)).sum(-1)
+
+
+def pim_av_int(p_u8: torch.Tensor, v_q: torch.Tensor,
+               cfg: PIMConfig) -> torch.Tensor:
+    """uint8 probabilities x int8 V through the ADC: (B, H, Sq, Sk) x
+    (B, Sk, H, Dh) -> (B, Sq, H, Dh).  V is stationary along the sequence
+    (word-line) axis, so the ADC groups run over Sk."""
+    g = cfg.wordline_group
+    psum = torch.einsum("bhqge,bgehd->bqhdg", _group(p_u8, 3, g).double(),
+                        _group(v_q, 1, g).double())
+    return quant.adc_transfer(psum, cfg.adc_bits,
+                              quant.adc_full_range(cfg)).sum(-1)
+
+
 def _pim_attend_block(qb, q_pos, k_q, ks_bh, v_q, vs_bh, vs_cum, kv_len,
                       pim_cfg: PIMConfig, lut_cfg: LUTSoftmaxConfig,
                       causal: bool, window: int):
     """One query block of Score -> LUT softmax -> AV, GQA-grouped: q is
-    viewed as (B, cq, Hkv, G, Dh) against the raw int8 cache.
+    viewed as (B, cq, Hkv, G, Dh) against the raw int8 cache.  The
+    quantized ADC is the G == 1 case of the same pipeline: the caller
+    head-expands the cache, and Score and AV go through `pim_scores_int` /
+    `pim_av_int`.
 
     qb: (B, cq, H, Dh); q_pos: (B, cq) absolute positions; kv_len: (B,)
     valid cache lengths; k_q/v_q: (B, Sk, Hkv, Dh) int8; ks_bh/vs_bh/vs_cum:
@@ -330,13 +372,19 @@ def _pim_attend_block(qb, q_pos, k_q, ks_bh, v_q, vs_bh, vs_cum, kv_len,
     B, cq, H, Dh = qb.shape
     Sk, Hkv = k_q.shape[1], k_q.shape[2]
     G = H // Hkv
+    ideal = pim_cfg.adc_mode == "ideal"
+    if not (ideal or G == 1):
+        raise ValueError("the quantized ADC needs a head-expanded cache")
     sm_scale = 1.0 / (Dh ** 0.5)
 
     # Score: int8 QK^T, then the requantize to the 8-bit score port
     q_scale = quant.symmetric_max_scale(qb, pim_cfg.input_bits, axis=-1)
     q_q = quant.quantize(qb, q_scale, pim_cfg.input_bits)
-    qg = q_q.reshape(B, cq, Hkv, G, Dh)
-    s_int = _int_einsum("bqhgd,bkhd->bhgqk", qg, k_q)
+    if ideal:
+        qg = q_q.reshape(B, cq, Hkv, G, Dh)
+        s_int = _int_einsum("bqhgd,bkhd->bhgqk", qg, k_q)
+    else:
+        s_int = pim_scores_int(q_q, k_q, pim_cfg)[:, :, None]
     qs = q_scale[..., 0].float().reshape(B, cq, Hkv, G).permute(0, 2, 3, 1)
     s_real = (s_int * qs[..., None] * ks_bh[:, :, None, None, :]) * sm_scale
     qmax = (1 << (lut_cfg.input_bits - 1)) - 1
@@ -350,7 +398,11 @@ def _pim_attend_block(qb, q_pos, k_q, ks_bh, v_q, vs_bh, vs_cum, kv_len,
         mask = mask & (k_pos <= q_pos[:, :, None])
     if window:
         mask = mask & (k_pos > q_pos[:, :, None] - window)
-    codes = lut_softmax_codes(s_codes, lut_cfg, mask=mask[:, None, None])
+    mask = mask[:, None, None].expand(s_codes.shape)     # as the reference
+    if lut_cfg.mode == "shifted":
+        codes = _lut_softmax_kernel(s_codes, mask, lut_cfg)
+    else:
+        codes = lut_softmax_codes(s_codes, lut_cfg, mask=mask)
     p_u8 = probs_to_uint8(codes, lut_cfg)                  # (B,Hkv,G,cq,Sk)
 
     # AV: per-token V scales folded into the probabilities before the array
@@ -364,7 +416,10 @@ def _pim_attend_block(qb, q_pos, k_q, ks_bh, v_q, vs_bh, vs_cum, kv_len,
     p255 = torch.clamp(
         torch.round(p_u8.float() * vs_bh[:, :, None, None, :]
                     / s_fold[:, :, None, :, None]), 0, 255)
-    o_int = _int_einsum("bhgqk,bkhd->bqhgd", p255, v_q)
+    if ideal:
+        o_int = _int_einsum("bhgqk,bkhd->bqhgd", p255, v_q)
+    else:
+        o_int = pim_av_int(p255[:, :, 0], v_q, pim_cfg)[:, :, :, None]
     o = (o_int * s_fold.permute(0, 2, 1)[:, :, :, None, None]) * (2.0 ** -8)
     return o.reshape(B, cq, H, Dh)
 
@@ -377,21 +432,24 @@ def pim_attention(q: torch.Tensor, cache: KVCache, pim_cfg: PIMConfig,
     q: (B, Sq, H, Dh) float; `q_offset` and `cache.length` are scalars or
     (B,) vectors.  Query-chunked like the reference (the normalization is
     exact per row, so chunking changes nothing but the working set)."""
-    if pim_cfg.adc_mode != "ideal":
-        raise NotImplementedError(
-            "the port's behavioral attention runs adc_mode='ideal' only")
     B, Sq, H, Dh = q.shape
     k_q, v_q = cache.k_q.transpose(1, 2), cache.v_q.transpose(1, 2)
     if cache_kv_bits(k_q.shape[-1], Dh) == 4:
         # 4-bit storage decodes to exact int8 levels on the same scale grid
         k_q, v_q = quant.kv4_decode_int8(k_q), quant.kv4_decode_int8(v_q)
-    Sk = k_q.shape[1]
     dev = q.device
     q_off = torch.as_tensor(q_offset, dtype=torch.int64, device=dev
                             ).reshape(-1).expand(B)
     kv_len = torch.as_tensor(cache.length, dtype=torch.int64, device=dev
                              ).reshape(-1).expand(B)
     ks_bh, vs_bh = cache.k_scale, cache.v_scale            # (B, Hkv, Sk)
+    if pim_cfg.adc_mode != "ideal":
+        # head-expand, so that the G == 1 block routes every contraction
+        # through the ADC
+        q_per_kv = H // k_q.shape[2]
+        k_q, v_q = _expand_kv(k_q, q_per_kv), _expand_kv(v_q, q_per_kv)
+        ks_bh = torch.repeat_interleave(ks_bh, q_per_kv, dim=1)
+        vs_bh = torch.repeat_interleave(vs_bh, q_per_kv, dim=1)
     vs_cum = torch.cummax(vs_bh, dim=2).values if causal else vs_bh
 
     cq = _PIM_ATTN_CHUNK

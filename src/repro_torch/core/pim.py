@@ -5,10 +5,11 @@ Counterpart of the JAX package's `core/pim.py`.  int8 weights live in
 partial sum may pass through a 6-bit ADC before digital accumulation.
 
 Integer products stay exact: a dot over K = 8192 can exceed 2^24, so no
-float32 product is used for them.  On the CPU they are an int32 matmul; on
-the GPU the ideal mode goes to cuBLAS's int8 GEMM (`torch._int_mm`), the
-plain large product the JAX package leaves to XLA.  The quantized ADC mode
-runs on the CPU only until its kernel is ported.
+float32 product is used for them.  The ideal mode is the plain large
+product the JAX package leaves to XLA: an int32 matmul on the CPU, cuBLAS's
+int8 GEMM (`torch._int_mm`) on the GPU.  The quantized ADC mode goes through
+`kernels/pim_matmul.py`: the CUDA kernel for CUDA tensors, its plain version
+for CPU tensors.
 """
 from __future__ import annotations
 
@@ -18,21 +19,7 @@ import torch
 
 from repro_torch.configs.base import PIMConfig
 from repro_torch.core import quant
-
-
-def adc_full_range(cfg: PIMConfig) -> float:
-    """ADC full-scale: fraction of the theoretical max 16-row partial sum."""
-    qmax_w = (1 << (cfg.weight_bits - 1)) - 1
-    qmax_x = (1 << (cfg.input_bits - 1)) - 1
-    return cfg.adc_range_frac * cfg.wordline_group * qmax_w * qmax_x
-
-
-def _pad_last(x: torch.Tensor, multiple: int, dim: int) -> torch.Tensor:
-    rem = (-x.shape[dim]) % multiple
-    if rem == 0:
-        return x
-    pad = [0, 0] * (x.dim() - 1 - (dim % x.dim())) + [0, rem]
-    return torch.nn.functional.pad(x, pad)
+from repro_torch.kernels.pim_matmul import pim_matmul_int as _adc_matmul
 
 
 def _int_mm_cuda(x2: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
@@ -65,20 +52,9 @@ def pim_matmul_int(x_q: torch.Tensor, w_q: torch.Tensor,
         else:
             y = x2.to(torch.int32) @ w_q.to(torch.int32)
         return y.float().reshape(lead + (N,))
-    if x_q.is_cuda:
-        raise NotImplementedError(
-            "adc_mode='quantized' on the GPU waits for the port of the "
-            "pim_matmul kernel")
-    g = cfg.wordline_group
-    x_p = _pad_last(x_q, g, -1)
-    w_p = _pad_last(w_q, g, 0)
-    G = x_p.shape[-1] // g
-    xg = x_p.reshape(lead + (G, g)).to(torch.int64)
-    wg = w_p.reshape(G, g, N).to(torch.int64)
-    # (..., G, N) partial sums, one per word-line group (one analog step)
-    psum = torch.einsum("...gk,gkn->...gn", xg, wg)
-    psum = quant.adc_transfer(psum, cfg.adc_bits, adc_full_range(cfg))
-    return psum.sum(dim=-2)
+    # every 16-row partial sum through the ADC: kernel 3 (or its plain
+    # version on the CPU)
+    return _adc_matmul(x_q.reshape(-1, K), w_q, cfg).reshape(lead + (N,))
 
 
 def pim_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,

@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.configs.base import PIMConfig
+
 
 def _div(x: torch.Tensor, y) -> torch.Tensor:
     """x / y in float32, rounded once to the promoted dtype of x and y (a
@@ -44,15 +46,36 @@ def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int,
     return torch.clamp(torch.round(_div(x, scale)), -qmax - 1, qmax).to(dtype)
 
 
-def adc_transfer(psum: torch.Tensor, adc_bits: int,
-                 adc_range: float) -> torch.Tensor:
+def adc_full_range(cfg: PIMConfig) -> float:
+    """ADC full-scale: fraction of the theoretical max 16-row partial sum."""
+    qmax_w = (1 << (cfg.weight_bits - 1)) - 1
+    qmax_x = (1 << (cfg.input_bits - 1)) - 1
+    return cfg.adc_range_frac * cfg.wordline_group * qmax_w * qmax_x
+
+
+def _step(adc_bits: int, adc_range: float) -> float:
+    return adc_range / (1 << (adc_bits - 1))
+
+
+def adc_step(cfg: PIMConfig) -> float:
+    """Reconstruction step of one ADC code."""
+    return _step(cfg.adc_bits, adc_full_range(cfg))
+
+
+def adc_code(psum: torch.Tensor, adc_bits: int,
+             adc_range: float) -> torch.Tensor:
     """The paper's ADC: saturating uniform quantization of an integer partial
     sum to `adc_bits` levels over [-adc_range, adc_range); returns the
-    float32 reconstruction on the ADC grid."""
+    integer codes as float32."""
     half = 1 << (adc_bits - 1)
-    step = adc_range / half
-    code = torch.clamp(torch.round(_div(psum.float(), step)), -half, half - 1)
-    return code * step
+    return torch.clamp(torch.round(_div(psum.float(), _step(adc_bits, adc_range))),
+                       -half, half - 1)
+
+
+def adc_transfer(psum: torch.Tensor, adc_bits: int,
+                 adc_range: float) -> torch.Tensor:
+    """The float32 reconstruction of `adc_code` on the ADC grid."""
+    return adc_code(psum, adc_bits, adc_range) * _step(adc_bits, adc_range)
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,40 @@
-"""Public wrappers over the attention kernels, in the model's layout.
+"""Public wrappers over the kernels, in the model's layout.
 
-Counterpart of the JAX package's `kernels/ops.py` for the attention path.
-The kernels take head-major int8 operands; these wrappers quantize q, hand
-the kernels views of the cache (the head-major dense planes, or the paged
-pool as it is stored), and route each step: Sq == 1 (or
-`force_decode_kernel`) to the split-K decode kernel, everything else to
-the prefill kernel.
+Counterpart of the JAX package's `kernels/ops.py`.  `pim_matmul` and
+`lut_softmax` put the PIM matmul and LUT softmax kernels behind the
+reference's signatures.  The attention kernels take head-major int8
+operands; their wrappers quantize q, hand the kernels views of the cache
+(the head-major dense planes, or the paged pool as it is stored), and route
+each step: Sq == 1 (or `force_decode_kernel`) to the split-K decode kernel,
+everything else to the prefill kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import LUTSoftmaxConfig, PIMConfig
+from repro_torch.core import pim as _pim
 from repro_torch.core import quant
 from repro_torch.core.attention import KVCache, PagedKVCache
+from repro_torch.kernels import lut_softmax as _sm_k
 from repro_torch.kernels.pim_attention import pim_attention
 from repro_torch.kernels.pim_decode import pim_decode
+
+
+def pim_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+               cfg: PIMConfig = PIMConfig(),
+               out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel-backed PIM linear forward: the core linear's per-token x
+    quantization, integer matmul (the PIM matmul kernel under the quantized
+    ADC) and rescale."""
+    return _pim.pim_matmul(x, w_q, w_scale, cfg, out_dtype=out_dtype)
+
+
+def lut_softmax(scores_q: torch.Tensor, mask: torch.Tensor,
+                cfg: LUTSoftmaxConfig = LUTSoftmaxConfig()) -> torch.Tensor:
+    """Kernel-backed LUT softmax -> Q0.16 probability codes; rows are the
+    leading dims, and the mask broadcasts to the scores' shape."""
+    return _sm_k.lut_softmax(scores_q, mask.expand(scores_q.shape), cfg)
 
 
 def _q_kernel_layout(q: torch.Tensor, input_bits: int):

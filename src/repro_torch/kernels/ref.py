@@ -1,17 +1,45 @@
-"""Two-pass oracle of the fused PIM attention kernels.
+"""Oracles of the kernels.
 
-Counterpart of the JAX package's `kernels/ref.py::pim_attention_ref`: the
-same LUT arithmetic as the kernels, with the global row max in place of the
-online running max (so the kernels agree with it to rounding, not bits).
+Counterpart of the JAX package's `kernels/ref.py`.  The matmul and softmax
+oracles are the reference's behavioral arithmetic, float32 sums included
+(the kernels are bit-true to it wherever those sums are exact).  The
+attention oracle has the same LUT arithmetic as the fused kernels, with the
+global row max in place of the online running max (so the kernels agree
+with it to rounding, not bits).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import LUTSoftmaxConfig
-from repro_torch.core.lut_softmax import build_exp_table
+from repro_torch.configs.base import LUTSoftmaxConfig, PIMConfig
+from repro_torch.core import quant
+from repro_torch.core.lut_softmax import build_exp_table, lut_softmax_codes
 
 _NEG = -(1 << 24)
+
+
+def pim_matmul_int_ref(x_q: torch.Tensor, w_q: torch.Tensor,
+                       cfg: PIMConfig) -> torch.Tensor:
+    """(M, K) int8 x (K, N) int8 -> (M, N) f32 on the accumulation grid:
+    each 16-row group's ADC output, code * step, summed in float32."""
+    if cfg.adc_mode == "ideal":
+        return (x_q.double() @ w_q.double()).float()
+    g = cfg.wordline_group
+    pad = (-x_q.shape[1]) % g
+    f = torch.nn.functional
+    xg = f.pad(x_q, (0, pad)).double()
+    wg = f.pad(w_q.t(), (0, pad)).t().double()
+    xg = xg.reshape(xg.shape[0], -1, g)
+    wg = wg.reshape(-1, g, wg.shape[1])
+    psum = torch.einsum("mgk,gkn->mgn", xg, wg)
+    return quant.adc_transfer(psum, cfg.adc_bits,
+                              quant.adc_full_range(cfg)).sum(dim=1)
+
+
+def lut_softmax_ref(scores_q: torch.Tensor, mask: torch.Tensor,
+                    cfg: LUTSoftmaxConfig) -> torch.Tensor:
+    """(R, S) score codes -> (R, S) Q0.16 probability codes."""
+    return lut_softmax_codes(scores_q, cfg, mask=mask)
 
 
 def pim_attention_ref(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_offset,
