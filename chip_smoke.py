@@ -1,9 +1,15 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch port runs on the GPU.
 
-  python3 chip_smoke.py [--out results.json]
+  python3 chip_smoke.py [--out results.json] [--phases 1,8]
 
-1. Prints the card and builds the CUDA kernels from `src/repro_torch/kernels/csrc`.
+With no arguments it runs and checks every phase; `--phases` runs a subset
+(phase 1 always, and the phases a chosen one needs), for short calls that
+iterate on one kernel.
+
+1. Prints the card and builds the CUDA kernels from `src/repro_torch/kernels/csrc`,
+   with ptxas's registers and spills, and counts the tensor-core (IMMA)
+   instructions in the SASS of each pim_matmul kernel.
 2. Holds each kernel against its plain PyTorch version at the widths of
    internlm2-1.8b (16 query heads over 8 KV heads, head_dim 128): causal,
    windowed and 4-bit prefill at Sq 512; split-K decode at kv_len 4096 with
@@ -48,10 +54,12 @@
    against their plain versions bit for bit: the linears' shapes (K 2048
    -> N 1024/2048/8192, K 8192 -> N 2048) at M 4, 512 and 2048, a K that
    is not a multiple of 16, a row-major layer view of stacked weights and
-   the deployed (K, N) view of an (N, K) store; softmax rows of the served
+   the deployed (K, N) view of an (N, K) store, x rows that are not
+   16-byte aligned; softmax rows of the served
    prefill (8192 x 160) and decode (64 x 4096), an all-masked row, flat
    rows whose sum of exps passes 2^24, int8 codes.  Times both at the
-   served shapes beside their plain versions, their bounds and, for the
+   served shapes (kernel 3 at M 4, 512 and 2048, with TOP/s and the share
+   of its bound) beside their plain versions, their bounds and, for the
    ideal mode, `torch._int_mm` (no one PyTorch call computes the ADC or
    the LUT softmax).
 9. Serves internlm2-1.8b at the paper's fidelity, with the phase 6
@@ -110,6 +118,11 @@ F32_OPS = 67e12
 REL_TOL = 1e-5
 
 
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9)
+# what a phase needs run first: kernel entries (2, 8) or the small model (4)
+NEEDS = {3: {2}, 5: {4}, 6: {2}, 7: {2}, 9: {8}}
+
+
 class CheckFailed(SystemExit):
     pass
 
@@ -125,6 +138,30 @@ def check(ok: bool, what: str) -> None:
     print(f"  [{'ok' if ok else 'FAIL'}] {what}", flush=True)
     if not ok:
         raise CheckFailed(f"chip_smoke: check failed: {what}")
+
+
+def sass_imma(name: str) -> dict:
+    """{kernel: (IMMA, MUFU.RCP) instruction counts} in the SASS of the
+    built library `name`, from the toolkit's cuobjdump ({} without it)."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        print(f"  no cuobjdump beside nvcc: SASS of {name} not counted")
+        return {}
+    sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "IMMA" in line
+            counts[fn][1] += "MUFU.RCP" in line
+    for fn, (imma, rcp) in counts.items():
+        print(f"  SASS {name}: {imma} IMMA, {rcp} MUFU.RCP in {fn[:96]}")
+    check(bool(counts) and all(imma > 0 for imma, _ in counts.values()),
+          f"every {name} kernel runs on the tensor cores (IMMA in its SASS)")
+    return counts
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -198,7 +235,7 @@ def profile_report(prof, wall_s: float, prof_s: float, label: str,
     kernels = {}
     for names, wrapper in kernel_names:
         # a wrapper launch runs the first device kernel once, and may run the
-        # others (kernel 3's split-K sum): their time counts as its own
+        # others (pim_decode's combine): their time counts as its own
         kernel, *more = (names,) if isinstance(names, str) else names
         us, n = kernel_us(times, kernel)
         check(n > 0, f"profiled {label} ran {kernel}")
@@ -683,6 +720,14 @@ def adc_kernels(dev, cfg, gen, entries) -> None:
     x, w = int8_codes((3, 200), gen, dev), deployed(200, 24)
     same("M3 K200 N24 quantized", "pim_matmul", mm_k.pim_matmul_int(x, w, pim_q),
          mm_k.pim_matmul_int_plain(x, w, pim_q))
+    w = deployed(2048, 1024)
+    for M in (4, 12, 512):
+        # a contiguous x one byte into its storage: rows not 16-byte aligned
+        x = int8_codes((M * 2048 + 1,), gen, dev)[1:].view(M, 2048)
+        check(x.data_ptr() % 16 != 0, f"M{M} x view is misaligned")
+        for pc in (pim_q, pim_i):
+            same(f"M{M} K2048 N1024 misaligned x {pc.adc_mode}", "pim_matmul",
+                 mm_k.pim_matmul_int(x, w, pc), mm_k.pim_matmul_int_plain(x, w, pc))
 
     print("kernel 4 (lut_softmax) vs its plain version, bit for bit:", flush=True)
     lut = cfg.lut
@@ -720,26 +765,34 @@ def adc_kernels(dev, cfg, gen, entries) -> None:
     # ---- timing at the served shapes -----------------------------------
     print("kernel 3 and 4 times, device ms per call (torch.profiler):", flush=True)
     rows = []
-    for M in (4, 512):
+    for M in (4, 512, 2048):
         for K, N in LINEARS:
             x, w = int8_codes((M, K), gen, dev), deployed(K, N)
             xp = F.pad(x, (0, 0, 0, max(0, 32 - M)))       # cuBLAS takes > 16 rows
             t = {}
             for mode, pc in (("quantized", pim_q), ("ideal", pim_i)):
-                times = profiled(lambda: mm_k.pim_matmul_int(x, w, pc), 20)
-                _, n = kernel_us(times, "pim_matmul_kernel")
+                for _ in range(5):   # the profiler may drop a short kernel's events
+                    times = profiled(lambda: mm_k.pim_matmul_int(x, w, pc), 20)
+                    _, n = kernel_us(times, "pim_matmul_kernel")
+                    if n == 20:
+                        break
+                    print(f"  profiler saw {n} of the 20 {mode} launches: profiling again")
                 check(n == 20, f"profiler saw the 20 {mode} pim_matmul launches ({n})")
                 t[mode] = per_call_ms(times, 20)
             t["plain"] = per_call_ms(profiled(lambda: mm_k.pim_matmul_int_plain(x, w, pim_q), 2), 2)
             t["int_mm"] = per_call_ms(profiled(lambda: torch._int_mm(xp, w), 20), 20)
             b_ms, b_by = matmul_bound(M, K, N, True)
             bi_ms, _ = matmul_bound(M, K, N, False)
+            tops = {m: 2 * M * N * K / (t[m] * 1e-3) / 1e12 for m in ("quantized", "ideal")}
             rows.append(dict(M=M, K=K, N=N, ms=t["quantized"], ideal_ms=t["ideal"],
                              plain_ms=t["plain"], int_mm_ms=t["int_mm"], bound_ms=b_ms,
-                             bound_by=b_by, ideal_bound_ms=bi_ms))
-            print(f"  pim_matmul M{M} K{K} N{N}: quantized {t['quantized']:.4f} (bound "
-                  f"{b_ms:.4f}, {b_by}), ideal {t['ideal']:.4f} (bound {bi_ms:.4f}), "
-                  f"plain (quantized) {t['plain']:.4f}, torch._int_mm {t['int_mm']:.4f}",
+                             bound_by=b_by, ideal_bound_ms=bi_ms, tops=tops["quantized"],
+                             ideal_tops=tops["ideal"]))
+            print(f"  pim_matmul M{M} K{K} N{N}: quantized {t['quantized']:.4f} "
+                  f"({tops['quantized']:.1f} TOP/s, {b_ms / t['quantized']:.1%} of the bound "
+                  f"{b_ms:.4f}, {b_by}), ideal {t['ideal']:.4f} ({tops['ideal']:.1f} TOP/s, "
+                  f"{bi_ms / t['ideal']:.1%} of {bi_ms:.4f}; {t['ideal'] / t['int_mm']:.2f}x "
+                  f"torch._int_mm {t['int_mm']:.4f}), plain (quantized) {t['plain']:.4f}",
                   flush=True)
     head = next(r for r in rows if (r["M"], r["K"], r["N"]) == HEAD_MM)
     entries["pim_matmul"] = dict(
@@ -778,8 +831,7 @@ def adc_kernels(dev, cfg, gen, entries) -> None:
 
 
 # ---- 9. paper-fidelity serving: 6-bit ADC linears, behavioral attention ----
-ADC_KERNELS = ((("pim_matmul_kernel", "pim_matmul_splits_kernel"), "pim_matmul"),
-               ("lut_softmax_kernel", "lut_softmax"))
+ADC_KERNELS = (("pim_matmul_kernel", "pim_matmul"), ("lut_softmax_kernel", "lut_softmax"))
 ADC_TARGETS = {"pim_matmul": (core_pim, "_adc_matmul"),
                "lut_softmax": (A, "_lut_softmax_kernel")}
 
@@ -991,72 +1043,12 @@ def paper_fidelity(cfg, params, entries) -> dict:
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="", help="also write the results here")
-    args = ap.parse_args(argv)
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    results = {}
-
-    # ---- 1. card and build ------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"card: {smi}", flush=True)
-    results["card"] = smi
-    _build.build_all()
-    info = _build.build_info
-    print(f"build: {info['seconds']:.1f}s for {info['built'] or 'nothing (cached)'}")
-    for name in _build.SOURCES:
-        for line in str(info.get(f"nvcc_{name}", "")).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
-    results["build_s"] = info["seconds"]
-
-    # ---- 2. kernels against their plain versions --------------------------
-    stamp("phase 2")
-    cfg = get_config("internlm2-1.8b")
+def dense_kernels(dev, cfg, gen, operands, compare, bound, entries) -> None:
+    """Phase 2: both attention kernels against their plain versions at the
+    widths of `cfg`, dense, with their times."""
     pim_cfg, lut_cfg = cfg.pim, cfg.lut
     H, Hkv, Dh, B = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, 4
-    gen = torch.Generator(device=dev).manual_seed(0)
-
-    def operands(Sq, Sk, kv_len, kv_bits=8):
-        q = torch.randn(B, Sq, H, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
-        k = torch.randn(B, kv_len, Hkv, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
-        v = torch.randn(B, kv_len, Hkv, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
-        cache = A.init_kv_cache(B, Sk, Hkv, Dh, kv_bits=kv_bits, device=dev)
-        A.cache_write(cache, k, v, 0, pim_cfg)
-        return q, cache, ops.kernel_attention_layout(q, cache, pim_cfg.input_bits)
-
-    max_err = {"pim_attention": 0.0, "pim_decode": 0.0}
-
-    def compare(name, kern, plain):
-        """Hold a kernel's (out, iters) to its plain version's; the error
-        counts toward pim_attention in "prefill ..." cases, else pim_decode."""
-        (o_k, it_k), (o_p, it_p) = kern, plain
-        torch.cuda.synchronize()
-        err = (o_k - o_p).abs().max().item()
-        scale = o_p.abs().max().item()
-        check(bool(torch.isfinite(o_k).all()) and err <= REL_TOL * scale,
-              f"{name}: max|kernel-plain| {err:.3g} <= {REL_TOL} * {scale:.3g}")
-        check(torch.equal(it_k, it_p), f"{name}: iteration maps equal")
-        kernel = "pim_attention" if name.startswith("prefill") else "pim_decode"
-        max_err[kernel] = max(max_err[kernel], err)
-
-    def bound(nbytes, pairs):
-        t_bytes = nbytes / HBM_BPS * 1e3
-        t_ops = (2 * Dh * pairs / INT8_OPS + 2 * Dh * pairs / F32_OPS) * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
     print("kernels vs plain versions:", flush=True)
-    entries = {}
     # prefill: causal Sq 512 (timed), windowed, 4-bit, and the serve shape
     Sq = 512
     q, cache, opnd = operands(Sq, Sq, Sq)
@@ -1179,12 +1171,121 @@ def main(argv=None) -> int:
             pim_decode(*opnd_s, 136, 137, **kw),
             pim_decode_plain(*opnd_s, 136, 137, **kw))
 
-    stamp("phase 3")
-    paged_kernels(dev, cfg, gen, compare, bound, entries)
-    stamp("phase 8")
-    adc_kernels(dev, cfg, gen, entries)
 
-    # ---- 4. a small model: kernel path on the GPU vs plain path on the CPU
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="", help="also write the results here")
+    ap.add_argument("--phases", default=",".join(map(str, PHASES)),
+                    help="comma-separated phases to run (default: all); phase 1 "
+                         "always runs, and a phase brings the ones it needs")
+    args = ap.parse_args(argv)
+    phases = {1} | {int(p) for p in args.phases.split(",") if p.strip()}
+    if not phases <= set(PHASES):
+        ap.error(f"--phases takes phases of {PHASES}")
+    for p in sorted(phases, reverse=True):
+        phases |= NEEDS.get(p, set())
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    results = {}
+
+    # ---- 1. card and build ------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}", flush=True)
+    results["card"] = smi
+    _build.build_all()
+    info = _build.build_info
+    print(f"build: {info['seconds']:.1f}s for {info['built'] or 'nothing (cached)'}")
+    for name in _build.SOURCES:
+        for line in str(info.get(f"nvcc_{name}", "")).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+    results["build_s"] = info["seconds"]
+    results["pim_matmul_imma"] = sass_imma("pim_matmul")
+
+    # ---- 2. kernels against their plain versions --------------------------
+    cfg = get_config("internlm2-1.8b")
+    pim_cfg, lut_cfg = cfg.pim, cfg.lut
+    H, Hkv, Dh, B = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, 4
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def operands(Sq, Sk, kv_len, kv_bits=8):
+        q = torch.randn(B, Sq, H, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
+        k = torch.randn(B, kv_len, Hkv, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
+        v = torch.randn(B, kv_len, Hkv, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
+        cache = A.init_kv_cache(B, Sk, Hkv, Dh, kv_bits=kv_bits, device=dev)
+        A.cache_write(cache, k, v, 0, pim_cfg)
+        return q, cache, ops.kernel_attention_layout(q, cache, pim_cfg.input_bits)
+
+    max_err = {"pim_attention": 0.0, "pim_decode": 0.0}
+
+    def compare(name, kern, plain):
+        """Hold a kernel's (out, iters) to its plain version's; the error
+        counts toward pim_attention in "prefill ..." cases, else pim_decode."""
+        (o_k, it_k), (o_p, it_p) = kern, plain
+        torch.cuda.synchronize()
+        err = (o_k - o_p).abs().max().item()
+        scale = o_p.abs().max().item()
+        check(bool(torch.isfinite(o_k).all()) and err <= REL_TOL * scale,
+              f"{name}: max|kernel-plain| {err:.3g} <= {REL_TOL} * {scale:.3g}")
+        check(torch.equal(it_k, it_p), f"{name}: iteration maps equal")
+        kernel = "pim_attention" if name.startswith("prefill") else "pim_decode"
+        max_err[kernel] = max(max_err[kernel], err)
+
+    def bound(nbytes, pairs):
+        t_bytes = nbytes / HBM_BPS * 1e3
+        t_ops = (2 * Dh * pairs / INT8_OPS + 2 * Dh * pairs / F32_OPS) * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+    entries = {}
+    if 2 in phases:
+        stamp("phase 2")
+        dense_kernels(dev, cfg, gen, operands, compare, bound, entries)
+    if 3 in phases:
+        stamp("phase 3")
+        paged_kernels(dev, cfg, gen, compare, bound, entries)
+    if 8 in phases:
+        stamp("phase 8")
+        adc_kernels(dev, cfg, gen, entries)
+    if 4 in phases:
+        small_model(dev, 5 in phases)
+    if phases & {6, 7, 9}:
+        serve_phases(dev, cfg, phases, entries, compare, results)
+    stamp(f"phases {sorted(phases)} done: every check passed")
+    for name in max_err:
+        if name in entries:
+            entries[name]["max_abs_err"] = max_err[name]
+    results["kernels"] = list(entries.values())
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("wrapper_ms", "combine_ms", "paged_ms", "paged_bound_ms",
+             "paged_launches", "dense_sched_launches", "ideal_ms", "int_mm_ms")
+    print(json.dumps({"kernels": [{**{k: e.get(k) for k in keys},
+                                   **{k: e[k] for k in extra if k in e}}
+                                  for e in entries.values()]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def small_model(dev, scheduler: bool) -> None:
+    """Phase 4, the kernel path of a small model on the GPU against the
+    plain path on the CPU, and phase 5 on it when `scheduler`."""
+    stamp("phase 4")
     small = dataclasses.replace(get_config("internlm2-1.8b", smoke=True),
                                 attn_impl="kernel", compute_dtype="float32")
     m_cpu, m_gpu = build_model(small, "cpu"), build_model(small, dev)
@@ -1207,11 +1308,15 @@ def main(argv=None) -> int:
     s_gpu = serve_lib.generate(m_gpu, p_gpu, {"tokens": toks}, 8, 24)
     check(torch.equal(s_cpu, s_gpu.cpu()), "smoke model 8-token greedy streams equal")
 
-    stamp("phase 5")
-    smoke_scheduler(dev, small, p_gpu)
+    if scheduler:
+        stamp("phase 5")
+        smoke_scheduler(dev, small, p_gpu)
 
-    # ---- 6. serve internlm2-1.8b at full width and depth -----------------
-    stamp("phase 6")
+
+def serve_phases(dev, cfg, phases, entries, compare, results) -> None:
+    """Phases 6, 7 and 9 at full width and depth, on the phase 6 weights."""
+    stamp("phase 6: model and weights")
+    Dh = cfg.resolved_head_dim
     cfg = dataclasses.replace(cfg, attn_impl="kernel")
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -1222,6 +1327,20 @@ def main(argv=None) -> int:
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim {Dh}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B params "
           f"(init+deploy {time.perf_counter() - t0:.1f}s)", flush=True)
+    if 6 in phases:
+        serve_classic(model, params, cfg, entries, results)
+    if 7 in phases:
+        stamp("phase 7")
+        results["scheduler"] = full_scheduler(model, params, cfg, entries, compare)
+    if 9 in phases:
+        stamp("phase 9")
+        results["paper_fidelity"] = paper_fidelity(cfg, params, entries)
+
+
+def serve_classic(model, params, cfg, entries, results) -> None:
+    """Phase 6: the classic request on the kernel path, then profiled."""
+    stamp("phase 6: the classic request")
+    dev = model.device
     Bs, P, T = 4, 128, 32
     batch = {"tokens": torch.from_numpy(data.lm_batch(0, Bs, P, cfg.vocab_size)).long()}
     logits, _ = model.forward_serve(params, {"tokens": batch["tokens"].to(dev)},
@@ -1269,32 +1388,6 @@ def main(argv=None) -> int:
         tokens_per_s=Bs * T / total_s, total_s=total_s, launches=launches,
         **profile_report(prof, walls[0], walls[1], f"request cut to "
                          f"{PROFILED_TOKENS} new tokens", dict(_build.LAUNCHES)))
-
-    stamp("phase 7")
-    results["scheduler"] = full_scheduler(model, params, cfg, entries, compare)
-    stamp("phase 9")
-    results["paper_fidelity"] = paper_fidelity(cfg, params, entries)
-    stamp("phase 9 done: every check passed")
-    for name in max_err:
-        entries[name]["max_abs_err"] = max_err[name]
-    results["kernels"] = list(entries.values())
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(results, f, indent=1)
-
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("wrapper_ms", "combine_ms", "paged_ms", "paged_bound_ms",
-             "paged_launches", "dense_sched_launches", "ideal_ms", "int_mm_ms")
-    print(json.dumps({"kernels": [{**{k: e[k] for k in keys},
-                                   **{k: e[k] for k in extra if k in e}}
-                                  for e in entries.values()]}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ from repro.configs import get_config as jax_config
 from repro.configs.base import LUTSoftmaxConfig as JLut, PIMConfig as JPim
 from repro.core import attention as JA
 from repro.core import pim as JP
+from repro.core import quant as JQ
 from repro.kernels import ops as JO
 from repro.kernels import ref as JR
 from repro.kernels.lut_softmax import lut_softmax_pallas
@@ -41,8 +42,10 @@ from repro_torch.data import pipeline as TD
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels.lut_softmax import lut_softmax, lut_softmax_plain
+from repro_torch.core import quant as TQ
 from repro_torch.kernels.pim_matmul import (
-    pim_matmul_int, pim_matmul_int_plain, split_k)
+    PSUM_MAX, _adc_constants, _fma_f32, adc_kernel_codes, adc_table, adc_thresholds,
+    pim_matmul_int, pim_matmul_int_plain, split_k, tile_m)
 from repro_torch.models.model_zoo import build_model, from_jax_params
 from repro_torch.runtime import serve_lib as TS
 
@@ -113,16 +116,96 @@ def test_pim_matmul_integer_code_sum_at_large_k():
         assert t[0, col] == np.float32(codes) * step
 
 
-@pytest.mark.parametrize("M,N,K,splits", [(4, 2048, 2048, 8), (4, 1024, 2048, 16),
-                                          (4, 2048, 8192, 9), (512, 2048, 2048, 2),
-                                          (2048, 8192, 2048, 1), (1, 24, 200, 4)])
+@pytest.mark.parametrize("M,N,K,splits", [(4, 2048, 2048, 8), (4, 1024, 2048, 8),
+                                          (4, 2048, 8192, 16), (4, 8192, 2048, 4),
+                                          (12, 2048, 2048, 8), (512, 1024, 2048, 4),
+                                          (512, 2048, 2048, 2), (2048, 8192, 2048, 1),
+                                          (1, 24, 200, 1), (4, 2048, 2000, 8)])
 def test_split_k_covers_k_in_64_row_ranges(M, N, K, splits):
-    """The kernel's K split: whole 64-row stages, every row of K in exactly
-    one split, about two CTAs per SM of an H100 (132 SMs)."""
-    block_m = 16 if M <= 16 else 64
-    n, k_split = split_k(M, N, K, block_m, 132)
+    """The kernel's K split: 64-row-aligned ranges of at least 256 rows
+    (four stages), every row of K in exactly one split, and the decode
+    grids (M <= 16: 8 or 16 token rows by 128 weight rows a tile) at about
+    two CTAs per SM of an H100 (132 SMs) unless K runs out of ranges."""
+    n, k_split = split_k(M, N, K, 132)
     assert (n, k_split % 64) == (splits, 0)
+    assert k_split >= min(256, -(-K // 64) * 64)
     assert (n - 1) * k_split < K <= n * k_split
+    tiles = -(-N // 128) * -(-M // tile_m(M))
+    assert tile_m(M) == (8 if M <= 8 else 16 if M <= 16 else 64)
+    assert n == 1 or tiles * n <= 2 * 132
+    if M <= 16 and n < -(-K // 256):
+        assert tiles * n >= 132
+
+
+ADC_CONFIGS = [dict(adc_bits=b, adc_range_frac=f) for b in (4, 6, 8)
+               for f in (0.125, 0.05, 0.3, 1.0)]
+
+
+def _all_psums():
+    """Every partial sum a 16-row group of int8 products can reach."""
+    return torch.arange(-PSUM_MAX, PSUM_MAX + 1, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("kw", ADC_CONFIGS, ids=lambda kw: "b{adc_bits}-f{adc_range_frac}".format(**kw))
+def test_adc_thresholds_reproduce_the_adc(kw):
+    """code(p) = lo + #{c : T[c] <= p} over the whole partial-sum range,
+    steps dyadic (0.125: 16129 / 2^k) or not (0.05, 0.3)."""
+    cfg = TPim(adc_mode="quantized", **kw)
+    p = _all_psums()
+    codes = TQ.adc_code(p, cfg.adc_bits, TQ.adc_full_range(cfg)).to(torch.int32)
+    t = adc_thresholds(cfg)
+    assert t.shape == ((1 << cfg.adc_bits) - 1,)
+    lo = -(1 << (cfg.adc_bits - 1))
+    assert torch.equal(lo + torch.searchsorted(t, p, right=True).to(torch.int32), codes)
+    # and JAX's ADC (eager), over the same range
+    rng = TQ.adc_full_range(cfg)
+    np.testing.assert_array_equal(
+        np.asarray(JQ.adc_transfer(jnp.asarray(p.numpy()), cfg.adc_bits, rng)),
+        TQ.adc_transfer(p, cfg.adc_bits, rng).numpy())
+
+
+@pytest.mark.parametrize("kw", ADC_CONFIGS, ids=lambda kw: "b{adc_bits}-f{adc_range_frac}".format(**kw))
+def test_adc_guess_and_correct_rule_is_exact(kw):
+    """The kernel's division-free ADC, in its own float32 operations (a
+    saturating fma guess one code low at most, corrected by one threshold),
+    gives every code of the reference, and its guess does need the
+    correction somewhere."""
+    cfg = TPim(adc_mode="quantized", **kw)
+    p = _all_psums()
+    codes = TQ.adc_code(p, cfg.adc_bits, TQ.adc_full_range(cfg)).to(torch.int32)
+    assert torch.equal(adc_kernel_codes(p, cfg), codes)
+    table, _ = adc_table(cfg)
+    assert table.dtype == torch.float32 and table.shape == (1 << cfg.adc_bits,)
+    # the guess alone is the code or one below it
+    a, b, w, c = _adc_constants(cfg)
+    s = _fma_f32((p + 12582912).float(), a, b).clamp(0.0, 1.0)
+    guess = _fma_f32(s, w, c).view(torch.int32) - torch.tensor(12582912.0).view(torch.int32)
+    assert set((codes - guess).unique().tolist()) == {0, 1}
+
+
+def test_fma_emulation_rounds_once():
+    """The guess's float32 fma, emulated through float64, rounds once even
+    where the float64 sum lands on a float32 tie."""
+    from fractions import Fraction
+    w, c = 63.0, 12582880.0
+    # s * w just above or below k + 1/2: the float64 sum rounds the excess off
+    s = torch.tensor([(k + 0.5) / w for k in range(60)], dtype=torch.float32)
+    s = torch.cat([s, torch.nextafter(s, torch.ones(())), torch.nextafter(s, torch.zeros(()))])
+    got = _fma_f32(s, w, c)
+    for si, gi in zip(s.tolist(), got.tolist()):
+        exact = Fraction(si) * Fraction(w) + Fraction(c)
+        lo = Fraction(int(exact))           # float32 integers near 1.5 * 2^23
+        want = lo + (1 if exact - lo > Fraction(1, 2) or
+                     (exact - lo == Fraction(1, 2) and int(lo) % 2) else 0)
+        assert gi == float(want), (si, gi, float(want))
+
+
+def test_adc_table_refuses_a_guess_that_misses():
+    """An ADC step of about 2 (8 bits over 1/1000 of the group's range):
+    the guess's float32 rounding can miss by two codes, so the kernel's
+    table is refused rather than used."""
+    with pytest.raises(ValueError):
+        adc_table(TPim(adc_mode="quantized", adc_bits=8, adc_range_frac=0.001))
 
 
 def test_ops_pim_matmul_matches_jax():
@@ -148,8 +231,6 @@ def test_adc_division_eager_and_jitted():
     psum = np.arange(-258064, 258065, 7, dtype=np.int32)
     half = np.round((np.arange(-33, 33) + 0.5) * step).astype(np.int32)
     psum = np.concatenate([psum, half - 1, half, half + 1])
-    from repro.core import quant as JQ
-    from repro_torch.core import quant as TQ
     t = TQ.adc_transfer(torch.from_numpy(psum), 6, step * 32)
     np.testing.assert_array_equal(
         t.numpy(), np.asarray(JQ.adc_transfer(jnp.asarray(psum), 6, step * 32)))
@@ -363,14 +444,28 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-def test_cuda_adc_kernels_match_plain_versions(cuda_device):
+@pytest.mark.parametrize("M", [4, 512])
+def test_cuda_adc_kernels_match_plain_versions(cuda_device, M):
     """On the card: kernels 3 and 4 against their plain versions, bit for
-    bit (K not a multiple of 16, the deployed weight layout, a split K)."""
-    x = torch.from_numpy(_int8(13, (4, 1000))).to(cuda_device)
-    w = torch.from_numpy(_int8(14, (96, 1000))).to(cuda_device).t()
-    for mode in ("ideal", "quantized"):
-        cfg = TPim(adc_mode=mode)
-        assert torch.equal(pim_matmul_int(x, w, cfg), pim_matmul_int_plain(x, w, cfg))
+    bit: kernel 3 at decode (the weights as the MMA's A operand, split K)
+    and prefill widths, K 1000 and 2000 (not multiples of 64), the deployed
+    weight layout and a row-major layer view, and an x whose rows are not
+    16-byte aligned."""
+    def check(x, w):
+        for mode in ("ideal", "quantized"):
+            cfg = TPim(adc_mode=mode)
+            assert torch.equal(pim_matmul_int(x, w, cfg), pim_matmul_int_plain(x, w, cfg))
+
+    x = torch.from_numpy(_int8(13, (M, 1000))).to(cuda_device)
+    check(x, torch.from_numpy(_int8(14, (96, 1000))).to(cuda_device).t())
+    stack = torch.from_numpy(_int8(17, (2, 2000, 320))).to(cuda_device)
+    x = torch.from_numpy(_int8(18, (M, 2000))).to(cuda_device)
+    check(x, stack[1])                                   # row-major layer view
+    check(x, stack[1].t().contiguous().t())              # deployed view
+    flat = torch.from_numpy(_int8(19, (M * 2000 + 1,))).to(cuda_device)
+    x = flat[1:].view(M, 2000)
+    assert x.data_ptr() % 16 != 0
+    check(x, stack[0].t().contiguous().t())
     s = torch.from_numpy(_int8(15, (6, 300)).astype(np.int32)).to(cuda_device)
     m = torch.from_numpy(np.random.RandomState(16).rand(6, 300) < 0.7).to(cuda_device)
     m[2] = False
