@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch port runs on the GPU.
 
-  python3 chip_smoke.py [--out results.json] [--phases 1,8]
+  python3 chip_smoke.py [--out results.json] [--phases 1,2,3]
 
 With no arguments it runs and checks every phase; `--phases` runs a subset
 (phase 1 always, and the phases a chosen one needs), for short calls that
-iterate on one kernel.
+iterate on one kernel: `--phases 1,2,3` builds and checks both attention
+kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
 
 1. Prints the card and builds the CUDA kernels from `src/repro_torch/kernels/csrc`,
    with ptxas's registers and spills, and counts the tensor-core (IMMA)
-   instructions in the SASS of each pim_matmul kernel.
+   instructions in the SASS of each pim_matmul and pim_attention kernel.
 2. Holds each kernel against its plain PyTorch version at the widths of
    internlm2-1.8b (16 query heads over 8 KV heads, head_dim 128): causal,
-   windowed and 4-bit prefill at Sq 512; split-K decode at kv_len 4096 with
+   windowed and 4-bit prefill at Sq 512, and at Sq 512 a group of 4 q
+   heads (16 over 4 KV heads) and head_dim 64; split-K decode at kv_len 4096 with
    block_k 256, verify rows (Sq 4), a q_len-0 row and 4-bit KV; iteration
    maps against the analytic count; and decode at the served request's
    own shape (a 160-token cache holding 129..159 tokens, one partial
@@ -34,14 +36,16 @@ iterate on one kernel.
    `audit()` passes after every step.
 6. Serves internlm2-1.8b at full width and depth (random weights from a
    seed) through `repro_torch.runtime.serve_lib.generate`, batch 4, prompt
-   128, 32 new tokens, greedy, counting kernel launches.  Then serves the
+   128, 32 new tokens, greedy, counting kernel launches (24 prefill and
+   31 x 24 decode launches, no plain-version call).  Then serves the
    request cut to 8 new tokens, once as it is and once under
    torch.profiler, and prints where its device time goes: the busy share
    over the unprofiled wall time, each attention kernel's device time per
    launch and the top device operators.
 7. Serves a 16-request trace (prompts 16-256 tokens, budgets 16-64) through
    the Scheduler at full width, on dense slots and on the paged pool,
-   counting kernel launches in each; holds served launches of both kernels
+   counting kernel launches in each (24 prefill launches a prefill forward,
+   no plain-version call); holds served launches of both kernels
    on each storage (every admission wave's ragged prefill and three decode
    steps, on the scheduler's own cache or pool, lengths, q_len and page
    table) against their plain versions; checks budgets, vocabulary, freed
@@ -101,6 +105,8 @@ from repro_torch.data import pipeline as data  # noqa: E402
 from repro_torch.core import pim as core_pim  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import lut_softmax as sm_k  # noqa: E402
+from repro_torch.kernels import pim_attention as attn_k  # noqa: E402
+from repro_torch.kernels import pim_decode as dec_k  # noqa: E402
 from repro_torch.kernels import pim_matmul as mm_k  # noqa: E402
 from repro_torch.kernels.pim_attention import (  # noqa: E402
     pim_attention, pim_attention_plain)
@@ -555,12 +561,17 @@ def full_scheduler(model, params, cfg, entries, compare) -> dict:
         rids = [sched.submit(p, b) for p, b in trace]
         torch.cuda.synchronize()
         _build.LAUNCHES.clear()
-        with recorded(pick) if record else contextlib.nullcontext({}) as kept:
+        with recorded(pick) if record else contextlib.nullcontext({}) as kept, \
+                plain_calls() as n_plain:
             t0 = time.perf_counter()
             res = sched.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
+        check(not n_plain, f"{'paged' if extra else 'dense'}: no plain-version call "
+              f"on the path ({n_plain})")
+        check(launches.get("pim_attention", 0) % L == 0,
+              f"{'paged' if extra else 'dense'}: {L} prefill launches per prefill forward")
         if record:
             replay_served("paged" if extra else "dense", kept, compare)
         streams = [res.get(r, []) for r in rids]
@@ -838,10 +849,12 @@ ADC_TARGETS = {"pim_matmul": (core_pim, "_adc_matmul"),
 
 @contextlib.contextmanager
 def plain_calls():
-    """Counts calls of the plain versions of kernels 3 and 4 in the block
+    """Counts calls of the plain versions of the four kernels in the block
     (the served path on the card must make none): yields the counter."""
     counts = {}
-    saved = {"pim_matmul": (mm_k, "pim_matmul_int_plain"),
+    saved = {"pim_attention": (attn_k, "pim_attention_plain"),
+             "pim_decode": (dec_k, "pim_decode_plain"),
+             "pim_matmul": (mm_k, "pim_matmul_int_plain"),
              "lut_softmax": (sm_k, "lut_softmax_plain")}
     fns = {name: getattr(mod, attr) for name, (mod, attr) in saved.items()}
 
@@ -1096,6 +1109,13 @@ def dense_kernels(dev, cfg, gen, operands, compare, bound, entries) -> None:
     compare("prefill serve shape Sq128 Sk160",
             pim_attention(*opnd_s, 0, 128, **kw),
             pim_attention_plain(*opnd_s, 0, 128, **kw))
+    # a group of 4 q heads (two CTAs of 64 rows at head_dim 128) and head_dim 64
+    for what, heads in (("q_per_kv 4 (16 over 4 heads)", (16, 4, Dh)),
+                        ("head_dim 64", (H, Hkv, 64))):
+        _, _, opnd_h = operands(Sq, Sq, Sq, heads=heads)
+        compare(f"prefill {what} Sq{Sq}",
+                pim_attention(*opnd_h, 0, Sq, **kw),
+                pim_attention_plain(*opnd_h, 0, Sq, **kw))
 
     # decode: kv_len 4096, block_k 256
     kv = 4096
@@ -1205,10 +1225,13 @@ def main(argv=None) -> int:
     print(f"build: {info['seconds']:.1f}s for {info['built'] or 'nothing (cached)'}")
     for name in _build.SOURCES:
         for line in str(info.get(f"nvcc_{name}", "")).splitlines():
-            if "registers" in line or "spill" in line:
+            if "Function properties for" in line:   # the kernel (template) named
+                print(f"  ptxas {name}: {line.split('for')[-1].strip()[-48:]}")
+            elif "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     results["build_s"] = info["seconds"]
     results["pim_matmul_imma"] = sass_imma("pim_matmul")
+    results["pim_attention_imma"] = sass_imma("pim_attention")
 
     # ---- 2. kernels against their plain versions --------------------------
     cfg = get_config("internlm2-1.8b")
@@ -1216,11 +1239,14 @@ def main(argv=None) -> int:
     H, Hkv, Dh, B = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, 4
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def operands(Sq, Sk, kv_len, kv_bits=8):
-        q = torch.randn(B, Sq, H, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
-        k = torch.randn(B, kv_len, Hkv, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
-        v = torch.randn(B, kv_len, Hkv, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
-        cache = A.init_kv_cache(B, Sk, Hkv, Dh, kv_bits=kv_bits, device=dev)
+    def operands(Sq, Sk, kv_len, kv_bits=8, heads=(H, Hkv, Dh)):
+        """Random q and a dense cache of kv_len tokens at (q heads, KV
+        heads, head_dim) `heads`: (q, cache, kernel operands)."""
+        Hq, Hk, D = heads
+        q = torch.randn(B, Sq, Hq, D, generator=gen, device=dev, dtype=torch.bfloat16)
+        k = torch.randn(B, kv_len, Hk, D, generator=gen, device=dev, dtype=torch.bfloat16)
+        v = torch.randn(B, kv_len, Hk, D, generator=gen, device=dev, dtype=torch.bfloat16)
+        cache = A.init_kv_cache(B, Sk, Hk, D, kv_bits=kv_bits, device=dev)
         A.cache_write(cache, k, v, 0, pim_cfg)
         return q, cache, ops.kernel_attention_layout(q, cache, pim_cfg.input_bits)
 
@@ -1355,11 +1381,17 @@ def serve_classic(model, params, cfg, entries, results) -> None:
     prefill_s = time.perf_counter() - t0
 
     _build.LAUNCHES.clear()
-    t0 = time.perf_counter()
-    out = serve_lib.generate(model, params, batch, T, P + T)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
+    with plain_calls() as n_plain:
+        t0 = time.perf_counter()
+        out = serve_lib.generate(model, params, batch, T, P + T)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
+    L = cfg.num_layers
+    check(not n_plain, f"classic request: no plain-version call on the path ({n_plain})")
+    check(launches.get("pim_attention") == L and launches.get("pim_decode") == (T - 1) * L,
+          f"classic request: {L} prefill launches (one prefill forward) and "
+          f"{(T - 1) * L} decode launches")
     check(tuple(out.shape) == (Bs, T) and int(out.min()) >= 0
           and int(out.max()) < cfg.vocab_size, "served (4, 32) token ids in the vocabulary")
     decode_ms = (total_s - prefill_s) / (T - 1) * 1e3

@@ -68,10 +68,17 @@
 //   is left in the loop: an IEEE division per group, or integer clamps and
 //   compares on the ALU pipe (half the FMA pipe's rate), bound it before.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "pim_common.cuh"
 
 namespace {
+
+using pim::cp_async16;
+using pim::cp_async_commit;
+using pim::cp_async_wait;
+using pim::ldsm_x2;
+using pim::ldsm_x4;
+using pim::mma_k32;
+using pim::smem_u32;
 
 constexpr int kThreads = 256;
 constexpr int kBK = 64;          // K bytes per stage
@@ -86,39 +93,6 @@ struct Operand {
   int vec;      // ld_k == 1 and every row 16-byte aligned: cp.async
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-
 // d = A (16 x 16, row) . B (16 x 8, col) + 0x4B400000: one word-line group,
 // each sum p in the bits of the float 1.5 * 2^23 + p (|p| <= 2^18)
 __device__ __forceinline__ void mma_k16(int (&d)[4], uint32_t a0, uint32_t a1,
@@ -128,16 +102,6 @@ __device__ __forceinline__ void mma_k16(int (&d)[4], uint32_t a0, uint32_t a1,
       "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
       : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
       : "r"(a0), "r"(a1), "r"(b0), "r"(0x4B400000));
-}
-
-// c += A (16 x 32, row) . B (32 x 8, col)
-__device__ __forceinline__ void mma_k32(int (&c)[4], const uint32_t (&a)[4],
-                                        const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // The ADC's constants (see the header): s = sat(fma(pm, a, b)) and

@@ -7,14 +7,16 @@ header says what it computes, what bounds it on the card and how.
 
 `pim_attention` launches the kernel for CUDA tensors and runs
 `pim_attention_plain` for CPU tensors; it never falls back from one to the
-other.  The plain version repeats the kernel's grid: the same q and KV
-blocks, page walk, block early-outs, online update order and iteration
-counts, so it is the kernel's reference on the card and the port's kernel
+other.  The plain version walks the reference's grid: the same q and KV
+blocks, page walk, block early-outs, online steps and iteration counts,
+which the kernel takes in the same order (one online step per reference
+block), so it is the kernel's reference on the card and the port's kernel
 path on the CPU.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
@@ -28,16 +30,89 @@ _NEG = float(-(1 << 24))
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "pim_attention_launch": [_P] * 7 + [_I] + [_P] * 5 + [_I] * 14
+    "pim_attention_launch": [_P] * 7 + [_I] + [_P] * 5 + [_I] * 16
                             + [_F] * 4 + [_P],
     "pim_attention_smem_bytes": [_I] * 3,
 }
 # the largest dynamic shared memory a block may have on the H100
 MAX_SMEM = 227 * 1024
+# the kernel's constants (csrc/pim_attention.cu)
+THREADS = 256
+KV_ROWS = 64           # KV rows per cp.async stage
+STAGES = 3             # ring slots
+MAX_ACC = 32           # float32 accumulators a thread: rows * Dh <= 8192
+HEAD_DIMS = (32, 64, 128)
 
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How the CUDA kernel covers a launch.  A CTA takes one reference q
+    block of `heads_per_cta` q heads of one KV group, stacked as `rows`
+    MMA rows (heads_per_cta * block_q, padded); a group of q_per_kv heads
+    takes `splits` CTAs.  The KV sequence is walked in units of `unit_rows`
+    rows, `blocks_per_unit` reference blocks (one online step each), staged
+    `KV_ROWS` rows at a time through `STAGES` ring slots."""
+    rows: int
+    heads_per_cta: int
+    splits: int
+    unit_rows: int
+    blocks_per_unit: int
+    smem: int
+
+    def cta_heads(self, y: int, q_per_kv: int) -> range:
+        """The q heads (rows of q_q) of the CTAs in grid column `y`."""
+        first = (y // self.splits) * q_per_kv + (y % self.splits) * self.heads_per_cta
+        return range(first, first + self.heads_per_cta)
+
+
+def smem_bytes(rows: int, dh: int, block_k: int) -> int:
+    """The kernel's dynamic shared memory (csrc/pim_attention.cu `layout`)."""
+    unit = max(block_k, KV_ROWS)
+    nbu = 1 if block_k >= KV_ROWS else KV_ROWS // block_k
+    codes = (unit * (rows + 2) * 2 + 15) // 16 * 16
+    return (256 * 4 + 3 * rows * 4 + 4 * nbu * rows * 4 + codes
+            + KV_ROWS * rows * 4 + KV_ROWS * dh * 4
+            + STAGES * (KV_ROWS * (dh + 16) + KV_ROWS * 4) + 16)
+
+
+def launch_plan(dh: int, dhk: int, block_q: int, q_per_kv: int,
+                block_k: int) -> LaunchPlan:
+    """The CTA shape of a launch; raises for what the kernel does not take.
+    Rows: the most heads of the group (a divisor of q_per_kv) whose
+    padded rows times Dh fit MAX_ACC accumulators a thread; the rest of the
+    group goes to further CTAs.  A stage holds whole reference blocks
+    (block_k 8, 16 or 32) or a whole part of one (block_k a multiple of
+    64)."""
+    if dh not in HEAD_DIMS or dhk not in (dh, dh // 2) or dhk % 16:
+        raise ValueError(f"the prefill kernel takes head_dim {HEAD_DIMS} stored "
+                         f"as int8 or 4 bits (a multiple of 16 bytes), not "
+                         f"head_dim {dh} stored in {dhk} bytes")
+    if not (block_k % KV_ROWS == 0 or block_k in (8, 16, 32)) or block_k <= 0:
+        raise ValueError(f"block_k {block_k} is neither 8, 16, 32 nor a "
+                         f"multiple of {KV_ROWS}")
+    if not 1 <= block_q <= 128:
+        raise ValueError(f"block_q {block_q} is not in [1, 128]")
+
+    def padded(n):
+        return max(16, 1 << (n - 1).bit_length())
+
+    hpc = max([h for h in range(1, q_per_kv + 1) if q_per_kv % h == 0
+               and padded(h * block_q) <= 128
+               and padded(h * block_q) * dh <= MAX_ACC * THREADS], default=1)
+    rows = padded(hpc * block_q)
+    if rows > 128 or rows * dh > MAX_ACC * THREADS:
+        raise ValueError(f"block_q {block_q} x head_dim {dh} does not fit a CTA")
+    smem = smem_bytes(rows, dh, block_k)
+    if smem > MAX_SMEM:
+        raise ValueError(f"block_k {block_k}, {rows} rows, head_dim {dh} need "
+                         f"{smem} bytes of shared memory")
+    return LaunchPlan(rows=rows, heads_per_cta=hpc, splits=q_per_kv // hpc,
+                      unit_rows=max(block_k, KV_ROWS),
+                      blocks_per_unit=max(1, KV_ROWS // block_k), smem=smem)
 
 
 def scalar_table(q_offset, kv_len, q_len, device, nb: int = 1):
@@ -214,6 +289,20 @@ def _attention(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_offset, kv_len,
     return (out, iters) if return_iters else out
 
 
+def lut_online_step(m, codes, mask, table, frac: int):
+    """One reference block's step of the online LUT softmax: from the
+    running max `m` (..., rows) and the block's masked score codes
+    (..., rows, block_k; _NEG where `mask` is False), the new running max,
+    the rescale factor of the old sums (0 while m is unset) and the exps."""
+    m_new = torch.maximum(m, codes.amax(dim=-1))
+    resc = table[torch.clamp(m_new - m, 0, 255).long()] / float(1 << frac)
+    resc = torch.where(m <= _NEG / 2, 0.0, resc)
+    e = torch.where(
+        mask, table[torch.clamp(m_new[..., None] - codes, 0, 255).long()],
+        0.0)
+    return m_new, resc, e
+
+
 def _plain(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table, scalars,
            q_per_kv, lut_cfg, causal, window, bq, bk, prune):
     BH, Sq, Dh = q_q.shape
@@ -271,12 +360,7 @@ def _plain(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table, scalars,
             mask = mask & (k_pos > q_pos[..., None] - window)
         codes = torch.where(mask, codes, _NEG)
 
-        m_new = torch.maximum(m, codes.amax(dim=-1))
-        resc = table[torch.clamp(m_new - m, 0, 255).long()] / float(1 << frac)
-        resc = torch.where(m <= _NEG / 2, 0.0, resc)
-        e = torch.where(
-            mask, table[torch.clamp(m_new[..., None] - codes, 0, 255).long()],
-            0.0)
+        m_new, resc, e = lut_online_step(m, codes, mask, table, frac)
         vb = v_v[:, ki].float() * vs[:, ki][..., None]
         pv = torch.einsum("bqik,bkd->bqid", e, vb)
         upd = needed[..., None]
@@ -306,13 +390,10 @@ def _launch(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table, scalars,
     BH, Sq, Dh = q_q.shape
     Dhk = k_q.shape[-1]
     dev = q_q.device
-    if bq * Dh > 32 * 256:
-        raise ValueError(f"block_q * head_dim = {bq * Dh} exceeds 8192")
+    plan = launch_plan(Dh, Dhk, bq, q_per_kv, bk)
     lib = _lib()
-    smem = lib.pim_attention_smem_bytes(bq, bk, Dh)
-    if smem > MAX_SMEM:
-        raise ValueError(f"block_q={bq}, block_k={bk}, Dh={Dh} need {smem} "
-                         "bytes of shared memory")
+    if lib.pim_attention_smem_bytes(plan.rows, Dh, bk) != plan.smem:
+        raise RuntimeError("launch_plan's shared memory disagrees with the kernel's")
     ops = [t.contiguous() for t in
            (q_q, q_scale, k_q, k_scale.float(), v_q, v_scale.float())]
     check_launch_operands(ops, Dhk)
@@ -330,8 +411,8 @@ def _launch(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table, scalars,
         None if pt is None else pt.data_ptr(), table.data_ptr(),
         levels.data_ptr(), out.data_ptr(), iters.data_ptr(),
         BH, Sq, Dh, Dhk, Sk, bq, bk, n_q, n_k, q_per_kv,
-        BH // scalars.shape[1], int(causal), int(window), int(prune),
-        1.0 / (Dh ** 0.5), lut_cfg.score_scale,
+        BH // scalars.shape[1], plan.rows, plan.heads_per_cta, int(causal),
+        int(window), int(prune), 1.0 / (Dh ** 0.5), lut_cfg.score_scale,
         float((1 << (lut_cfg.input_bits - 1)) - 1), 1.0 / (1 << frac), stream)
     _build.check(err, "pim_attention launch")
     _build.LAUNCHES["pim_attention"] += 1

@@ -208,13 +208,24 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv_bits", [8, 4])
-def test_cuda_kernels_match_plain_versions(cuda_device, kv_bits):
-    """On the card: each CUDA kernel against its plain version."""
-    B, Sq, max_len, H, Hkv, Dh = 2, 40, 300, 4, 2, 64
+@pytest.mark.parametrize("heads", [(4, 2, 64), (4, 4, 32), (8, 2, 128)],
+                         ids=["qpk2-dh64", "qpk1-dh32", "qpk4-dh128"])
+def test_cuda_kernels_match_plain_versions(cuda_device, kv_bits, heads):
+    """On the card: each CUDA kernel against its plain version, at head
+    dims 32-128 and groups of 1-4 q heads, over a kv_len (300) that is not a
+    multiple of the prefill kernel's 64-row stage, with a sequence that has
+    no valid query (q_len 0), and prefill blocks of 8 (eight to a stage) and
+    128 rows (two stages each)."""
+    H, Hkv, Dh = heads
+    B, Sq, max_len = 2, 40, 300
     q, _, tc, _, tl = _setup(21, B, Sq, max_len, 300, H, Hkv, Dh, kv_bits, with_jax=False)
     tl = [t.to(cuda_device) for t in tl]
+    ql = torch.tensor([Sq, 0], dtype=torch.int32, device=cuda_device)
     for fn, plain, kw in [
             (pim_attention, pim_attention_plain, dict(window=50)),
+            (pim_attention, pim_attention_plain, dict(q_len=ql)),
+            (pim_attention, pim_attention_plain, dict(block_k=8)),
+            (pim_attention, pim_attention_plain, dict(block_k=128, window=70)),
             (pim_decode, pim_decode_plain, dict(block_k=64))]:
         o_k, it_k = fn(*tl, 300 - Sq, 300, return_iters=True, **kw)
         o_p, it_p = plain(*tl, 300 - Sq, 300, return_iters=True, **kw)

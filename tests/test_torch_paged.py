@@ -315,13 +315,18 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv_bits", [8, 4])
-def test_cuda_paged_kernels_match_plain_versions(cuda_device, kv_bits):
+@pytest.mark.parametrize("heads", [(4, 2, 32), (2, 2, 128), (8, 2, 64)],
+                         ids=["qpk2-dh32", "qpk1-dh128", "qpk4-dh64"])
+def test_cuda_paged_kernels_match_plain_versions(cuda_device, kv_bits, heads):
     """On the card: the paged mode of each CUDA kernel against its plain
     version (rel <= 1e-5, iteration maps equal) and against the dense
-    launch at block_k == page_size (bit for bit)."""
+    launch at block_k == page_size (bit for bit), at head dims 32-128 and
+    groups of 1-4 q heads, with lengths (33, 64, 0) that are not a multiple
+    of the prefill kernel's 64-row stage and a row of q_len 0."""
     from repro_torch.kernels.pim_attention import pim_attention_plain
     from repro_torch.kernels.pim_decode import pim_decode_plain
-    B, max_len, H, Hkv, Dh, ps = 3, 64, 4, 2, 32, 16
+    H, Hkv, Dh = heads
+    B, max_len, ps = 3, 64, 16
     lens = np.array([33, 64, 0], np.int32)
     (td, tp, tpt), _ = paired(11, lens, max_len, Hkv, Dh, ps, kv_bits)
     dev = cuda_device
@@ -331,7 +336,8 @@ def test_cuda_paged_kernels_match_plain_versions(cuda_device, kv_bits):
     pt, t_l = tpt.to(dev), torch.from_numpy(lens).to(dev)
     for Sq, fn, plain in ((1, pim_decode, pim_decode_plain),
                           (4, pim_decode, pim_decode_plain),
-                          (8, pim_attention, pim_attention_plain)):
+                          (8, pim_attention, pim_attention_plain),
+                          (40, pim_attention, pim_attention_plain)):
         q = torch.from_numpy(_q(Sq, B, Sq, H, Dh)).to(dev)
         offs = torch.clamp(t_l - Sq, min=0)
         ql = torch.clamp(t_l, max=Sq)
