@@ -10,7 +10,8 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
 
 1. Prints the card and builds the CUDA kernels from `src/repro_torch/kernels/csrc`,
    with ptxas's registers and spills, and counts the tensor-core (IMMA)
-   instructions in the SASS of each pim_matmul and pim_attention kernel.
+   instructions, and all instructions, in the SASS of each pim_matmul,
+   pim_attention and pim_decode kernel.
 2. Holds each kernel against its plain PyTorch version at the widths of
    internlm2-1.8b (16 query heads over 8 KV heads, head_dim 128): causal,
    windowed and 4-bit prefill at Sq 512, and at Sq 512 a group of 4 q
@@ -21,13 +22,15 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    partition), with verify rows and 4-bit KV there too.  Times kernel,
    plain version and, as a yardstick only, bf16
    `scaled_dot_product_attention` at the same shapes: device time from
-   torch.profiler, and the wall time of back-to-back calls beside it.
+   torch.profiler, and the wall time of back-to-back calls beside it.  A
+   decode call runs one device kernel and nothing else.
 3. Holds the paged mode of both kernels against their plain versions at
    the same widths, over random permuted page tables of 16-token pages
    (slot lengths 0, 15, 16, 17, 1000, 2048): decode, verify rows (Sq 4),
    4-bit KV and a ragged prefill chunk (Sq 128, per-row offsets), with
    iteration maps equal, and paged == dense bit for bit at block_k == page
-   size.  Times the paged mode at the shapes timed in phase 2.
+   size.  Times the paged mode at the shapes timed in phase 2 (one
+   pim_decode_kernel per decode call).
 4. Checks the kernel path of a small model against the plain path on the CPU.
 5. Runs the continuous-batching Scheduler on the card at that small width
    (float32, kernel path): dense slots, the paged pool and classic greedy
@@ -41,7 +44,8 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    request cut to 8 new tokens, once as it is and once under
    torch.profiler, and prints where its device time goes: the busy share
    over the unprofiled wall time, each attention kernel's device time per
-   launch and the top device operators.
+   launch (the profiler must see one kernel per wrapper call), kernel 2's
+   bound at the cut's shapes beside it, and the top device operators.
 7. Serves a 16-request trace (prompts 16-256 tokens, budgets 16-64) through
    the Scheduler at full width, on dense slots and on the paged pool,
    counting kernel launches in each (24 prefill launches a prefill forward,
@@ -52,7 +56,8 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    pages, a repeatable paged stream and, for prompts of one page, dense and
    paged prefill logits equal bit for bit; prints where and by how much
    the two storages' streams and logits part; then profiles the first 3
-   steps of the paged run as phase 6 does.
+   steps of the paged run as phase 6 does, with kernel 2's bound at the
+   shapes of those steps' decode calls.
 8. (Run right after phase 3, beside the other kernel checks.)  Holds the
    PIM matmul (kernel 3) in both ADC modes and the LUT softmax (kernel 4)
    against their plain versions bit for bit: the linears' shapes (K 2048
@@ -147,7 +152,7 @@ def check(ok: bool, what: str) -> None:
 
 
 def sass_imma(name: str) -> dict:
-    """{kernel: (IMMA, MUFU.RCP) instruction counts} in the SASS of the
+    """{kernel: (IMMA, MUFU.RCP, all) instruction counts} in the SASS of the
     built library `name`, from the toolkit's cuobjdump ({} without it)."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
@@ -159,13 +164,14 @@ def sass_imma(name: str) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = [0, 0]
+            counts[fn] = [0, 0, 0]
         elif fn is not None:
             counts[fn][0] += "IMMA" in line
             counts[fn][1] += "MUFU.RCP" in line
-    for fn, (imma, rcp) in counts.items():
-        print(f"  SASS {name}: {imma} IMMA, {rcp} MUFU.RCP in {fn[:96]}")
-    check(bool(counts) and all(imma > 0 for imma, _ in counts.values()),
+            counts[fn][2] += line.strip().startswith("/*") and ";" in line
+    for fn, (imma, rcp, n) in counts.items():
+        print(f"  SASS {name}: {imma} IMMA, {rcp} MUFU.RCP, {n} instructions in {fn[:96]}")
+    check(bool(counts) and all(c[0] > 0 for c in counts.values()),
           f"every {name} kernel runs on the tensor cores (IMMA in its SASS)")
     return counts
 
@@ -208,14 +214,21 @@ def profiled(fn, iters: int) -> dict:
     return device_us(prof.key_averages())
 
 
+def others(times: dict, kernel: str) -> dict:
+    """{device kernel: launches} of a profile's kernels other than `kernel`
+    (memory copies and sets left out)."""
+    return {k[:48]: c for k, (_, c) in times.items()
+            if f"{kernel}(" not in k and f"{kernel}<" not in k
+            and not k.startswith(("Memcpy", "Memset"))}
+
+
 def per_call_ms(times: dict, iters: int) -> float:
     """Summed device time of a profile, per call."""
     return sum(us for us, _ in times.values()) / iters / 1e3
 
 
 ATTENTION_KERNELS = (("pim_attention_kernel", "pim_attention"),
-                     ("pim_decode_kernel", "pim_decode"),
-                     ("pim_decode_combine_kernel", "pim_decode"))
+                     ("pim_decode_kernel", "pim_decode"))
 
 
 def profile_report(prof, wall_s: float, prof_s: float, label: str,
@@ -223,9 +236,8 @@ def profile_report(prof, wall_s: float, prof_s: float, label: str,
     """Print where a profiled run's device time went: busy share of the
     unprofiled wall `wall_s` of the same run, each (device kernel, wrapper)
     of `kernel_names`' device time per launch and the top device operators.
-    `launches` are the wrapper counts of the profiled run: the profiler
-    should see as many launches of each kernel (a pim_decode call runs two
-    kernels)."""
+    `launches` are the wrapper counts of the profiled run: the profiler must
+    see one device kernel per wrapper call."""
     stamp(f"profile of the {label} taken")
     events = prof.key_averages()
     times = device_us(events)
@@ -239,29 +251,75 @@ def profile_report(prof, wall_s: float, prof_s: float, label: str,
           f"profiled wall {prof_s * 1e3:.1f} ms); {n_dev} device kernels and "
           f"copies, {host_launches} cudaLaunchKernel calls")
     kernels = {}
-    for names, wrapper in kernel_names:
-        # a wrapper launch runs the first device kernel once, and may run the
-        # others (pim_decode's combine): their time counts as its own
-        kernel, *more = (names,) if isinstance(names, str) else names
+    for kernel, wrapper in kernel_names:
         us, n = kernel_us(times, kernel)
-        check(n > 0, f"profiled {label} ran {kernel}")
-        more_us = {k: kernel_us(times, k) for k in more}
-        total = us + sum(u for u, _ in more_us.values())
-        kernels[kernel] = dict(device_us=total, count=n, us_per_launch=total / n,
-                               launched=launches.get(wrapper, 0),
-                               **({"of_which": more_us} if more else {}))
-        print(f"  {kernel}: {n} launches seen of {launches.get(wrapper, 0)} "
-              f"made, {total / 1e3:.3f} ms, {total / n:.2f} us each"
-              + "".join(f"; of it {k} {u / 1e3:.3f} ms in {c} launches"
-                        for k, (u, c) in more_us.items()))
+        made = launches.get(wrapper, 0)
+        check(n > 0 and n == made, f"profiled {label}: one {kernel} per "
+              f"{wrapper} call ({n} seen, {made} made)")
+        kernels[kernel] = dict(device_us=us, count=n, us_per_launch=us / n,
+                               launched=made)
+        print(f"  {kernel}: {n} launches seen of {made} made, {us / 1e3:.3f} ms, "
+              f"{us / n:.2f} us each")
         for key, (u, c) in times.items():
-            if any(f"{k}(" in key or f"{k}<" in key for k in (kernel, *more)):
+            if f"{kernel}(" in key or f"{kernel}<" in key:
                 print(f"    {key[:64]}: {c} launches, {u / c:.2f} us each")
     print(events.table(sort_by="self_cuda_time_total", row_limit=12,
                        max_name_column_width=48))
     return dict(profiled_wall_ms=prof_s * 1e3, device_busy_ms=busy_ms,
                 busy_share=busy_ms / (wall_s * 1e3), device_events=n_dev,
                 host_launches=host_launches, kernels=kernels)
+
+
+def attention_bound(nbytes: int, pairs: int, Dh: int):
+    """(ms, limit) of an attention call on the H100: `nbytes` over HBM,
+    against 2 Dh int8 operations (scores) and 2 Dh float32 ones (PV) per
+    unmasked (query, key) pair."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = (2 * Dh * pairs / INT8_OPS + 2 * Dh * pairs / F32_OPS) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def decode_bound(kv_lens, q_lens, Sq: int, cfg):
+    """(ms, limit) of one pim_decode call at a served shape: the int8 K/V
+    rows and f32 scales that each slot with a query attends to, read once,
+    q, its scales and the f32 output, against the pairs it scores."""
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    live = [(kv, ql) for kv, ql in zip(kv_lens, q_lens) if ql > 0]
+    nbytes = (sum(kv for kv, _ in live) * Hkv * (2 * Dh + 8)
+              + len(kv_lens) * H * Sq * (Dh + 4 + 4 * Dh))
+    return attention_bound(nbytes, sum(H * ql * kv for kv, ql in live), Dh)
+
+
+@contextlib.contextmanager
+def decode_shapes():
+    """Within the block, records ([kv_len], [q_len], Sq) of every pim_decode
+    call the serving path makes (a host sync each: not for timed runs)."""
+    seen, fn = [], ops.pim_decode
+
+    def call(*args, **kw):
+        kv = torch.as_tensor(args[7]).reshape(-1).tolist()
+        ql, Sq = kw.get("q_len"), args[0].shape[1]
+        ql = [Sq] * len(kv) if ql is None else torch.as_tensor(ql).reshape(-1).tolist()
+        seen.append((kv, ql, Sq))
+        return fn(*args, **kw)
+
+    ops.pim_decode = call
+    try:
+        yield seen
+    finally:
+        ops.pim_decode = fn
+
+
+def served_decode(entries, label: str, report: dict, shapes, cfg) -> None:
+    """Kernel 2's device us per launch of a profiled serving run beside its
+    mean bound over the same calls' shapes."""
+    bounds = [decode_bound(kv, ql, Sq, cfg)[0] * 1e3 for kv, ql, Sq in shapes]
+    us = report["kernels"]["pim_decode_kernel"]["us_per_launch"]
+    b_us = sum(bounds) / len(bounds)
+    entries["pim_decode"].setdefault("served_us", {})[label] = us
+    entries["pim_decode"].setdefault("served_bound_us", {})[label] = b_us
+    print(f"  kernel 2 on the {label}: {us:.2f} us per launch, bound {b_us:.3f} us "
+          f"(mean over its {len(bounds)} calls' shapes), {b_us / us:.1%} of it")
 
 
 PAGE = 16     # tokens per KV page in phases 3, 5 and 7
@@ -374,14 +432,14 @@ def paged_kernels(dev, cfg, gen, compare, bound, entries) -> None:
     fn = lambda: pim_decode(*paged, offs, lens_d, pim_cfg, lut_cfg,  # noqa: E731
                             page_table=pt)
     times = profiled(fn, 50)
-    us1, n1 = kernel_us(times, "pim_decode_kernel")
-    us2, n2 = kernel_us(times, "pim_decode_combine_kernel")
-    check(n1 == n2 == 50, f"profiler saw the 50 paged decode launches of each kernel ({n1}, {n2})")
+    us, n = kernel_us(times, "pim_decode_kernel")
+    check(n == 50, f"profiler saw one pim_decode_kernel per paged decode call ({n} of 50)")
+    print(f"  other device kernels of the 50 paged calls: {others(times, 'pim_decode_kernel')} "
+          "(the wrapper stacks tensor scalars into one table)")
     b_ms, _ = bound(paged_bytes(paged, pt), B * H * kv)
-    entries["pim_decode"].update(paged_ms=(us1 + us2) / 50 / 1e3, paged_bound_ms=b_ms)
-    print(f"  paged decode kv{kv}, device ms per call: kernels "
-          f"{(us1 + us2) / 50 / 1e3:.4f} (combine {us2 / 50 / 1e3:.4f}; dense "
-          f"{entries['pim_decode']['ms']:.4f}), bound {b_ms:.4f}")
+    entries["pim_decode"].update(paged_ms=us / 50 / 1e3, paged_bound_ms=b_ms)
+    print(f"  paged decode kv{kv}, device ms per call: kernel {us / 50 / 1e3:.4f} "
+          f"(dense {entries['pim_decode']['ms']:.4f}), bound {b_ms:.4f}")
 
 
 # ---- 5. the Scheduler at small width on the card ----------------------------
@@ -652,6 +710,13 @@ def full_scheduler(model, params, cfg, entries, compare) -> dict:
     paged_info["profile"] = profile_report(
         prof, walls[0], walls[1], f"first {PROFILED_STEPS} steps of the paged "
         f"trace ({sched.model_steps} forwards)", dict(_build.LAUNCHES))
+    sched = serve_lib.Scheduler(model, params, page_size=PAGE, **kw)
+    for p, b in trace:
+        sched.submit(p, b)
+    with decode_shapes() as shapes:
+        for _ in range(PROFILED_STEPS):
+            sched.step()
+    served_decode(entries, "trace", paged_info["profile"], shapes, cfg)
     return dict(dense=dense_info, paged=paged_info, agree=agree,
                 prompts=lens.tolist(), budgets=budgets.tolist())
 
@@ -1133,11 +1198,11 @@ def dense_kernels(dev, cfg, gen, operands, compare, bound, entries) -> None:
     kf = torch.randn(B, Hkv, kv, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
     lib = lambda: F.scaled_dot_product_attention(qb, kf, kf, enable_gqa=True)  # noqa: E731
     times = profiled(kern, 50)
-    us1, n1 = kernel_us(times, "pim_decode_kernel")
-    us2, n2 = kernel_us(times, "pim_decode_combine_kernel")
-    check(n1 == n2 == 50, f"profiler saw the 50 decode launches of each kernel ({n1}, {n2})")
-    # one pim_decode call (one count) runs the split-K kernel and the combine
-    ms, combine_ms = (us1 + us2) / 50 / 1e3, us2 / 50 / 1e3
+    us, n = kernel_us(times, "pim_decode_kernel")
+    check(n == 50, f"profiler saw one pim_decode_kernel per decode call ({n} of 50)")
+    rest = others(times, "pim_decode_kernel")
+    check(not rest, f"a decode call runs one device kernel, no copy kernel ({rest})")
+    ms = us / 50 / 1e3
     plain_ms, lib_ms = per_call_ms(profiled(plain, 3), 3), per_call_ms(profiled(lib, 50), 50)
     walls = dict(wrapper_ms=cuda_ms(kern, 50), plain_wall_ms=cuda_ms(plain, 3),
                  library_wall_ms=cuda_ms(lib, 50))
@@ -1148,10 +1213,10 @@ def dense_kernels(dev, cfg, gen, operands, compare, bound, entries) -> None:
         source="src/repro_torch/kernels/csrc/pim_decode.cu",
         replaces="src/repro/kernels/pim_decode.py:160",
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, combine_ms=combine_ms, **walls,
+        bound_by=b_by, library_ms=lib_ms, **walls,
         shape=f"B{B} H{H}/{Hkv} Dh{Dh} Sq1 kv_len{kv} block_k256 int8")
-    print(f"  decode kv{kv}, device ms per call: kernels {ms:.4f} (combine "
-          f"{combine_ms:.4f}), plain {plain_ms:.4f}, sdpa bf16 {lib_ms:.4f}, "
+    print(f"  decode kv{kv}, device ms per call: kernel {ms:.4f}, plain "
+          f"{plain_ms:.4f}, sdpa bf16 {lib_ms:.4f}, "
           f"bound {b_ms:.4f} ({b_by}); wall of back-to-back calls: wrapper "
           f"{walls['wrapper_ms']:.4f}, plain {walls['plain_wall_ms']:.4f}, "
           f"sdpa {walls['library_wall_ms']:.4f}")
@@ -1232,6 +1297,7 @@ def main(argv=None) -> int:
     results["build_s"] = info["seconds"]
     results["pim_matmul_imma"] = sass_imma("pim_matmul")
     results["pim_attention_imma"] = sass_imma("pim_attention")
+    results["pim_decode_imma"] = sass_imma("pim_decode")
 
     # ---- 2. kernels against their plain versions --------------------------
     cfg = get_config("internlm2-1.8b")
@@ -1266,9 +1332,7 @@ def main(argv=None) -> int:
         max_err[kernel] = max(max_err[kernel], err)
 
     def bound(nbytes, pairs):
-        t_bytes = nbytes / HBM_BPS * 1e3
-        t_ops = (2 * Dh * pairs / INT8_OPS + 2 * Dh * pairs / F32_OPS) * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+        return attention_bound(nbytes, pairs, Dh)
 
     entries = {}
     if 2 in phases:
@@ -1296,7 +1360,7 @@ def main(argv=None) -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("wrapper_ms", "combine_ms", "paged_ms", "paged_bound_ms",
+    extra = ("wrapper_ms", "served_us", "served_bound_us", "paged_ms", "paged_bound_ms",
              "paged_launches", "dense_sched_launches", "ideal_ms", "int_mm_ms")
     print(json.dumps({"kernels": [{**{k: e.get(k) for k in keys},
                                    **{k: e[k] for k in extra if k in e}}
@@ -1420,6 +1484,10 @@ def serve_classic(model, params, cfg, entries, results) -> None:
         tokens_per_s=Bs * T / total_s, total_s=total_s, launches=launches,
         **profile_report(prof, walls[0], walls[1], f"request cut to "
                          f"{PROFILED_TOKENS} new tokens", dict(_build.LAUNCHES)))
+    # its decode forwards attend over P + 1 .. P + PROFILED_TOKENS - 1 tokens
+    shapes = [([P + t] * Bs, [1] * Bs, 1) for t in range(1, PROFILED_TOKENS)
+              for _ in range(L)]
+    served_decode(entries, "classic request", results["serve"], shapes, cfg)
 
 
 if __name__ == "__main__":

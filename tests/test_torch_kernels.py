@@ -187,14 +187,40 @@ def test_wrapper_refuses_devices_without_a_kernel(fn):
         fn(*ops, 7, 8)
 
 
-def test_paged_mode_raises_until_ported():
-    """Paged mode is ported (tests/test_torch_paged.py); it reads the pool's
-    own (P, page_size, Hkv, Dh) planes, and dense operands with a page
-    table raise instead of being misread."""
+def test_dense_operands_with_a_page_table_raise():
+    """Paged mode (tests/test_torch_paged.py) reads the pool's own
+    (P, page_size, Hkv, Dh) planes; dense operands given a page table raise
+    instead of being misread."""
     _, _, tc, _, tl = _setup(3, 1, 1, 32, 16, 2, 1, 32, with_jax=False)
     for fn in (pim_attention, pim_decode):
         with pytest.raises(ValueError):
             fn(*tl, 15, 16, page_table=torch.zeros(1, 1, dtype=torch.int32))
+
+
+def _paged_setup(seed, lens, Sq, H, Hkv, Dh, kv_bits, ps=16, max_len=320):
+    """The same K/V in a paged pool of `ps`-token pages (a random permuted
+    table, page 0 the trash page) and in a dense ragged cache: (paged
+    operands, table, dense operands, (B,) lengths), on the CPU."""
+    r = np.random.RandomState(seed)
+    B = len(lens)
+    q = torch.from_numpy((r.randn(B, Sq, H, Dh) * 0.5).astype(np.float32))
+    k = torch.from_numpy((r.randn(B, max_len, Hkv, Dh) * 0.5).astype(np.float32))
+    v = torch.from_numpy((r.randn(B, max_len, Hkv, Dh) * 0.5).astype(np.float32))
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    zeros = torch.zeros(B, dtype=torch.int32)
+    dense = TA.init_kv_cache(B, max_len, Hkv, Dh, kv_bits=kv_bits, ragged=True)
+    TA.cache_write_ragged(dense, k, v, zeros, TPim(), seq_lens=lens_t)
+    n_tables = max_len // ps
+    perm = r.permutation(np.arange(1, B * n_tables + 1))
+    pt = np.full((B, n_tables), -1, np.int32)
+    for b, n in enumerate(lens):
+        pt[b, :-(-n // ps)] = perm[b * n_tables:b * n_tables - (-n // ps)]
+    pt = torch.from_numpy(pt)
+    pool = TA.init_paged_kv_cache(B * n_tables + 1, ps, Hkv, Dh, kv_bits=kv_bits)
+    TA.paged_cache_write(pool, k, v, zeros, TPim(), pt, seq_lens=lens_t)
+    q_q, qs = TO._q_kernel_layout(q, 8)
+    return ((q_q, qs, pool.k_q, pool.k_scale, pool.v_q, pool.v_scale), pt,
+            TO.kernel_attention_layout(q, dense), lens_t)
 
 
 @pytest.fixture
@@ -215,7 +241,10 @@ def test_cuda_kernels_match_plain_versions(cuda_device, kv_bits, heads):
     dims 32-128 and groups of 1-4 q heads, over a kv_len (300) that is not a
     multiple of the prefill kernel's 64-row stage, with a sequence that has
     no valid query (q_len 0), and prefill blocks of 8 (eight to a stage) and
-    128 rows (two stages each)."""
+    128 rows (two stages each).  Then decode over a pool of 16-token pages
+    (slot lengths 0, 1, 17 and 300, unallocated pages past them), single
+    steps and verify rows (Sq 4), against the plain version and, bit for
+    bit, against the dense cache at block_k 16."""
     H, Hkv, Dh = heads
     B, Sq, max_len = 2, 40, 300
     q, _, tc, _, tl = _setup(21, B, Sq, max_len, 300, H, Hkv, Dh, kv_bits, with_jax=False)
@@ -231,3 +260,16 @@ def test_cuda_kernels_match_plain_versions(cuda_device, kv_bits, heads):
         o_p, it_p = plain(*tl, 300 - Sq, 300, return_iters=True, **kw)
         assert float((o_k - o_p).abs().max()) <= REL * float(o_p.abs().max())
         assert torch.equal(it_k, it_p)
+    for Sq in (1, 4):
+        paged, pt, dense, lens = _paged_setup(Sq, [0, 1, 17, 300], Sq, H, Hkv,
+                                              Dh, kv_bits)
+        paged, dense = ([t.to(cuda_device) for t in ops] for ops in (paged, dense))
+        pt, lens = pt.to(cuda_device), lens.to(cuda_device)
+        offs, ql = torch.clamp(lens - Sq, min=0), torch.clamp(lens, max=Sq)
+        kw = dict(q_len=ql, return_iters=True)
+        o_k, it_k = pim_decode(*paged, offs, lens, page_table=pt, **kw)
+        o_p, it_p = pim_decode_plain(*paged, offs, lens, page_table=pt, **kw)
+        assert float((o_k - o_p).abs().max()) <= REL * float(o_p.abs().max())
+        assert torch.equal(it_k, it_p)
+        o_d, it_d = pim_decode(*dense, offs, lens, block_k=16, **kw)
+        assert torch.equal(o_k, o_d) and torch.equal(it_k, it_d)
