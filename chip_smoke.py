@@ -291,28 +291,27 @@ def decode_bound(kv_lens, q_lens, Sq: int, cfg):
 
 
 @contextlib.contextmanager
-def decode_shapes():
-    """Within the block, records ([kv_len], [q_len], Sq) of every pim_decode
-    call the serving path makes (a host sync each: not for timed runs)."""
-    seen, fn = [], ops.pim_decode
-
-    def call(*args, **kw):
-        kv = torch.as_tensor(args[7]).reshape(-1).tolist()
-        ql, Sq = kw.get("q_len"), args[0].shape[1]
-        ql = [Sq] * len(kv) if ql is None else torch.as_tensor(ql).reshape(-1).tolist()
-        seen.append((kv, ql, Sq))
-        return fn(*args, **kw)
-
-    ops.pim_decode = call
+def decode_shapes(cfg):
+    """Within the block, the decode wrapper keeps each launch's scalar table
+    on the device (no host sync); after it, the list holds ([kv_len],
+    [q_len], Sq) of every launch, one slot per sequence of the batch."""
+    dec_k.SHAPES, seen = [], []
     try:
         yield seen
     finally:
-        ops.pim_decode = fn
+        kept, dec_k.SHAPES = dec_k.SHAPES, None
+    for scalars, (BH, Sq, _) in kept:
+        _, kv, ql = scalars.tolist()
+        B = BH // cfg.num_heads
+        if len(kv) == 1:   # int lengths: one column for the batch
+            kv, ql = kv * B, ql * B
+        seen.append((kv[:B], ql[:B], Sq))
 
 
 def served_decode(entries, label: str, report: dict, shapes, cfg) -> None:
     """Kernel 2's device us per launch of a profiled serving run beside its
-    mean bound over the same calls' shapes."""
+    mean bound over the same launches' shapes (those of the unprofiled run
+    of the same work)."""
     bounds = [decode_bound(kv, ql, Sq, cfg)[0] * 1e3 for kv, ql, Sq in shapes]
     us = report["kernels"]["pim_decode_kernel"]["us_per_launch"]
     b_us = sum(bounds) / len(bounds)
@@ -327,9 +326,10 @@ PROFILED_STEPS = 3   # scheduler steps of the paged trace under the profiler
 PROFILED_TOKENS = 8  # new tokens of the classic request under the profiler
 
 
-def random_table(lens, n_tables: int, seed: int, dev):
+def random_table(lens, n_tables: int, seed: int, dev, holes: bool = False):
     """A (B, n_tables) int32 page table on `dev`: a random permutation of
-    pages 1..P-1 (page 0 is the trash page), -1 past each row's pages.
+    pages 1..P-1 (page 0 is the trash page), -1 past each row's pages and,
+    with `holes`, at a random page inside each row of more than two pages.
     Returns (table, P)."""
     rng = np.random.RandomState(seed)
     P = len(lens) * n_tables + 1
@@ -340,6 +340,8 @@ def random_table(lens, n_tables: int, seed: int, dev):
         k = -(-int(n) // PAGE)
         pt[b, :k] = perm[i:i + k]
         i += k
+        if holes and k > 2:
+            pt[b, rng.randint(1, k - 1)] = -1
     return torch.from_numpy(pt).to(dev), P
 
 
@@ -360,10 +362,11 @@ def paged_kernels(dev, cfg, gen, compare, bound, entries) -> None:
     pim_cfg, lut_cfg = cfg.pim, cfg.lut
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
 
-    def operands(lens, Sq, S, kv_bits=8, seed=0):
-        """The same K/V in a paged pool (random table of PAGE-token pages)
-        and in a dense ragged cache of S tokens; returns (paged operands,
-        table, dense operands, (B,) lengths)."""
+    def operands(lens, Sq, S, kv_bits=8, seed=0, holes=False):
+        """The same K/V in a paged pool (random table of PAGE-token pages,
+        with `holes` unallocated pages inside the slots' ranges) and in a
+        dense ragged cache of S tokens; returns (paged operands, table,
+        dense operands, (B,) lengths)."""
         B = len(lens)
         lens_d = torch.tensor(lens, dtype=torch.int32, device=dev)
         q = torch.randn(B, Sq, H, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
@@ -372,7 +375,7 @@ def paged_kernels(dev, cfg, gen, compare, bound, entries) -> None:
         zeros = torch.zeros(B, dtype=torch.int32, device=dev)
         dense = A.init_kv_cache(B, S, Hkv, Dh, kv_bits=kv_bits, device=dev, ragged=True)
         A.cache_write_ragged(dense, k, v, zeros, pim_cfg, seq_lens=lens_d)
-        pt, P = random_table(lens, S // PAGE, seed, dev)
+        pt, P = random_table(lens, S // PAGE, seed, dev, holes)
         pool = A.init_paged_kv_cache(P, PAGE, Hkv, Dh, kv_bits=kv_bits, device=dev)
         A.paged_cache_write(pool, k, v, zeros, pim_cfg, pt, seq_lens=lens_d)
         q_q, qs = ops._q_kernel_layout(q, pim_cfg.input_bits)
@@ -397,6 +400,18 @@ def paged_kernels(dev, cfg, gen, compare, bound, entries) -> None:
             o_d = kern(*dense, offs, lens_d, q_len=ql, block_k=PAGE, **kw)
             check(torch.equal(o_k[0], o_d[0]) and torch.equal(o_k[1], o_d[1]),
                   f"{name}: paged == dense at block_k {PAGE}, bit for bit")
+    # an unallocated page inside each slot's range (no record is written
+    # for it): decode skips it as the plain version does, Sq 1 and verify
+    # rows, several CTAs a head over the 128 pages of a 2048-token slot
+    for Sq in (1, 4):
+        lens = [40, 300, 2048, 1000]
+        paged, pt, _, lens_d = operands(lens, Sq, 2048, seed=5 + Sq, holes=True)
+        check(all(bool((pt[b, :-(-n // PAGE)] < 0).any()) for b, n in enumerate(lens)),
+              "each slot's table has a hole inside its pages")
+        offs, ql = lens_d - Sq, torch.clamp(lens_d, max=Sq)
+        compare(f"decode paged Sq{Sq} holes inside the ranges, lens {lens}",
+                pim_decode(*paged, offs, lens_d, q_len=ql, page_table=pt, **kw),
+                pim_decode_plain(*paged, offs, lens_d, q_len=ql, page_table=pt, **kw))
 
     def paged_bytes(paged, pt):
         """Operand bytes the launch needs: q, its scales, the allocated
@@ -701,21 +716,17 @@ def full_scheduler(model, params, cfg, entries, compare) -> dict:
         torch.cuda.synchronize()
         _build.LAUNCHES.clear()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                     ) if profiled_run else contextlib.nullcontext() as prof:
+                     ) if profiled_run else decode_shapes(cfg) as prof:
             t0 = time.perf_counter()
             for _ in range(PROFILED_STEPS):
                 sched.step()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+        if not profiled_run:
+            shapes = prof
     paged_info["profile"] = profile_report(
         prof, walls[0], walls[1], f"first {PROFILED_STEPS} steps of the paged "
         f"trace ({sched.model_steps} forwards)", dict(_build.LAUNCHES))
-    sched = serve_lib.Scheduler(model, params, page_size=PAGE, **kw)
-    for p, b in trace:
-        sched.submit(p, b)
-    with decode_shapes() as shapes:
-        for _ in range(PROFILED_STEPS):
-            sched.step()
     served_decode(entries, "trace", paged_info["profile"], shapes, cfg)
     return dict(dense=dense_info, paged=paged_info, agree=agree,
                 prompts=lens.tolist(), budgets=budgets.tolist())
@@ -1255,6 +1266,14 @@ def dense_kernels(dev, cfg, gen, operands, compare, bound, entries) -> None:
     compare(f"decode serve shape Sk{Sk} kv4",
             pim_decode(*opnd_s, 136, 137, **kw),
             pim_decode_plain(*opnd_s, 136, 137, **kw))
+    # block sizes other than 16, 32, 64 and multiples of 128: each partition
+    # a unit of its own, its rows past block_k zero-filled and masked
+    _, _, opnd_o = operands(4, 1000, 1000)
+    for bk in (8, 48, 96, 192):
+        for what, o, L in (("Sq1", opnd, kv), ("verify rows Sq4", opnd_o, 1000)):
+            n, kwb = o[0].shape[1], dict(kw, block_k=bk)
+            compare(f"decode block_k {bk} {what} kv_len {L}",
+                    pim_decode(*o, L - n, L, **kwb), pim_decode_plain(*o, L - n, L, **kwb))
 
 
 def main(argv=None) -> int:
@@ -1474,19 +1493,18 @@ def serve_classic(model, params, cfg, entries, results) -> None:
     for profiled_run in (False, True):
         _build.LAUNCHES.clear()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                     ) if profiled_run else contextlib.nullcontext() as prof:
+                     ) if profiled_run else decode_shapes(cfg) as prof:
             t0 = time.perf_counter()
             serve_lib.generate(model, params, batch, PROFILED_TOKENS, P + T)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+        if not profiled_run:
+            shapes = prof
     results["serve"] = dict(
         prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_ms,
         tokens_per_s=Bs * T / total_s, total_s=total_s, launches=launches,
         **profile_report(prof, walls[0], walls[1], f"request cut to "
                          f"{PROFILED_TOKENS} new tokens", dict(_build.LAUNCHES)))
-    # its decode forwards attend over P + 1 .. P + PROFILED_TOKENS - 1 tokens
-    shapes = [([P + t] * Bs, [1] * Bs, 1) for t in range(1, PROFILED_TOKENS)
-              for _ in range(L)]
     served_decode(entries, "classic request", results["serve"], shapes, cfg)
 
 

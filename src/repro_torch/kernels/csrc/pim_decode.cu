@@ -20,8 +20,9 @@
 // stage, the ticket, the combine's fetch of the partials), each some 1,500
 // to 3,000 SM cycles on an NVIDIA H100 80GB HBM3 at 700 W, and a chain of
 // barriers and short phases per stage (tools/ablate_decode.py marks and
-// splits the time).  Measured there: 0.027 ms at kv_len 4096 against a
-// 0.0103 ms bound, 10.8 / 12.6 us a served launch against 0.35 / 0.74 us.
+// splits the time).  Measured there (chip_smoke.py): 0.0282 ms at kv_len
+// 4096 against a 0.0103 ms bound, 10.85 / 13.82 us a served launch (the
+// classic request / the paged trace) against 0.35 / 0.74 us.
 //
 // Design:
 // * One launch per call.  Grid (chunks, B * Hkv * row tiles * dsplit).  A
@@ -34,18 +35,20 @@
 //   same).  For each tile the
 //   needed partitions form one range [lo, hi], from kv_len, q_pos, the last
 //   valid row's q_pos + min(q_len, Sq) - 1, causal and window; in paged mode
-//   unallocated entries inside it are skipped.  The range, in units of
-//   max(block_k, 128) rows, is cut into `chunks` contiguous runs (the
-//   wrapper sizes chunks from the SM count, for two CTAs an SM); CTA c
+//   unallocated entries inside it are skipped.  The range, in units (the
+//   128 / block_k partitions of one 128-row stage where block_k is 16, 32
+//   or 64; else one partition, of cdiv(block_k, 128) stages, its rows past
+//   block_k zero-filled and masked), is cut into `chunks` contiguous runs
+//   (the wrapper sizes chunks from the SM count, for two CTAs an SM); CTA c
 //   takes run c, and a CTA whose run is empty exits after reading the
 //   scalars.
 // * Staging: each unit's K stages, then its V stages, 128 rows each, by
 //   16-byte `cp.async.cg` copies into a 3-slot ring, two stages ahead of the
 //   one computed (4-bit KV is decoded to int8 levels by synchronous loads
-//   into the same ring).  Rows past kv_len, of unallocated pages and of
-//   partitions outside the range are zero-filled without a load; a 128-row
-//   stage of a dense partition that is masked for every row of the tile is
-//   not staged at all (its keys would add exact zeros).  A dense tile's
+//   into the same ring).  Rows past kv_len or block_k, of unallocated pages
+//   and of partitions outside the range are zero-filled without a load; a
+//   128-row stage of a dense partition that is masked for every row of the
+//   tile is not staged at all (its keys would add exact zeros).  A dense tile's
 //   first CTA, without a window, loads its first K stage before the scalars
 //   arrive: its run starts at key 0 whatever the lengths.
 // * Scores on s8 tensor cores: mma.sync m16n8k32 with the tile's q rows as
@@ -61,8 +64,9 @@
 //   16w .. 16w + 15 of every stage, and each lane Dh / 32 of the head dims
 //   of every row, summing e * (V * v_scale) by fused multiply-add in key
 //   order over the partition's stages.  A 16-token page is one warp's; a
-//   longer partition's warp sums are added in warp order at its end.  That order depends only on block_k, never on the rows packed,
-//   on paged or dense storage, or on how partitions fall to CTAs.
+//   longer partition's warp sums are added in warp order at its end.  That
+//   order depends only on block_k, never on the rows packed, on paged or
+//   dense storage, or on how partitions fall to CTAs.
 // * The combine runs in the same launch.  Where the range is one partition
 //   (the classic request's 160-row cache, a slot of one page) its CTA
 //   writes the output at once, with the combine's own rescale of it.
@@ -71,7 +75,8 @@
 //   If the range fell to one CTA, it combines its own records; else every
 //   CTA takes a ticket (an atomic counter per tile, after __threadfence) and
 //   the last to arrive combines, then resets the counter to 0 for the next
-//   launch.  The combiner takes the rows' global maxima over the range, then
+//   launch.  An unallocated page inside the range has no record and adds
+//   nothing.  The combiner takes the rows' global maxima over the range, then
 //   walks the records in partition order, two `cp.async` chunks at a time,
 //   each chunk's rescales computed at once, and writes the output in the
 //   (B * H, Sq, Dh) layout of q and the (B * Hkv, n_k) iteration map.
@@ -102,6 +107,14 @@ __host__ __device__ constexpr int slot_bytes(int dh) {
   return kKvRows * slot_ld(dh) + kKvRows * 4;
 }
 __host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
+// Blocks of 16, 32 or 64 rows are packed, 128 / bk to a unit of one stage
+// (a warp's 16 keys lie in one block); any other block_k is a unit of its
+// own, of cdiv(bk, 128) stages, its rows past bk zero-filled and masked.
+__host__ __device__ constexpr bool packed(int bk) { return bk == 16 || bk == 32 || bk == 64; }
+__host__ __device__ constexpr int blocks_a_unit(int bk) { return packed(bk) ? kKvRows / bk : 1; }
+__host__ __device__ constexpr int stages_a_unit(int bk) {
+  return packed(bk) ? 1 : (bk + kKvRows - 1) / kKvRows;
+}
 // One partition's partial record: m[rt] (int), den[rt], acc[rt][dh].
 __host__ __device__ constexpr int rec_bytes(int rt, int dh) { return rt * (dh + 2) * 4; }
 
@@ -113,8 +126,8 @@ struct Layout {
 };
 
 __host__ __device__ inline Layout layout(int rt, int dh, int dv, int bk, int n_pt) {
-  const int unit = bk > kKvRows ? bk : kKvRows;
-  const int nbu = bk >= kKvRows ? 1 : kKvRows / bk;
+  const int unit = stages_a_unit(bk) * kKvRows;
+  const int nbu = blocks_a_unit(bk);
   Layout L;
   int o = 0;
   L.tab = o;   o += 256 * 4;                        // exp table (int)
@@ -296,7 +309,9 @@ pim_decode_kernel(const Args a) {
     lo = t > 0 ? t / bk : 0;
   }
   if (q_len <= 0) hi = -1;
-  const int nbu = bk >= kKvRows ? 1 : kKvRows / bk;   // partitions a unit
+  const bool pk = packed(bk);
+  const int nbu = blocks_a_unit(bk);   // partitions a unit
+  const int n_st = stages_a_unit(bk);  // stages a unit
   const int n_units = hi >= lo ? hi / nbu - lo / nbu + 1 : 0;
   const int per = n_units > 0 ? (n_units + a.chunks - 1) / a.chunks : 1;
   const int n_active = (n_units + per - 1) / per;
@@ -356,10 +371,10 @@ pim_decode_kernel(const Args a) {
       const unsigned mask = unit_mask(u);
       if (!mask) continue;
       int lo_c = 0, hi_c = 0;
-      if (bk >= kKvRows) {  // one partition: skip its stages masked everywhere
-        lo_c = bk / kKvRows;
+      if (!pk) {  // one partition: skip its stages masked everywhere
+        lo_c = n_st;
         hi_c = -1;
-        for (int c = 0; c < bk / kKvRows; ++c)
+        for (int c = 0; c < n_st; ++c)
           if (stage_live(u * bk + c * kKvRows)) {
             lo_c = min(lo_c, c);
             hi_c = c;
@@ -381,15 +396,15 @@ pim_decode_kernel(const Args a) {
       seek(cu, cu.u + 1);
     }
   };
-  const int sh = bk < kKvRows ? __ffs(bk) - 1 : 0;   // log2 of a short block
+  const int sh = pk ? __ffs(bk) - 1 : 0;   // log2 of a packed block
   // (token, head) index of row j of the stage at `cu`, or -1 (zeros)
   auto row_of = [&](const Cursor& cu, int j) -> long {
-    const int blk = bk >= kKvRows ? 0 : j >> sh;
+    const int blk = pk ? j >> sh : 0;
     if (!((cu.mask >> blk) & 1u)) return -1L;
     const int ki = cu.u * nbu + blk;
-    const int jb = bk >= kKvRows ? cu.c * kKvRows + j : j & (bk - 1);
+    const int jb = pk ? j & (bk - 1) : cu.c * kKvRows + j;
     const int pos = ki * bk + jb;
-    if (pos >= kv_len) return -1L;  // masked for every row
+    if ((!pk && jb >= bk) || pos >= kv_len) return -1L;  // masked for every row
     if (!paged) return pos < a.sk ? (long)kvh * a.sk + pos : -1L;
     return ((long)pt_s[ki] * bk + jb) * a.h_per_b + kvh;
   };
@@ -452,8 +467,8 @@ pim_decode_kernel(const Args a) {
   const float my_qs = qs_s[r_l];
   const int b_row = (lane & 7) + (lane >> 4) * 8, b_k = ((lane >> 3) & 1) * 16;
   const int wkey = warp * kKeys;                        // the warp's first key
-  const int wblk = bk >= kKvRows ? 0 : wkey >> sh;      // its partition in a unit
-  const int wpb = bk >= kKvRows ? pim::kWarps : bk / kKeys;  // warps a partition
+  const int wblk = pk ? wkey >> sh : 0;                 // its partition in a unit
+  const int wpb = pk ? bk / kKeys : pim::kWarps;        // warps a partition
   // the range is one allocated partition: no records, no combine
   const bool single = hi == lo && alloc(lo);
   const int qmax = static_cast<int>(a.qmax);
@@ -488,7 +503,7 @@ pim_decode_kernel(const Args a) {
     pim::cp_async_commit();
     const int8_t* st = reinterpret_cast<const int8_t*>(ring + (n % kStages) * slot_bytes(DH));
     const float* tsc = reinterpret_cast<const float*>(st + kKvRows * LD);
-    const int jj0 = bk >= kKvRows ? cc.c * kKvRows : 0;   // the stage's first unit row
+    const int jj0 = pk ? 0 : cc.c * kKvRows;              // the stage's first unit row
     const int k0 = cc.u * nbu * bk + jj0;                  // its first key position
 
     if (cc.kind == 0) {
@@ -530,7 +545,7 @@ pim_decode_kernel(const Args a) {
         }
         const int col = wkey + k;
         const int pos = k0 + col;
-        bool ok = row_ok && blk_ok && pos < kv_len;
+        bool ok = row_ok && blk_ok && pos < kv_len && jj0 + col < nbu * bk;
         if (a.causal) ok = ok && pos <= qp;
         if (a.window) ok = ok && pos > qp - a.window;
         const int c = pim::score_code_int(__fadd_rn(__int_as_float(sv), -12582912.0f), my_qs,
@@ -693,10 +708,14 @@ pim_decode_kernel(const Args a) {
     const int p0 = lo + k * C, n = min(C, hi + 1 - p0);
     for (int i = tid; i < n * RT; i += T) {   // the chunk's rescales, all at once
       const int q = i / RT, r = i - q * RT;
-      const int m_p = reinterpret_cast<const int*>(chunk_recs + q * REC)[r];
+      // an unallocated page of the range has no record: its bytes are
+      // whatever the plane held, never read as a maximum
+      const int m_p =
+          alloc(p0 + q) ? reinterpret_cast<const int*>(chunk_recs + q * REC)[r] : kNegInt;
       rs_s[i] = m_p <= kNegInt / 2
                     ? 0.0f
-                    : __fmul_rn(static_cast<float>(tab[min(mg[r] - m_p, 255)]), a.table_scale);
+                    : __fmul_rn(static_cast<float>(tab[min(max(mg[r] - m_p, 0), 255)]),
+                                a.table_scale);
     }
     __syncthreads();
 #pragma unroll 4
@@ -771,9 +790,7 @@ extern "C" int pim_decode_launch(
     void* iters, int bhkv, int n_rt, int rt, int dsplit, int chunks, int g, int sq, int dh,
     int dhk, int sk, int block_k, int n_k, int h_per_b, int causal, int window,
     float sm_scale, float score_scale, float qmax, float table_scale, void* stream) {
-  const bool bk_ok = block_k % kKvRows == 0 ||
-                     (block_k >= kKeys && kKvRows % block_k == 0);
-  if (!bk_ok || block_k <= 0 || dhk % 16 != 0 || (dhk != dh && 2 * dhk != dh) ||
+  if (block_k <= 0 || dhk % 16 != 0 || (dhk != dh && 2 * dhk != dh) ||
       chunks < 1 || n_rt < 1 || n_k < 1 || bhkv % nb != 0 || g < 1 ||
       (dsplit != 1 && (dsplit != dh / 32 || dh == 32 || dhk != dh)) ||
       (long)bhkv * n_rt * dsplit > 65535 || (long)(n_rt - 1) * rt >= (long)g * sq)

@@ -50,6 +50,19 @@ TILE_ROWS = (2, 4, 8)  # packed q rows a CTA takes
 CTAS_PER_SM = 2
 
 
+def blocks_a_unit(block_k: int) -> int:
+    """Partitions of one unit of the kernel's walk: blocks of 16, 32 or 64
+    rows are packed 128 / block_k to a 128-row stage; any other block_k is
+    a unit of its own, of cdiv(block_k, 128) stages."""
+    return KV_ROWS // block_k if block_k in (16, 32, 64) else 1
+
+
+def unit_rows(block_k: int) -> int:
+    """KV rows a unit stages: 128 for packed blocks, else block_k rounded
+    up to whole stages (the rows past block_k zero-filled and masked)."""
+    return KV_ROWS if blocks_a_unit(block_k) > 1 else cdiv(block_k, KV_ROWS) * KV_ROWS
+
+
 def rec_bytes(rows: int, dh: int) -> int:
     """Bytes of one partition's partial record: m, den and acc of `rows`."""
     return rows * (dh + 2) * 4
@@ -60,8 +73,7 @@ def smem_bytes(rows: int, dh: int, dsplit: int, block_k: int, n_pt: int) -> int:
     `n_pt` is the page-table width of a paged launch, 0 for a dense one."""
     def a16(x):
         return (x + 15) // 16 * 16
-    unit = max(block_k, KV_ROWS)
-    nbu = max(1, KV_ROWS // block_k)
+    unit, nbu = unit_rows(block_k), blocks_a_unit(block_k)
     return (256 * 4 + a16(rows * 4) + 16 * (dh + 16) + 16 + a16(rows * 4)
             + a16(n_pt * 4) + a16(2 * nbu * rows * 4) + a16(unit * rows * 2)
             + WARPS * KEYS * rows * 4 + WARPS * rows * (dh // dsplit + 1) * 4
@@ -96,13 +108,12 @@ def launch_plan(R: int, dh: int, dhk: int, block_k: int, n_k: int, bhkv: int,
         raise ValueError(f"the decode kernel takes head_dim {HEAD_DIMS} stored "
                          f"as int8 or 4 bits (a multiple of 16 bytes), not "
                          f"head_dim {dh} stored in {dhk} bytes")
-    if not (block_k % KV_ROWS == 0 or block_k in (16, 32, 64)) or block_k <= 0:
-        raise ValueError(f"block_k {block_k} is neither 16, 32, 64 nor a "
-                         f"multiple of {KV_ROWS}")
+    if block_k <= 0:
+        raise ValueError(f"block_k {block_k} is not positive")
     rows = next(t for t in TILE_ROWS if t >= min(R, TILE_ROWS[-1]))
     row_tiles = cdiv(R, rows)
     tiles = bhkv * row_tiles
-    n_units = cdiv(n_k, max(1, KV_ROWS // block_k))
+    n_units = cdiv(n_k, blocks_a_unit(block_k))
     want = CTAS_PER_SM * sms
     chunks = max(1, min(n_units, cdiv(want, tiles)))
     dsplit = dh // 32 if dhk == dh > 32 and tiles * chunks * dh // 32 <= want else 1
@@ -140,18 +151,21 @@ def needed_range(q_pos, kv_len, q_len, Sq: int, block_k: int, n_k: int,
 def cta_runs(lo: int, hi: int, block_k: int, chunks: int
              ) -> List[Tuple[int, int]]:
     """The kernel's split of one tile's range [lo, hi] over its `chunks`
-    CTAs: [(first unit, end unit)] of each CTA that runs, in units of
-    max(block_k, 128) rows (unit u holds partitions u * n .. u * n + n - 1,
-    n = max(1, 128 // block_k))."""
+    CTAs: [(first unit, end unit)] of each CTA that runs (unit u holds
+    partitions u * n .. u * n + n - 1, n = `blocks_a_unit(block_k)`)."""
     if hi < lo:
         return []
-    nbu = max(1, KV_ROWS // block_k)
+    nbu = blocks_a_unit(block_k)
     u0, u1 = lo // nbu, hi // nbu + 1
     per = cdiv(u1 - u0, chunks)
     return [(u, min(u + per, u1)) for u in range(u0, u1, per)]
 
 
 _counters: Dict[torch.device, torch.Tensor] = {}
+# When a list, every launch appends its (3, nb) int32 scalar table on the
+# device (q_offset, kv_len, q_len) and q's (BH, Sq, Dh): the served shapes
+# of a run, read after it without a host sync during it.
+SHAPES: Optional[list] = None
 
 
 def _tile_counters(dev: torch.device, n: int) -> torch.Tensor:
@@ -353,4 +367,6 @@ def _launch(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table, scalars,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "pim_decode launch")
     _build.LAUNCHES["pim_decode"] += 1
+    if SHAPES is not None:
+        SHAPES.append((scalars, tuple(q_q.shape)))
     return out, iters

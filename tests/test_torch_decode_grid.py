@@ -7,9 +7,12 @@ decides in Python and in integer arithmetic is replayed in torch:
   the runs of `cta_runs` visit each needed partition (allocated pages of
   the range) exactly once: the iteration map of `pim_decode_plain`;
 - the kernel's combine, over the needed partitions only and in order,
-  equals `combine_plain` over all of them bit for bit;
+  equals `combine_plain` over all of them bit for bit, whatever the
+  records of unallocated pages hold (the kernel never writes them);
 - the kernel's PV order (keys split over warps, 16 a warp a 128-row stage,
-  fused multiply-add in key order, warp sums added in warp order)
+  fused multiply-add in key order, warp sums added in warp order; a
+  block_k other than 16, 32, 64 or a multiple of 128 padded to whole
+  stages)
   stays within REL of the plain version, and keeps verify rows equal to
   single steps and paged equal to dense at block_k == page size, bit for
   bit.
@@ -25,8 +28,8 @@ from repro_torch.kernels import ops as TO
 from repro_torch.kernels.pim_attention import (
     MAX_SMEM, _NEG, block_needed, cdiv, kv_blocks, scalar_table)
 from repro_torch.kernels.pim_decode import (
-    KEYS, KV_ROWS, TILE_ROWS, WARPS, combine_plain, cta_runs, launch_plan,
-    needed_range, pim_decode_plain)
+    KEYS, KV_ROWS, TILE_ROWS, WARPS, blocks_a_unit, combine_plain, cta_runs,
+    launch_plan, needed_range, pim_decode_plain, unit_rows)
 
 REL = 1e-5
 LUT = LUTSoftmaxConfig()
@@ -62,13 +65,15 @@ def _table(lens, n_tables, ps, seed, holes=True):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("R", [1, 2, 3, 8, 9, 40, 160])
 @pytest.mark.parametrize("dh,block_k,paged", [(128, 256, False), (128, 16, True),
-                                             (64, 32, False), (32, 64, True)])
+                                             (64, 32, False), (32, 64, True),
+                                             (128, 8, True), (64, 48, False),
+                                             (128, 192, False)])
 def test_launch_plan_covers_rows_and_fits(R, dh, block_k, paged):
     n_k = 256 if paged else 16
     plan = launch_plan(R, dh, dh, block_k, n_k, 32, paged, 132)
     assert plan.rows in TILE_ROWS and plan.rows >= min(R, TILE_ROWS[-1])
     assert (plan.row_tiles - 1) * plan.rows < R <= plan.row_tiles * plan.rows
-    assert 1 <= plan.chunks <= cdiv(n_k, max(1, KV_ROWS // block_k))
+    assert 1 <= plan.chunks <= cdiv(n_k, blocks_a_unit(block_k))
     assert plan.dsplit in (1, dh // 32) and plan.dsplit * 32 <= dh
     assert plan.smem <= MAX_SMEM
 
@@ -95,9 +100,9 @@ def test_launch_plan_at_the_served_shapes():
 @pytest.mark.parametrize("args", [
     (2, 96, 96, 256, 16, 32, False, 132),     # head_dim outside 32 / 64 / 128
     (2, 128, 48, 256, 16, 32, False, 132),    # stored width neither int8 nor 4 bits
-    (2, 128, 128, 24, 16, 32, False, 132),    # block_k neither 16 / 32 / 64 nor 128k
-    (2, 128, 128, 8, 16, 32, False, 132),     # (a warp's 16 keys lie in one block)
-    (2, 128, 128, 192, 16, 32, False, 132),
+    (2, 128, 128, 0, 16, 32, False, 132),     # block_k not positive
+    (2, 128, 128, -16, 16, 32, False, 132),
+    (8, 128, 128, 1 << 14, 16, 32, False, 132),  # a block's codes past shared memory
     (2, 128, 128, 16, 60000, 32, True, 132),  # a page table past shared memory
     (160, 128, 128, 256, 16, 4000, False, 132),  # past the grid's 65535 tiles
 ])
@@ -132,9 +137,9 @@ def test_needed_range_is_block_needed(bk, window):
 
 
 @pytest.mark.parametrize("chunks", [1, 2, 3, 5, 13, 64])
-@pytest.mark.parametrize("bk", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("bk", [8, 16, 32, 48, 64, 128, 192, 256])
 def test_cta_runs_cover_the_range_once(bk, chunks):
-    nbu = max(1, KV_ROWS // bk)
+    nbu = blocks_a_unit(bk)
     for lo, hi in [(0, 0), (0, 20), (3, 17), (5, 4), (7, 255), (30, 31)]:
         runs = cta_runs(lo, hi, bk, chunks)
         assert len(runs) <= chunks
@@ -169,7 +174,7 @@ def test_grid_visits_the_plain_iteration_map(Sq, window):
     sc = scalar_table(q_pos, kv_t, ql_t, "cpu", B)
     lo, hi = needed_range(sc[0].long(), sc[1].long(), sc[2].long(), Sq, ps,
                           n_tables, True, window)
-    nbu = KV_ROWS // ps
+    nbu = blocks_a_unit(ps)
     for sms in (1, 8, 132):
         plan = launch_plan(Sq * H // Hkv, Dh, Dh, ps, n_tables, B * Hkv, True, sms)
         for bhkv in range(B * Hkv):
@@ -188,13 +193,14 @@ def test_grid_visits_the_plain_iteration_map(Sq, window):
 def combine_needed(part_m, part_den, part_acc, needed, lut_cfg):
     """The kernel's combine: the rows' maxima over the needed partitions,
     then only those, in partition order, with separately rounded multiply
-    and add."""
+    and add.  A record that is not needed is never read as a maximum (its
+    m taken as -2^24, its rescale 0), and adds nothing."""
     table, frac = build_exp_table(lut_cfg, part_m.device)
     m_glob = torch.where(needed[..., None], part_m, _NEG).amax(dim=1)
     den = torch.zeros_like(part_den[:, 0])
     acc = torch.zeros_like(part_acc[:, 0])
     for p in range(part_m.shape[1]):
-        m_p = part_m[:, p]
+        m_p = torch.where(needed[:, p, None], part_m[:, p], _NEG)
         rs = table.float()[torch.clamp(m_glob - m_p, 0, 255).long()] * (1.0 / (1 << frac))
         rs = torch.where(m_p <= _NEG / 2, 0.0, rs)
         use = needed[:, p, None]
@@ -220,10 +226,17 @@ def test_combine_over_needed_partitions_equals_combine_plain(seed):
     part_acc = torch.from_numpy(r.randn(N, n_k, R, Dh).astype(np.float32)) * 1e4
     part_den = torch.where(empty, 0.0, part_den)
     part_acc = torch.where(empty[..., None], 0.0, part_acc)
+    # the kernel's records of skipped partitions were never written: any
+    # bytes (here maxima far above every written one, NaN and inf sums)
+    junk_m = torch.from_numpy(r.randint(1 << 20, 1 << 30, (N, n_k, R))).float()
+    junk = torch.from_numpy(r.choice([np.nan, np.inf, -3e38], (N, n_k, R))).float()
+    k_m = torch.where(needed[..., None], part_m, junk_m)
+    k_den = torch.where(needed[..., None], part_den, junk)
+    k_acc = torch.where(needed[..., None, None], part_acc, junk[..., None])
     part_m = torch.where(needed[..., None], part_m, _NEG)
     part_den = torch.where(needed[..., None], part_den, 0.0)
     part_acc = torch.where(needed[..., None, None], part_acc, 0.0)
-    out = combine_needed(part_m, part_den, part_acc, needed, LUT)
+    out = combine_needed(k_m, k_den, k_acc, needed, LUT)
     assert torch.equal(out, combine_plain(part_m, part_den, part_acc, LUT))
     assert bool((out[:, R - 1] == 0).all())
 
@@ -238,7 +251,8 @@ def replay_decode(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_pos, kv_len,
     keys a warp in each 128-row stage; a short block takes bk / 16 warps),
     each warp summing fl(e * v + a) in key order (a fused multiply-add,
     taken in float64, where e * v is exact), the warp sums added in warp
-    order; then `combine_needed`."""
+    order; a block_k the kernel does not pack is padded with zero keys to
+    whole stages; then `combine_needed`."""
     BH, Sq, Dh = q_q.shape
     scalars = scalar_table(q_pos, kv_len, q_len, "cpu",
                            1 if page_table is None else page_table.shape[0])
@@ -264,8 +278,17 @@ def replay_decode(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_pos, kv_len,
     table, _ = build_exp_table(LUT, "cpu")
     table = table.float()
     qmax = 127.0
-    S, W = (bk // KV_ROWS, WARPS) if bk >= KV_ROWS else (1, bk // KEYS)
-    v_w = vdeq.reshape(BHkv, n_k, S, W, KEYS, Dh)
+    if blocks_a_unit(bk) > 1:
+        S, W = 1, bk // KEYS
+    else:
+        S, W = unit_rows(bk) // KV_ROWS, WARPS
+    pad = S * W * KEYS - bk     # zero keys: their e and V are exact zeros
+
+    def by_warp(x):   # (BHkv, n_k, bk[, Dh]) -> (BHkv, n_k, S, W, KEYS[, Dh])
+        z = torch.zeros(x.shape[:2] + (pad,) + x.shape[3:], dtype=x.dtype)
+        return torch.cat([x, z], dim=2).reshape(x.shape[:2] + (S, W, KEYS) + x.shape[3:])
+
+    v_w = by_warp(vdeq)
     part_m = torch.full((BHkv, n_k, R), _NEG)
     part_den = torch.zeros((BHkv, n_k, R))
     part_acc = torch.zeros((BHkv, n_k, R, Dh))
@@ -283,7 +306,7 @@ def replay_decode(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_pos, kv_len,
         codes = torch.where(mask, codes, _NEG)
         m = codes.amax(dim=-1)
         e = torch.where(mask, table[torch.clamp(m[..., None] - codes, 0, 255).long()], 0.0)
-        e_w = e.reshape(BHkv, n_k, S, W, KEYS)
+        e_w = by_warp(e)
         a = torch.zeros((BHkv, n_k, W, Dh))
         for s in range(S):
             for j in range(KEYS):
@@ -320,7 +343,8 @@ def _operands(seed, B, Sq, H, Hkv, Dh, lens, kv_bits=8, ps=16, max_len=336):
 
 
 @pytest.mark.parametrize("kv_bits", [8, 4])
-@pytest.mark.parametrize("bk,window", [(256, 0), (128, 40), (64, 40), (32, 0), (16, 0)])
+@pytest.mark.parametrize("bk,window", [(256, 0), (128, 40), (64, 40), (32, 0), (16, 0),
+                                       (8, 0), (48, 40), (192, 0)])
 def test_pv_key_split_order_within_rel_of_plain(bk, window, kv_bits):
     """The kernel's PV order against the plain version (REL of max|plain|),
     over slots of lengths 0, 17, 300 and 333 with q_len 1 and verify rows

@@ -197,9 +197,11 @@ def test_dense_operands_with_a_page_table_raise():
             fn(*tl, 15, 16, page_table=torch.zeros(1, 1, dtype=torch.int32))
 
 
-def _paged_setup(seed, lens, Sq, H, Hkv, Dh, kv_bits, ps=16, max_len=320):
+def _paged_setup(seed, lens, Sq, H, Hkv, Dh, kv_bits, ps=16, max_len=320,
+                 holes=False):
     """The same K/V in a paged pool of `ps`-token pages (a random permuted
-    table, page 0 the trash page) and in a dense ragged cache: (paged
+    table, page 0 the trash page; with `holes`, an unallocated page inside
+    each slot of more than two pages) and in a dense ragged cache: (paged
     operands, table, dense operands, (B,) lengths), on the CPU."""
     r = np.random.RandomState(seed)
     B = len(lens)
@@ -215,6 +217,8 @@ def _paged_setup(seed, lens, Sq, H, Hkv, Dh, kv_bits, ps=16, max_len=320):
     pt = np.full((B, n_tables), -1, np.int32)
     for b, n in enumerate(lens):
         pt[b, :-(-n // ps)] = perm[b * n_tables:b * n_tables - (-n // ps)]
+        if holes and -(-n // ps) > 2:
+            pt[b, r.randint(1, -(-n // ps) - 1)] = -1
     pt = torch.from_numpy(pt)
     pool = TA.init_paged_kv_cache(B * n_tables + 1, ps, Hkv, Dh, kv_bits=kv_bits)
     TA.paged_cache_write(pool, k, v, zeros, TPim(), pt, seq_lens=lens_t)
@@ -241,10 +245,13 @@ def test_cuda_kernels_match_plain_versions(cuda_device, kv_bits, heads):
     dims 32-128 and groups of 1-4 q heads, over a kv_len (300) that is not a
     multiple of the prefill kernel's 64-row stage, with a sequence that has
     no valid query (q_len 0), and prefill blocks of 8 (eight to a stage) and
-    128 rows (two stages each).  Then decode over a pool of 16-token pages
-    (slot lengths 0, 1, 17 and 300, unallocated pages past them), single
-    steps and verify rows (Sq 4), against the plain version and, bit for
-    bit, against the dense cache at block_k 16."""
+    128 rows (two stages each), and decode at block_k 64 and at block
+    sizes the kernel does not pack (8, 48, 192).  Then decode over a pool
+    of 16-token pages (slot lengths 0, 1, 17 and 300, unallocated pages
+    past them), single steps and verify rows (Sq 4), against the plain
+    version and, bit for bit, against the dense cache at block_k 16; and
+    with an unallocated page inside the longer slots' pages, against the
+    plain version."""
     H, Hkv, Dh = heads
     B, Sq, max_len = 2, 40, 300
     q, _, tc, _, tl = _setup(21, B, Sq, max_len, 300, H, Hkv, Dh, kv_bits, with_jax=False)
@@ -255,7 +262,10 @@ def test_cuda_kernels_match_plain_versions(cuda_device, kv_bits, heads):
             (pim_attention, pim_attention_plain, dict(q_len=ql)),
             (pim_attention, pim_attention_plain, dict(block_k=8)),
             (pim_attention, pim_attention_plain, dict(block_k=128, window=70)),
-            (pim_decode, pim_decode_plain, dict(block_k=64))]:
+            (pim_decode, pim_decode_plain, dict(block_k=64)),
+            (pim_decode, pim_decode_plain, dict(block_k=8)),
+            (pim_decode, pim_decode_plain, dict(block_k=48, window=50)),
+            (pim_decode, pim_decode_plain, dict(block_k=192))]:
         o_k, it_k = fn(*tl, 300 - Sq, 300, return_iters=True, **kw)
         o_p, it_p = plain(*tl, 300 - Sq, 300, return_iters=True, **kw)
         assert float((o_k - o_p).abs().max()) <= REL * float(o_p.abs().max())
@@ -273,3 +283,14 @@ def test_cuda_kernels_match_plain_versions(cuda_device, kv_bits, heads):
         assert torch.equal(it_k, it_p)
         o_d, it_d = pim_decode(*dense, offs, lens, block_k=16, **kw)
         assert torch.equal(o_k, o_d) and torch.equal(it_k, it_d)
+        paged, pt, _, lens = _paged_setup(Sq, [0, 1, 50, 300], Sq, H, Hkv, Dh,
+                                          kv_bits, holes=True)
+        assert all(bool((pt[b, :-(-n // 16)] < 0).any()) for b, n in ((2, 50), (3, 300)))
+        paged = [t.to(cuda_device) for t in paged]
+        pt, lens = pt.to(cuda_device), lens.to(cuda_device)
+        offs, ql = torch.clamp(lens - Sq, min=0), torch.clamp(lens, max=Sq)
+        kw = dict(q_len=ql, return_iters=True)
+        o_k, it_k = pim_decode(*paged, offs, lens, page_table=pt, **kw)
+        o_p, it_p = pim_decode_plain(*paged, offs, lens, page_table=pt, **kw)
+        assert float((o_k - o_p).abs().max()) <= REL * float(o_p.abs().max())
+        assert torch.equal(it_k, it_p)

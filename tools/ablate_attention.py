@@ -15,31 +15,22 @@ to Sq 256, paged).  A part's cost is the full kernel's time less the time
 of the variant without it; one more variant is the full kernel with a
 4-slot ring (one dense CTA an SM, not two).  The cut variants compute wrong
 outputs; the full build is checked against the repo's own build bit for
-bit.  Needs a CUDA
-device and nvcc; the variants are built under build/ablation/.
+bit.  Needs a CUDA device and nvcc; the harness is tools/ablation.py.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
-import json
-import os
-import shutil
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "src"))
-
-import chip_smoke as cs  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import attention as A  # noqa: E402
-from repro_torch.kernels import _build, ops  # noqa: E402
-from repro_torch.kernels import pim_attention as PA  # noqa: E402
+import ablation as ab
+import chip_smoke as cs
+from repro_torch.configs import get_config
+from repro_torch.core import attention as A
+from repro_torch.kernels import ops
+from repro_torch.kernels import pim_attention as PA
 
 # (source text, replacement): each cuts one part of the work out
 CUT = {
@@ -73,56 +64,6 @@ CHAIN = ("PV loop", "exps", "score division", "V * v_scale",
 
 # not a cut: the full kernel with a 4-slot ring (one dense CTA an SM)
 FOUR_SLOTS = [("constexpr int kStages = 3;", "constexpr int kStages = 4;")]
-
-
-def variants():
-    out = {"full": []}
-    cut = []
-    for part in CHAIN:
-        cut = cut + CUT[part]
-        out[f"without {part}"] = cut
-    out["without every stage"] = CUT["every stage"]
-    out["full, four ring slots"] = FOUR_SLOTS
-    return out
-
-
-def build(variants_: dict) -> dict:
-    """{name: loaded library}, one nvcc per variant, all at once."""
-    csrc = os.path.join(ROOT, "src/repro_torch/kernels/csrc")
-    src = open(os.path.join(csrc, "pim_attention.cu")).read()
-    texts = {}
-    for name, edits in variants_.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"ablate_attention: the cut {old[:48]!r} no longer "
-                                 "applies to pim_attention.cu")
-            text = text.replace(old, new)
-        texts[name] = text
-    nvcc, procs = _build._nvcc(), {}
-    for i, (name, text) in enumerate(texts.items()):
-        d = os.path.join(ROOT, "build", "ablation", str(i))
-        os.makedirs(d, exist_ok=True)
-        with open(os.path.join(d, "pim_attention.cu"), "w") as f:
-            f.write(text)
-        for h in os.listdir(csrc):
-            if h.endswith(".cuh"):
-                shutil.copy(os.path.join(csrc, h), d)
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-o", os.path.join(d, "lib.so"),
-               os.path.join(d, "pim_attention.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), d)
-    libs = {}
-    for name, (proc, d) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"ablate_attention: nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(os.path.join(d, "lib.so"))
-        for fn, argtypes in PA._SIGNATURES.items():
-            getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
 
 
 def shapes(dev) -> dict:
@@ -168,56 +109,28 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="", help="also write the times here (JSON)")
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("ablate_attention: no CUDA device is available", file=sys.stderr)
-        return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"card: {smi}", flush=True)
+    smi = ab.card("ablate_attention")
     dev = torch.device("cuda", 0)
-    libs = build(variants())
+    libs = ab.build("pim_attention", ab.chain_variants(
+        CUT, CHAIN, {"full, four ring slots": FOUR_SLOTS}), PA._SIGNATURES)
     calls = shapes(dev)
     ref = {k: f() for k, f in calls.items()}   # the repo's own build
     own, stages = PA._lib, PA.STAGES
     times = {}
     try:
-        for name, lib in libs.items():
+        for name, (lib, _) in libs.items():
             PA._lib = lambda lib=lib: lib
             PA.STAGES = 4 if name == "full, four ring slots" else stages
             if name == "full":
                 for k, f in calls.items():
                     if not torch.equal(f(), ref[k]):
                         raise SystemExit(f"ablate_attention: full build differs at {k}")
-            times[name] = {}
-            for k, f in calls.items():
-                for _ in range(5):   # the profiler may drop a session's events
-                    us, n = cs.kernel_us(cs.profiled(f, 20), "pim_attention_kernel")
-                    if n == 20:
-                        break
-                if n != 20:
-                    raise SystemExit(f"ablate_attention: profiler saw {n} of 20 launches")
-                times[name][k] = us / n
-            print(f"{name:34s}" + "".join(f"  {k}: {t:8.2f} us"
-                                          for k, t in times[name].items()), flush=True)
+            times[name] = ab.time_calls(calls, "pim_attention_kernel")
+            ab.print_times(name, times[name])
     finally:
         PA._lib, PA.STAGES = own, stages
-    print("cost of each part, us per launch (the variant before it less the "
-          "variant without it):")
-    prev = "full"
-    for part in CHAIN:
-        name = f"without {part}"
-        print(f"  {part:32s}" + "".join(
-            f"  {k}: {times[prev][k] - times[name][k]:8.2f}" for k in calls), flush=True)
-        prev = name
-    print(f"  {'the rest of the stage loop':32s}" + "".join(
-        f"  {k}: {times[prev][k] - times['without every stage'][k]:8.2f}" for k in calls))
-    print(f"  {'set-up and output (no stage)':32s}" + "".join(
-        f"  {k}: {times['without every stage'][k]:8.2f}" for k in calls))
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(dict(card=smi, us_per_launch=times), f, indent=1)
+    ab.print_chain(times, CHAIN, calls, "set-up and output (no stage)")
+    ab.write(args.out, smi, times)
     print(smi)
     return 0
 

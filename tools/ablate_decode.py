@@ -13,34 +13,26 @@ classic request's decode (a 160-row cache holding 144 tokens) and a decode
 step of the phase 7 trace (8 slots of 16-320 tokens over 32-page tables).
 Each cut variant leaves out one more part of the work than the one before
 it, so consecutive differences split the time; the cut variants compute
-wrong outputs.  Other variants change the ring depth, or mark the SM clock at each phase of
-one CTA, and the full build runs at several chunk counts (CTAs a tile).
+wrong outputs.  Other variants change the ring depth, or mark the SM
+clock at each phase of one CTA, and the full build runs at several chunk
+counts (CTAs a tile).
 The full build is checked against the repo's own build bit for bit.
-Needs a CUDA device and nvcc; the variants are built under
-build/ablate_decode/.
+Needs a CUDA device and nvcc; the harness is tools/ablation.py.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
-import json
-import os
-import shutil
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "src"))
-
-import chip_smoke as cs  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import attention as A  # noqa: E402
-from repro_torch.kernels import _build, ops  # noqa: E402
-from repro_torch.kernels import pim_decode as PD  # noqa: E402
+import ablation as ab
+import chip_smoke as cs
+from repro_torch.configs import get_config
+from repro_torch.core import attention as A
+from repro_torch.kernels import ops
+from repro_torch.kernels import pim_decode as PD
 
 # (source text, replacement): each cuts one part of the work out
 CUT = {
@@ -66,8 +58,7 @@ CUT = {
     "every stage": [("for (int n = 0; cc.ok; ++n) {", "for (int n = 0; false; ++n) {")],
 }
 CHAIN = ("combine", "partition records", "PV", "exps", "scores", "K/V loads")
-# not cuts: the full kernel with another ring depth or register budget
-# not cuts: the full kernel with more ring slots
+# not a cut: the full kernel with more ring slots
 OTHER = {
     "5 ring slots": [("constexpr int kStages = 3;", "constexpr int kStages = 5;")],
 }
@@ -79,7 +70,7 @@ CHUNK_SWEEP = (1, 4)   # CTAS_PER_SM of the full build besides its own
 # and after the codes (K) or after the exps and after PV (V), and at its
 # end; after the ticket, after the combine's maxima, at the exit) in
 # counters[512 ..] past any tile's counter (counters[511]: the number of
-# marks)
+# marks), zeroed again once read
 _DUMP = ("if (tid == 0 && blockIdx.x == 0 && blockIdx.y == 0) { MARK; "
          "for (int i = 0; i < nt_; ++i) a.counters[512 + i] = (int)tt_[i]; "
          "a.counters[511] = nt_; }")
@@ -107,59 +98,6 @@ TIMED = [
     ("  if (n_active > 1 && tid == 0) a.counters[tile] = 0;",
      "  if (n_active > 1 && tid == 0) a.counters[tile] = 0;\n  DUMP;"),
 ]
-
-
-def variants() -> dict:
-    out = {"full": []}
-    cut = []
-    for part in CHAIN:
-        cut = cut + CUT[part]
-        out[f"without {part}"] = cut
-    out["without every stage"] = CUT["every stage"]
-    out.update(OTHER)
-    out["timed"] = TIMED
-    return out
-
-
-def build(variants_: dict) -> dict:
-    """{name: (loaded library, ring slots)}, one nvcc per variant, all at
-    once."""
-    csrc = os.path.join(ROOT, "src/repro_torch/kernels/csrc")
-    src = open(os.path.join(csrc, "pim_decode.cu")).read()
-    nvcc, procs = _build._nvcc(), {}
-    for i, (name, edits) in enumerate(variants_.items()):
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"ablate_decode: the edit {old[:48]!r} no longer "
-                                 "applies to pim_decode.cu")
-            text = text.replace(old, new.replace("DUMP", _DUMP).replace("MARK", _MARK))
-        d = os.path.join(ROOT, "build", "ablate_decode", str(i))
-        os.makedirs(d, exist_ok=True)
-        with open(os.path.join(d, "pim_decode.cu"), "w") as f:
-            f.write(text)
-        for h in os.listdir(csrc):
-            if h.endswith(".cuh"):
-                shutil.copy(os.path.join(csrc, h), d)
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-o", os.path.join(d, "lib.so"),
-               os.path.join(d, "pim_decode.cu")]
-        slots = int(text.split("constexpr int kStages = ")[1].split(";")[0])
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), d, slots)
-    libs = {}
-    for name, (proc, d, slots) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"ablate_decode: nvcc failed for {name}:\n{log}")
-        regs = [ln.split("Used ")[1].split(",")[0] for ln in log.splitlines()
-                if "Used" in ln and "registers" in ln]
-        print(f"  built {name}: registers {regs}", flush=True)
-        lib = ctypes.CDLL(os.path.join(d, "lib.so"))
-        for fn, argtypes in PD._SIGNATURES.items():
-            getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = (lib, slots)
-    return libs
 
 
 def shapes(dev) -> dict:
@@ -206,53 +144,37 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="", help="also write the times here (JSON)")
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("ablate_decode: no CUDA device is available", file=sys.stderr)
-        return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"card: {smi}", flush=True)
+    smi = ab.card("ablate_decode")
     dev = torch.device("cuda", 0)
-    libs = build(variants())
+    libs = ab.build("pim_decode", dict(ab.chain_variants(CUT, CHAIN, OTHER), timed=TIMED),
+                    PD._SIGNATURES,
+                    lambda t: t.replace("DUMP", _DUMP).replace("MARK", _MARK))
     calls = shapes(dev)
     ref = {k: f() for k, f in calls.items()}   # the repo's own build
     own, stages, per_sm = PD._lib, PD.STAGES, PD.CTAS_PER_SM
+
+    def use(name, chunks_per_sm=per_sm):
+        lib, text = libs[name]
+        PD._lib = lambda: lib
+        PD.STAGES = int(text.split("constexpr int kStages = ")[1].split(";")[0])
+        PD.CTAS_PER_SM = chunks_per_sm
+        PD.launch_plan.cache_clear()
+        PD._checked_plan.cache_clear()
+
     runs = [(name, per_sm) for name in libs if name != "timed"] + [
         ("full", c) for c in CHUNK_SWEEP]
-
-    def time_all():
-        t = {}
-        for k, f in calls.items():
-            for _ in range(5):   # the profiler may drop a session's events
-                us, n = cs.kernel_us(cs.profiled(f, 20), "pim_decode_kernel")
-                if n == 20:
-                    break
-            if n != 20:
-                raise SystemExit(f"ablate_decode: profiler saw {n} of 20 launches")
-            t[k] = us / n
-        return t
-
     times = {}
     try:
         for name, chunks_per_sm in runs:
-            lib, slots = libs[name]
-            PD._lib = lambda lib=lib: lib
-            PD.STAGES, PD.CTAS_PER_SM = slots, chunks_per_sm
-            PD.launch_plan.cache_clear()
-            PD._checked_plan.cache_clear()
+            use(name, chunks_per_sm)
             label = name if chunks_per_sm == per_sm else f"full, CTAS_PER_SM {chunks_per_sm}"
             if name == "full":
                 for k, f in calls.items():
                     if not torch.equal(f(), ref[k]):
                         raise SystemExit(f"ablate_decode: {label} differs at {k}")
-            times[label] = time_all()
-            print(f"{label:34s}" + "".join(f"  {k}: {t:8.2f} us"
-                                          for k, t in times[label].items()), flush=True)
-        PD._lib = lambda: libs["timed"][0]
-        PD.STAGES, PD.CTAS_PER_SM = libs["timed"][1], per_sm
-        PD.launch_plan.cache_clear()
-        PD._checked_plan.cache_clear()
+            times[label] = ab.time_calls(calls, "pim_decode_kernel")
+            ab.print_times(label, times[label])
+        use("timed")
         print("clock64 marks of CTA (0, 0), SM cycles from its start: set-up; "
               "each stage's barrier and end; ticket; maxima; exit")
         for k, f in calls.items():
@@ -260,28 +182,15 @@ def main() -> int:
             torch.cuda.synchronize()
             c = PD._counters[dev]
             marks = c[512:512 + int(c[511])].tolist()
+            c[511:].zero_()   # the marks' slots are tile counters of larger grids
             times.setdefault("marks", {})[k] = marks
             print(f"  {k}: {marks}", flush=True)
     finally:
         PD._lib, PD.STAGES, PD.CTAS_PER_SM = own, stages, per_sm
         PD.launch_plan.cache_clear()
         PD._checked_plan.cache_clear()
-    print("cost of each part, us per launch (the variant before it less the "
-          "variant without it):")
-    prev = "full"
-    for part in CHAIN:
-        name = f"without {part}"
-        print(f"  {part:32s}" + "".join(
-            f"  {k}: {times[prev][k] - times[name][k]:8.2f}" for k in calls), flush=True)
-        prev = name
-    print(f"  {'the rest of the stage loop':32s}" + "".join(
-        f"  {k}: {times[prev][k] - times['without every stage'][k]:8.2f}" for k in calls))
-    print(f"  {'set-up and exit (no stage)':32s}" + "".join(
-        f"  {k}: {times['without every stage'][k]:8.2f}" for k in calls))
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(dict(card=smi, us_per_launch=times), f, indent=1)
+    ab.print_chain(times, CHAIN, calls, "set-up and exit (no stage)")
+    ab.write(args.out, smi, times)
     print(smi)
     return 0
 
