@@ -64,12 +64,17 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    -> N 1024/2048/8192, K 8192 -> N 2048) at M 4, 512 and 2048, a K that
    is not a multiple of 16, a row-major layer view of stacked weights and
    the deployed (K, N) view of an (N, K) store, x rows that are not
-   16-byte aligned; softmax rows of the served
-   prefill (8192 x 160) and decode (64 x 4096), an all-masked row, flat
-   rows whose sum of exps passes 2^24, int8 codes.  Times both at the
-   served shapes (kernel 3 at M 4, 512 and 2048, with TOP/s and the share
-   of its bound) beside their plain versions, their bounds and, for the
-   ideal mode, `torch._int_mm` (no one PyTorch call computes the ADC or
+   16-byte aligned; softmax rows at every boundary of kernel 4's regimes
+   (S 1 to 1025 around the warp rows' limit, 4096, the longest row staged
+   in shared memory and one past it), int32 and int8 codes, 1 and 9 rows,
+   score views one element into their storage, all-masked rows, the
+   served prefill (8192 x 160, also as the attention's broadcast mask) and
+   decode (64 x 4096) rows, flat rows whose sum of exps passes 2^24.
+   Times kernel 3 at the served shapes (M 4, 512 and 2048, with TOP/s and
+   the share of its bound) beside its plain version, its bound and, for the
+   ideal mode, `torch._int_mm`; kernel 4 at the served shapes (64 x 160,
+   128 x 512, 8192 x 160, 64 x 4096), warm and with L2 flushed, beside its
+   plain version and its bound (no one PyTorch call computes the ADC or
    the LUT softmax).
 9. Serves internlm2-1.8b at the paper's fidelity, with the phase 6
    weights: `adc_mode="quantized"` (every PIM linear through kernel 3) and
@@ -77,8 +82,10 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    and the phase 7 trace on the paged pool, each with its launch counts
    held to 168 and 24 per forward, no plain-version call, the peak device
    memory, a replay of served launches of both kernels (a prefill and a
-   decode step) against their plain versions, and a profile as in phases
-   6 and 7.
+   decode step) against their plain versions, kernel 4's on its served
+   broadcast mask with no other device kernel around it, and a profile as
+   in phases 6 and 7, with kernel 4's bound at its served operands and
+   the device kernels per forward.
 
 Exits non-zero, printing no result, when there is no GPU or any check
 fails.  The last line is the device JSON.
@@ -89,6 +96,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -231,17 +239,27 @@ ATTENTION_KERNELS = (("pim_attention_kernel", "pim_attention"),
                      ("pim_decode_kernel", "pim_decode"))
 
 
+class EventsDropped(Exception):
+    """The profiler saw fewer of a kernel's launches than were made."""
+
+
 def profile_report(prof, wall_s: float, prof_s: float, label: str,
-                   launches: dict, kernel_names=ATTENTION_KERNELS) -> dict:
+                   launches: dict, kernel_names=ATTENTION_KERNELS,
+                   last: bool = True) -> dict:
     """Print where a profiled run's device time went: busy share of the
     unprofiled wall `wall_s` of the same run, each (device kernel, wrapper)
     of `kernel_names`' device time per launch and the top device operators.
     `launches` are the wrapper counts of the profiled run: the profiler must
-    see one device kernel per wrapper call."""
+    see one device kernel per wrapper call.  Where it saw fewer (it can drop
+    a few events of a long run), raises EventsDropped unless `last`."""
     stamp(f"profile of the {label} taken")
     events = prof.key_averages()
     times = device_us(events)
     stamp("key_averages done")
+    for kernel, wrapper in kernel_names:
+        n, made = kernel_us(times, kernel)[1], launches.get(wrapper, 0)
+        if n < made and not last:
+            raise EventsDropped(f"the profiler saw {n} of {made} {kernel} launches")
     busy_ms = sum(us for us, _ in times.values()) / 1e3
     n_dev = sum(n for _, n in times.values())
     host_launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
@@ -268,6 +286,41 @@ def profile_report(prof, wall_s: float, prof_s: float, label: str,
     return dict(profiled_wall_ms=prof_s * 1e3, device_busy_ms=busy_ms,
                 busy_share=busy_ms / (wall_s * 1e3), device_events=n_dev,
                 host_launches=host_launches, kernels=kernels)
+
+
+def profiled_report(prepare, run, label: str, wall_s: float,
+                    kernel_names=ATTENTION_KERNELS, tries: int = 3) -> dict:
+    """`profile_report` of `run(prepare())` under torch.profiler (only the
+    run is timed and profiled), profiled again, up to `tries` times, while
+    the profiler drops some of its kernels' events."""
+    for attempt in range(1, tries + 1):
+        state = prepare()
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(state)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        try:
+            return profile_report(prof, wall_s, prof_s, label, dict(_build.LAUNCHES),
+                                  kernel_names, last=attempt == tries)
+        except EventsDropped as e:
+            print(f"  {e}: profiling again", flush=True)
+
+
+def unprofiled_wall(prepare, run, recorder) -> tuple:
+    """(what `recorder()` yields, wall s) of `run(prepare())` inside the
+    context `recorder()`, unprofiled: the same work as `profiled_report`'s."""
+    state = prepare()
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    with recorder() as seen:
+        t0 = time.perf_counter()
+        run(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return seen, wall
 
 
 def attention_bound(nbytes: int, pairs: int, Dh: int):
@@ -543,7 +596,14 @@ def recorded(pick, targets=None):
     copies are taken at launch, since the scheduler writes its cache in
     place afterwards."""
     def copied(x):
-        return x.clone() if isinstance(x, torch.Tensor) else x
+        """A copy of a tensor operand in its layout: a broadcast (stride 0)
+        dim stays a broadcast of the copied storage."""
+        if not isinstance(x, torch.Tensor):
+            return x
+        if 0 not in x.stride():
+            return x.clone()
+        one = tuple(slice(0, 1) if st == 0 else slice(None) for st in x.stride())
+        return x[one].clone().expand(x.shape)
 
     kept, counts, wrapped = {}, {}, {}
 
@@ -708,25 +768,19 @@ def full_scheduler(model, params, cfg, entries, compare) -> dict:
     # the profiler's summary costs about 0.6 ms of host time per launch, so
     # it covers the first PROFILED_STEPS steps (both runs of them are the
     # same work: the trace and the scheduler are deterministic)
-    walls = []
-    for profiled_run in (False, True):
+    def submitted():
         sched = serve_lib.Scheduler(model, params, page_size=PAGE, **kw)
         for p, b in trace:
             sched.submit(p, b)
-        torch.cuda.synchronize()
-        _build.LAUNCHES.clear()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                     ) if profiled_run else decode_shapes(cfg) as prof:
-            t0 = time.perf_counter()
-            for _ in range(PROFILED_STEPS):
-                sched.step()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        if not profiled_run:
-            shapes = prof
-    paged_info["profile"] = profile_report(
-        prof, walls[0], walls[1], f"first {PROFILED_STEPS} steps of the paged "
-        f"trace ({sched.model_steps} forwards)", dict(_build.LAUNCHES))
+        return sched
+
+    def steps(sched):
+        for _ in range(PROFILED_STEPS):
+            sched.step()
+
+    shapes, wall = unprofiled_wall(submitted, steps, lambda: decode_shapes(cfg))
+    paged_info["profile"] = profiled_report(
+        submitted, steps, f"first {PROFILED_STEPS} steps of the paged trace", wall)
     served_decode(entries, "trace", paged_info["profile"], shapes, cfg)
     return dict(dense=dense_info, paged=paged_info, agree=agree,
                 prompts=lens.tolist(), budgets=budgets.tolist())
@@ -757,10 +811,154 @@ def matmul_bound(M: int, K: int, N: int, quantized: bool):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def softmax_bound(R: int, S: int):
-    """Least time of the LUT softmax over (R, S): int32 scores, bool mask and
-    int32 codes moved once (a few operations per element are far below)."""
-    return R * S * 9 / HBM_BPS * 1e3, "bytes"
+def softmax_bound(scores: torch.Tensor, mask: torch.Tensor):
+    """Least time of the LUT softmax on the H100: each input byte read once
+    (the scores at their own dtype, the mask at its un-broadcast size) and
+    the int32 codes written once; a few operations per element are far
+    below.  A full mask over int32 scores: 9 bytes per position."""
+    mask_bytes = math.prod(n for n, st in zip(mask.shape, mask.stride()) if st != 0)
+    nbytes = scores.numel() * (scores.element_size() + 4) + mask_bytes
+    return nbytes / HBM_BPS * 1e3, "bytes"
+
+
+def kernel_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Device ms per launch of the device kernel `kernel` over `iters` calls
+    of `fn` (torch.profiler; other kernels of the calls left out)."""
+    for _ in range(5):   # the profiler may drop a short kernel's events
+        us, n = kernel_us(profiled(fn, iters), kernel)
+        if n == iters:
+            return us / n / 1e3
+        print(f"  profiler saw {n} of the {iters} {kernel} launches: profiling again")
+    check(False, f"profiler saw the {iters} {kernel} launches ({n})")
+
+
+L2_FLUSH_BYTES = 64 << 20   # a write of more than the H100's 50 MB L2
+
+
+def flushed(fn, dev):
+    """`fn` after a write of L2_FLUSH_BYTES: it finds its operands in HBM."""
+    buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def call():
+        buf.fill_(1)
+        return fn()
+    return call
+
+
+def staged_max_s(score_bytes: int) -> int:
+    """The longest row that kernel 4 stages in shared memory."""
+    lo, hi = sm_k.ROWS_MAX_S, 1 << 20
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        staged = sm_k._plan(1, mid, score_bytes).regime == "staged"
+        lo, hi = (mid, hi) if staged else (lo, mid)
+    return lo
+
+
+def softmax_kernel(dev, lut, gen, same, entries) -> None:
+    """Kernel 4 against its plain version bit for bit at every regime's
+    boundaries and the served shapes, then timed warm and with L2 flushed."""
+    print("kernel 4 (lut_softmax) vs its plain version, bit for bit:", flush=True)
+
+    def scores(shape, dtype=torch.int32):
+        return torch.clamp(torch.round(torch.randn(shape, generator=gen, device=dev)
+                                       * 24), -128, 127).to(dtype)
+
+    def held(s, mk):
+        return bool(torch.equal(sm_k.lut_softmax(s, mk, lut),
+                                sm_k.lut_softmax_plain(s, mk, lut)))
+
+    # warp rows (S <= 1024, more than 8 rows an SM: 1,100 rows, not a
+    # multiple of a CTA's 8), CTA rows held in registers (S <= 4096),
+    # staged in shared memory up to its limit and streamed past it; 1 and 9
+    # rows, aligned and one element into the storage, an all-masked row
+    # among several
+    for dtype in (torch.int32, torch.int8):
+        top = staged_max_s(dtype.itemsize)
+        for rows in (1, 9, 1100):
+            lengths = ((1, 31, 32, 33, 127, 128, 129, 160, 512, 1023, 1024, 1025, 2048,
+                        4096, 4097, top, top + 1) if rows < 1100 else (160, 1023, 1024))
+            for S in lengths:
+                ok = []
+                flat = scores((rows * S + 1,), dtype)
+                for off in (0, 1):
+                    mk = torch.rand((rows, S), generator=gen, device=dev) < 0.9
+                    if rows > 1:
+                        mk[-1] = False
+                    ok.append(held(flat[off:off + rows * S].view(rows, S), mk))
+                regime = sm_k._plan(rows, S, dtype.itemsize).regime
+                check(all(ok), f"{str(dtype)[6:]} {rows} x {S} ({regime}), aligned and "
+                      "one element in: kernel == plain bit for bit")
+
+    # behavioral prefill rows of the classic request: 4 x 16 heads x 128
+    # queries over its 160-row cache, causal, as a full mask and as the
+    # attention hands it over (broadcast over the heads); decode rows: 4 x 16
+    # heads over 4096 positions, 4000 valid
+    k_pos = torch.arange(160, device=dev)
+    causal = (k_pos[None, :] <= torch.arange(128, device=dev)[:, None]) & (k_pos < 128)
+    pre_mask = causal.expand(4, 16, 128, 160).reshape(8192, 160)
+    pre = scores((8192, 160))
+    same("prefill rows 8192 x 160, causal", "lut_softmax",
+         sm_k.lut_softmax(pre, pre_mask, lut), sm_k.lut_softmax_plain(pre, pre_mask, lut))
+    att = pre.view(4, 16, 1, 128, 160)
+    att_mask = causal.expand(4, 128, 160)[:, None, None].expand(att.shape)
+    for what, s in (("int32", att), ("int8", att.to(torch.int8))):
+        same(f"the attention's (4, 16, 1, 128, 160) {what} scores, its broadcast mask",
+             "lut_softmax", sm_k.lut_softmax(s, att_mask, lut),
+             sm_k.lut_softmax_plain(s, att_mask, lut))
+    dec_mask = (torch.arange(4096, device=dev) < 4000).expand(64, 4096).clone()
+    dec_mask[5] = False                                 # an all-masked row
+    dec = scores((64, 4096))
+    out = sm_k.lut_softmax(dec, dec_mask, lut)
+    same("decode rows 64 x 4096 with an all-masked row", "lut_softmax", out,
+         sm_k.lut_softmax_plain(dec, dec_mask, lut))
+    check(int(out[5].abs().max()) == 0, "the all-masked row's codes are all 0")
+    s8 = dec.to(torch.int8)
+    same("int8 score codes", "lut_softmax", sm_k.lut_softmax(s8, dec_mask, lut),
+         sm_k.lut_softmax_plain(s8, dec_mask, lut))
+    for R, S in ((3, 1024), (2, 4096)):     # a warp row and a staged row
+        flat = torch.zeros((R, S), dtype=torch.int32, device=dev)
+        flat_mask = torch.ones_like(flat, dtype=torch.bool)
+        out = sm_k.lut_softmax(flat, flat_mask, lut)
+        same(f"flat rows of {S} table maxima (sum of exps 2^15 * {S} > 2^24)",
+             "lut_softmax", out, sm_k.lut_softmax_plain(flat, flat_mask, lut))
+        check(bool((out == 65536 // S).all()),
+              f"flat rows: every code is 2^16 / {S} = {65536 // S}")
+
+    # ---- timing: served shapes, warm and with L2 flushed ----------------
+    print("kernel 4 times, device ms per launch (torch.profiler):", flush=True)
+    lens = torch.randint(1, 513, (128, 1), generator=gen, device=dev)
+    timed = (("classic decode rows 64 x 160", scores((64, 160)),
+              (k_pos < 129).expand(64, 160).clone()),
+             ("trace decode rows 128 x 512", scores((128, 512)),
+              torch.arange(512, device=dev) < lens),
+             ("prefill rows 8192 x 160", pre, pre_mask),
+             ("prefill 8192 x 160 as served (broadcast mask)", att, att_mask),
+             ("decode rows 64 x 4096", dec, dec_mask))
+    srows = []
+    for what, sc, mk in timed:
+        def call():
+            return sm_k.lut_softmax(sc, mk, lut)
+        ms = kernel_ms(call, "lut_softmax_kernel")
+        cold = kernel_ms(flushed(call, dev), "lut_softmax_kernel")
+        plain_ms = per_call_ms(profiled(lambda: sm_k.lut_softmax_plain(sc, mk, lut), 3), 3)
+        b_ms, b_by = softmax_bound(sc, mk)
+        R, S = sc.numel() // sc.shape[-1], sc.shape[-1]
+        regime = sm_k._plan(R, S, sc.element_size()).regime
+        srows.append(dict(what=what, rows=R, S=S, ms=ms, cold_ms=cold, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, regime=regime))
+        print(f"  lut_softmax {what} ({regime}): warm {ms:.5f} "
+              f"({b_ms / ms:.1%} of the bound), L2 flushed {cold:.5f} ({b_ms / cold:.1%}), "
+              f"bound {b_ms:.5f} ({b_by}), plain {plain_ms:.4f}", flush=True)
+    head = srows[2]
+    entries["lut_softmax"] = dict(
+        name="lut_softmax", route="cuda",
+        source="src/repro_torch/kernels/csrc/lut_softmax.cu",
+        replaces="src/repro/kernels/lut_softmax.py:73",
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None, cold_ms=head["cold_ms"], timed=srows,
+        shape="8192 x 160 prefill rows of the classic request, full mask; library: "
+              "no one PyTorch call computes the LUT softmax")
 
 
 def adc_kernels(dev, cfg, gen, entries) -> None:
@@ -816,41 +1014,8 @@ def adc_kernels(dev, cfg, gen, entries) -> None:
             same(f"M{M} K2048 N1024 misaligned x {pc.adc_mode}", "pim_matmul",
                  mm_k.pim_matmul_int(x, w, pc), mm_k.pim_matmul_int_plain(x, w, pc))
 
-    print("kernel 4 (lut_softmax) vs its plain version, bit for bit:", flush=True)
-    lut = cfg.lut
-
-    def scores(shape):
-        return torch.clamp(torch.round(torch.randn(shape, generator=gen, device=dev)
-                                       * 24), -128, 127).to(torch.int32)
-
-    # behavioral prefill rows of the classic request: 4 x 16 heads x 128
-    # queries over its 160-row cache, causal; decode rows: 4 x 16 heads
-    # over 4096 positions, 4000 valid
-    k_pos = torch.arange(160, device=dev)
-    pre_mask = ((k_pos[None, :] <= torch.arange(128, device=dev)[:, None])
-                & (k_pos < 128)).expand(4, 16, 128, 160).reshape(8192, 160)
-    pre = scores((8192, 160))
-    same("prefill rows 8192 x 160, causal", "lut_softmax",
-         sm_k.lut_softmax(pre, pre_mask, lut), sm_k.lut_softmax_plain(pre, pre_mask, lut))
-    dec_mask = (torch.arange(4096, device=dev) < 4000).expand(64, 4096).clone()
-    dec_mask[5] = False                                 # an all-masked row
-    dec = scores((64, 4096))
-    out = sm_k.lut_softmax(dec, dec_mask, lut)
-    same("decode rows 64 x 4096 with an all-masked row", "lut_softmax", out,
-         sm_k.lut_softmax_plain(dec, dec_mask, lut))
-    check(int(out[5].abs().max()) == 0, "the all-masked row's codes are all 0")
-    flat = torch.zeros((2, 4096), dtype=torch.int32, device=dev)
-    flat_mask = torch.ones_like(flat, dtype=torch.bool)
-    out = sm_k.lut_softmax(flat, flat_mask, lut)
-    same("flat rows of 4096 table maxima (sum of exps 2^27 > 2^24)", "lut_softmax",
-         out, sm_k.lut_softmax_plain(flat, flat_mask, lut))
-    check(bool((out == 16).all()), "flat rows: every code is 2^16 / 4096 = 16")
-    s8 = dec.to(torch.int8)
-    same("int8 score codes", "lut_softmax", sm_k.lut_softmax(s8, dec_mask, lut),
-         sm_k.lut_softmax_plain(s8, dec_mask, lut))
-
     # ---- timing at the served shapes -----------------------------------
-    print("kernel 3 and 4 times, device ms per call (torch.profiler):", flush=True)
+    print("kernel 3 times, device ms per call (torch.profiler):", flush=True)
     rows = []
     for M in (4, 512, 2048):
         for K, N in LINEARS:
@@ -867,7 +1032,11 @@ def adc_kernels(dev, cfg, gen, entries) -> None:
                 check(n == 20, f"profiler saw the 20 {mode} pim_matmul launches ({n})")
                 t[mode] = per_call_ms(times, 20)
             t["plain"] = per_call_ms(profiled(lambda: mm_k.pim_matmul_int_plain(x, w, pim_q), 2), 2)
-            t["int_mm"] = per_call_ms(profiled(lambda: torch._int_mm(xp, w), 20), 20)
+            for _ in range(5):   # the profiler may drop a session's events
+                t["int_mm"] = per_call_ms(profiled(lambda: torch._int_mm(xp, w), 20), 20)
+                if t["int_mm"] > 0:
+                    break
+            check(t["int_mm"] > 0, "profiler saw the torch._int_mm launches")
             b_ms, b_by = matmul_bound(M, K, N, True)
             bi_ms, _ = matmul_bound(M, K, N, False)
             tops = {m: 2 * M * N * K / (t[m] * 1e-3) / 1e12 for m in ("quantized", "ideal")}
@@ -892,27 +1061,7 @@ def adc_kernels(dev, cfg, gen, entries) -> None:
         shape="M4 K2048 N8192 quantized ADC (decode w_gate / w_in); library: "
               "no one PyTorch call computes the ADC; int_mm_ms is torch._int_mm "
               "of the ideal mode")
-    srows = []
-    for what, sc, mk in (("prefill rows 8192 x 160", pre, pre_mask),
-                         ("decode rows 64 x 4096", dec, dec_mask)):
-        times = profiled(lambda: sm_k.lut_softmax(sc, mk, lut), 20)
-        _, n = kernel_us(times, "lut_softmax_kernel")
-        check(n == 20, f"profiler saw the 20 lut_softmax launches ({n})")
-        ms = per_call_ms(times, 20)
-        plain_ms = per_call_ms(profiled(lambda: sm_k.lut_softmax_plain(sc, mk, lut), 3), 3)
-        b_ms, b_by = softmax_bound(*sc.shape)
-        srows.append(dict(rows=sc.shape[0], S=sc.shape[1], ms=ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by))
-        print(f"  lut_softmax {what}: kernel {ms:.4f}, plain {plain_ms:.4f}, bound "
-              f"{b_ms:.4f} ({b_by})", flush=True)
-    entries["lut_softmax"] = dict(
-        name="lut_softmax", route="cuda",
-        source="src/repro_torch/kernels/csrc/lut_softmax.cu",
-        replaces="src/repro/kernels/lut_softmax.py:73",
-        ms=srows[0]["ms"], plain_ms=srows[0]["plain_ms"], bound_ms=srows[0]["bound_ms"],
-        bound_by=srows[0]["bound_by"], library_ms=None, timed=srows,
-        shape="8192 x 160 prefill rows of the classic request; library: no one "
-              "PyTorch call computes the LUT softmax")
+    softmax_kernel(dev, cfg.lut, gen, same, entries)
     for name in err:
         entries[name]["max_abs_err"] = err[name]
 
@@ -970,6 +1119,48 @@ def replay_adc(label: str, kept: dict, rows: dict) -> None:
         check(torch.equal(o_k, o_p), f"{label}, {what}: {name} operands "
               f"{tuple(args[0].shape)} x {tuple(args[1].shape)}, kernel == plain "
               "bit for bit")
+        if name == "lut_softmax":
+            mask = args[1]
+            check(0 in mask.stride(), f"{label}, {what}: the served mask is a "
+                  f"broadcast (strides {mask.stride()})")
+            extra = others(profiled(lambda: kern(*args, **kw), 3), "lut_softmax_kernel")
+            check(not extra, f"{label}, {what}: the served call runs kernel 4 and no "
+                  f"other device kernel (no mask copy, no int32 conversion) {extra}")
+
+
+@contextlib.contextmanager
+def softmax_bounds():
+    """Within the block, each kernel 4 call of the behavioral attention
+    records its bound in us (`softmax_bound` of its operands): yields the
+    list."""
+    seen, fn = [], A._lut_softmax_kernel
+
+    def call(scores, mask, cfg):
+        seen.append(softmax_bound(scores, mask)[0] * 1e3)
+        return fn(scores, mask, cfg)
+
+    A._lut_softmax_kernel = call
+    try:
+        yield seen
+    finally:
+        A._lut_softmax_kernel = fn
+
+
+def served_softmax(entries, label: str, report: dict, bounds, L: int) -> None:
+    """Kernel 4's device us per launch of a profiled serving run beside its
+    mean bound over the launches of the unprofiled run of the same work, and
+    the run's device kernels and copies per forward (one kernel 4 launch
+    per layer and forward)."""
+    k = report["kernels"]["lut_softmax_kernel"]
+    us, b_us = k["us_per_launch"], sum(bounds) / len(bounds)
+    forwards = k["launched"] // L
+    report["device_events_per_forward"] = report["device_events"] / forwards
+    entries["lut_softmax"].setdefault("served_us", {})[label] = us
+    entries["lut_softmax"].setdefault("served_bound_us", {})[label] = b_us
+    print(f"  kernel 4 on the {label}: {us:.2f} us per launch, bound {b_us:.3f} us "
+          f"(mean over its {len(bounds)} calls' operands), {b_us / us:.1%} of it; "
+          f"{report['device_events_per_forward']:.1f} device kernels and copies "
+          f"per forward ({forwards} forwards)", flush=True)
 
 
 def expect_launches(label: str, launches: dict, forwards: int, L: int) -> None:
@@ -1043,21 +1234,17 @@ def paper_fidelity(cfg, params, entries) -> dict:
           f"{launches}; first sequence {toks[0, :12].tolist()}", flush=True)
     for name in ("pim_matmul", "lut_softmax"):
         entries[name]["launches"] = launches.get(name, 0)
-    walls = []
-    for profiled_run in (False, True):
-        _build.LAUNCHES.clear()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                     ) if profiled_run else contextlib.nullcontext() as prof:
-            t0 = time.perf_counter()
-            serve_lib.generate(model, params, batch, PROFILED_TOKENS, P + T)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+    def cut(_):
+        serve_lib.generate(model, params, batch, PROFILED_TOKENS, P + T)
+
+    bounds, wall = unprofiled_wall(lambda: None, cut, softmax_bounds)
     out["classic"] = dict(
         prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_ms,
         tokens_per_s=Bs * T / total_s, total_s=total_s, launches=launches,
-        peak_gib=peak, **profile_report(
-            prof, walls[0], walls[1], f"paper-fidelity request cut to "
-            f"{PROFILED_TOKENS} new tokens", dict(_build.LAUNCHES), ADC_KERNELS))
+        peak_gib=peak, **profiled_report(
+            lambda: None, cut, f"paper-fidelity request cut to {PROFILED_TOKENS} new "
+            "tokens", wall, ADC_KERNELS))
+    served_softmax(entries, "classic request", out["classic"], bounds, L)
 
     trace, lens, budgets = sched_trace(V)
     n_tok = int(budgets.sum())
@@ -1107,28 +1294,25 @@ def paper_fidelity(cfg, params, entries) -> dict:
     entries["pim_matmul"]["paged_launches"] = launches.get("pim_matmul", 0)
     entries["lut_softmax"]["paged_launches"] = launches.get("lut_softmax", 0)
     peak_pages = sched.peak_pages_in_use
-    walls = []
-    for profiled_run in (False, True):
+    def submitted():
         sched = serve_lib.Scheduler(model, params, page_size=PAGE, **SCHED_KW)
         for p, b in trace:
             sched.submit(p, b)
-        torch.cuda.synchronize()
-        _build.LAUNCHES.clear()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                     ) if profiled_run else contextlib.nullcontext() as prof:
-            t0 = time.perf_counter()
-            for _ in range(PROFILED_STEPS):
-                sched.step()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+        return sched
+
+    def steps(sched):
+        for _ in range(PROFILED_STEPS):
+            sched.step()
+
+    bounds, cut_wall = unprofiled_wall(submitted, steps, softmax_bounds)
     out["paged"] = dict(
         wall_s=wall, tokens_per_s=n_tok / wall, ms_per_step=wall / st["steps"] * 1e3,
         steps=st["steps"], model_steps=st["model_steps"], launches=launches,
         peak_gib=peak, peak_pages_in_use=peak_pages,
-        profile=profile_report(
-            prof, walls[0], walls[1], f"first {PROFILED_STEPS} steps of the "
-            f"paper-fidelity paged trace ({sched.model_steps} forwards)",
-            dict(_build.LAUNCHES), ADC_KERNELS))
+        profile=profiled_report(
+            submitted, steps, f"first {PROFILED_STEPS} steps of the paper-fidelity "
+            "paged trace", cut_wall, ADC_KERNELS))
+    served_softmax(entries, "paged trace", out["paged"]["profile"], bounds, L)
     return out
 
 
@@ -1379,7 +1563,7 @@ def main(argv=None) -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("wrapper_ms", "served_us", "served_bound_us", "paged_ms", "paged_bound_ms",
+    extra = ("wrapper_ms", "cold_ms", "served_us", "served_bound_us", "paged_ms", "paged_bound_ms",
              "paged_launches", "dense_sched_launches", "ideal_ms", "int_mm_ms")
     print(json.dumps({"kernels": [{**{k: e.get(k) for k in keys},
                                    **{k: e[k] for k in extra if k in e}}
@@ -1489,22 +1673,15 @@ def serve_classic(model, params, cfg, entries, results) -> None:
 
     # the request cut to PROFILED_TOKENS new tokens, unprofiled and then
     # under the profiler: where the device time goes
-    walls = []
-    for profiled_run in (False, True):
-        _build.LAUNCHES.clear()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                     ) if profiled_run else decode_shapes(cfg) as prof:
-            t0 = time.perf_counter()
-            serve_lib.generate(model, params, batch, PROFILED_TOKENS, P + T)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        if not profiled_run:
-            shapes = prof
+    def cut(_):
+        serve_lib.generate(model, params, batch, PROFILED_TOKENS, P + T)
+
+    shapes, wall = unprofiled_wall(lambda: None, cut, lambda: decode_shapes(cfg))
     results["serve"] = dict(
         prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_ms,
         tokens_per_s=Bs * T / total_s, total_s=total_s, launches=launches,
-        **profile_report(prof, walls[0], walls[1], f"request cut to "
-                         f"{PROFILED_TOKENS} new tokens", dict(_build.LAUNCHES)))
+        **profiled_report(lambda: None, cut,
+                          f"request cut to {PROFILED_TOKENS} new tokens", wall))
     served_decode(entries, "classic request", results["serve"], shapes, cfg)
 
 
