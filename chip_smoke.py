@@ -86,6 +86,24 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    broadcast mask with no other device kernel around it, and a profile as
    in phases 6 and 7, with kernel 4's bound at its served operands and
    the device kernels per forward.
+10. Serves, with the phase 6 weights at decode_block_k 16, a 16-request
+   trace through 8 slots of 1,536 tokens: 12 prompts open with one
+   256-token system prompt (two pairs of them equal and page-aligned), 3
+   share nothing, and a 1,024-token prompt arrives after 3 steps.  Six
+   ways: (A) the paged pool, (B) with prefix sharing, (C) with sharing
+   and fused mixed steps, (D) with sharing and paired mixed steps (chunk
+   budget 256), (E) dense slots, (F) dense slots with fused mixed steps;
+   `audit()` after every step.  Checks A == B == C == D and E == F,
+   prefix hits, hit tokens, prefill tokens and copies as the trace's
+   construction gives them, fewer peak pages with sharing, every page
+   back after `clear_prefix_cache()`, 24 + 24 kernel launches per fused
+   mixed forward, no plain-version call, and replays a fused mixed step's
+   launches of both kernels, a tail prefill at offset 256 over shared
+   pages and a paired chunk wave against the plain versions.  Prints each
+   run's wall and tokens/s, the step admitting the long prompt in B
+   against the longest step while it is chunked in C, whether RMSNorm and
+   the unembed give a row the same bits beside other row counts, and a
+   profile of one fused mixed step.
 
 Exits non-zero, printing no result, when there is no GPU or any check
 fails.  The last line is the device JSON.
@@ -137,7 +155,7 @@ F32_OPS = 67e12
 REL_TOL = 1e-5
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
 # what a phase needs run first: kernel entries (2, 8) or the small model (4)
 NEEDS = {3: {2}, 5: {4}, 6: {2}, 7: {2}, 9: {8}}
 
@@ -784,6 +802,327 @@ def full_scheduler(model, params, cfg, entries, compare) -> dict:
     served_decode(entries, "trace", paged_info["profile"], shapes, cfg)
     return dict(dense=dense_info, paged=paged_info, agree=agree,
                 prompts=lens.tolist(), budgets=budgets.tolist())
+
+
+# ---- 10. prefix sharing and mixed steps at full width ----------------------
+MIX_KW = dict(max_batch_slots=8, max_len=1536, decode_chunk=8)
+MIX_BUDGET = 256     # prefill_chunk_budget of the mixed runs
+SYSTEM = 256         # tokens of the shared system prompt (16 pages)
+LONG = 1024          # the long prompt, submitted after LONG_AT steps
+LONG_AT = 3
+REC_LAYER = 5        # the layer whose launches the replays keep
+
+
+def mixed_trace(V: int):
+    """Phase 10's trace, from seed 10: 12 requests open with one 256-token
+    system prompt and go on with distinct tails of 16-200 tokens, two
+    pairs of them with equal page-aligned prompts (tails of 48 and 96
+    tokens); 3 prompts of 32-256 tokens share nothing.  A 1,024-token
+    prompt comes later.  Budgets 16-48.  Returns (trace [(prompt,
+    budget)], the late (prompt, budget), prefix hits and hit tokens that
+    sharing must give)."""
+    rng = np.random.RandomState(10)
+    toks = data.lm_batch(10, 16, LONG, V)
+    system = toks[0, :SYSTEM].tolist()
+    tails = rng.randint(16, 201, 8)
+    shared = [system + toks[1 + i, :n].tolist() for i, n in enumerate(tails)]
+    twins = [system + toks[9, :48].tolist(), system + toks[10, :96].tolist()]
+    alone = [toks[11 + i, :n].tolist() for i, n in enumerate(rng.randint(32, 257, 3))]
+    prompts = [shared[0], shared[1], twins[0], shared[2], alone[0], twins[0],
+               shared[3], twins[1], shared[4], alone[1], shared[5], twins[1],
+               shared[6], alone[2], shared[7]]
+    budgets = rng.randint(16, 49, len(prompts) + 1)
+    trace = [(p, int(b)) for p, b in zip(prompts, budgets)]
+    # every system-prompt request but the first maps the 16 system pages;
+    # a twin's second copy maps its whole prompt and re-runs the last token
+    hits = 11
+    hit_tokens = 9 * SYSTEM + sum(len(t) - 1 for t in twins)
+    return trace, (toks[14, :LONG].tolist(), int(budgets[-1])), hits, hit_tokens
+
+
+def serve_steps(sched, trace, late):
+    """Submit `trace`, step with `audit()` after every step, submit `late`
+    after LONG_AT steps.  Returns (streams in trace order + late, per-step
+    (wall s, rids emitting, whether the late request was prefilling))."""
+    rids = [sched.submit(p, b) for p, b in trace]
+    res, steps = {}, []
+
+    def long_filling():
+        return len(rids) > len(trace) and any(
+            r is not None and r.rid == rids[-1] and sched.prefilling[b]
+            for b, r in enumerate(sched.slot_req))
+
+    while sched.queue or any(r is not None for r in sched.slot_req) or len(rids) == len(trace):
+        if len(steps) == LONG_AT:
+            rids.append(sched.submit(*late))
+        before = long_filling()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        em = sched.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps.append((wall, set(em), before or long_filling()))
+        for rid, toks in em.items():
+            res.setdefault(rid, []).extend(toks)
+        sched.audit()
+    return [res.get(r, []) for r in rids], steps, rids[-1]
+
+
+@contextlib.contextmanager
+def armed_recording(ctx, label_of):
+    """Wrap `serve_lib.mixed_step` and `serve_lib.paged_prefill`: the first
+    call for which `label_of(fn name, args)` gives a label records its
+    REC_LAYER launches of both attention wrappers (through `recorded`)."""
+    saved = {n: getattr(serve_lib, n) for n in ("mixed_step", "paged_prefill")}
+
+    def wrap(name):
+        def call(*a, **k):
+            label = None if ctx["done"] else label_of(name, a)
+            if label:
+                ctx.update(label=label, first={}, done=True)
+            try:
+                return saved[name](*a, **k)
+            finally:
+                ctx["label"] = None
+        return call
+
+    for n in saved:
+        setattr(serve_lib, n, wrap(n))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(serve_lib, n, f)
+
+
+def row_probe(model, params, cfg) -> dict:
+    """Whether a row's bits depend on the rows beside it, for the ops that
+    see a served row among other row counts in phase 10's runs: RMSNorm
+    (`layers.norm_apply`, and torch's own mean beside it) over 8 rows
+    against the same rows among 1, 64 and 2048, and the bf16 unembed over
+    1, 3 and 8 rows."""
+    from repro_torch.models import layers as Lm
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.randn(2048, cfg.d_model, generator=gen, device=dev)
+         * torch.rand(2048, 1, generator=gen, device=dev) * 8).to(torch.bfloat16)
+    scale = params["final_norm"]
+    alone = [Lm.norm_apply(scale, x[i:i + 1], cfg.norm) for i in range(8)]
+    norm_eq = all(torch.equal(torch.cat(alone), Lm.norm_apply(scale, x[:n], cfg.norm)[:8])
+                  for n in (8, 64, 2048))
+    xf = x.float() ** 2
+    m8 = xf[:8].mean(-1)
+    mean_rows = [int((torch.cat([xf[i:i + 1].mean(-1) for i in range(8)]) != m8).sum())] + [
+        int((xf[:n].mean(-1)[:8] != m8).sum()) for n in (64, 2048)]
+    head = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    rows = torch.cat([Lm.unembed_apply(head, x[i:i + 1]) for i in range(8)])
+    unembed_eq = all(torch.equal(rows[:n], Lm.unembed_apply(head, x[:n])) for n in (3, 8))
+    out = dict(norm_rows_equal=norm_eq, torch_mean_rows_differing=mean_rows,
+               unembed_rows_equal=unembed_eq)
+    print(f"  row probe: RMSNorm of 8 rows bit-equal alone and among 8 / 64 / 2048 "
+          f"rows: {norm_eq} (torch's own float32 mean of those 8 rows differs from "
+          f"its 8-row value in {mean_rows} rows: alone / among 64 / among 2048); "
+          f"bf16 unembed of a row bit-equal alone and among 3 / 8 rows: "
+          f"{unembed_eq}", flush=True)
+    return out
+
+
+def first_diff(name, a, b):
+    """Print where two runs' streams first part; returns the count of
+    requests whose streams differ."""
+    diffs = [(i, next((j for j, (x, y) in enumerate(zip(s, t)) if x != y),
+                      min(len(s), len(t))), s, t)
+             for i, (s, t) in enumerate(zip(a, b)) if s != t]
+    if diffs:
+        i, j, s, t = diffs[0]
+        print(f"  {name}: {len(diffs)} requests part; first request {i} at "
+              f"token {j}: {s[j:j + 4]} against {t[j:j + 4]}", flush=True)
+    return len(diffs)
+
+
+def mixed_scheduler(model, params, cfg, entries, compare, smi) -> dict:
+    """Phase 10: the trace served six ways, checked and timed."""
+    cfg = dataclasses.replace(cfg, decode_block_k=PAGE)
+    model = build_model(cfg, model.device)
+    V, L = cfg.vocab_size, cfg.num_layers
+    trace, late, hits, hit_tokens = mixed_trace(V)
+    n_tok = sum(b for _, b in trace) + late[1]
+    print(f"mixed scheduler: {len(trace) + 1} requests, prompts "
+          f"{[len(p) for p, _ in trace] + [len(late[0])]} (the last after "
+          f"{LONG_AT} steps), budgets {[b for _, b in trace] + [late[1]]} "
+          f"({n_tok} tokens), {MIX_KW}, pages of {PAGE}, decode_block_k "
+          f"{PAGE}, prefill_chunk_budget {MIX_BUDGET}", flush=True)
+    mixed = dict(mixed_steps=True, prefill_chunk_budget=MIX_BUDGET)
+    share = dict(page_size=PAGE, prefix_sharing=True)
+    runs = {"A": dict(page_size=PAGE), "B": share,
+            "C": dict(share, **mixed), "D": dict(share, mixed_dispatch="paired", **mixed),
+            "E": {}, "F": mixed}
+    what = {"A": "paged", "B": "paged, sharing", "C": "paged, sharing, mixed fused",
+            "D": "paged, sharing, mixed paired", "E": "dense", "F": "dense, mixed fused"}
+
+    def tail_prefill(name, a):
+        offs = a[6] if len(a) > 6 else None
+        return ("tail prefill at offset "
+                f"{int(np.max(offs))} over shared pages (B)"
+                if name == "paged_prefill" and offs is not None
+                and (np.asarray(offs) > 0).any() else None)
+
+    def fused_step(name, a):
+        if name != "mixed_step":
+            return None
+        seq, dec = np.asarray(a[5]), np.asarray(a[6])
+        return ("fused mixed step (C)" if dec.any() and (seq[~dec] > 0).any()
+                else None)
+
+    def chunk_wave(name, a):
+        offs = a[6] if len(a) > 6 else None
+        return ("paired chunk wave (D)" if name == "paged_prefill" and offs is not None
+                and (np.asarray(offs) > 0).any() else None)
+
+    labels = {"B": tail_prefill, "C": fused_step, "D": chunk_wave}
+    forward_launches = []
+
+    def count_forward(fn):
+        def call(*a, **k):
+            before = dict(_build.LAUNCHES)
+            out = fn(*a, **k)
+            forward_launches.append({n: _build.LAUNCHES[n] - before.get(n, 0)
+                                     for n in ("pim_attention", "pim_decode")})
+            return out
+        return call
+
+    out, streams, kept = {}, {}, {}
+    for key, extra in runs.items():
+        sched = serve_lib.Scheduler(model, params, **MIX_KW, **extra)
+        ctx = {"label": None, "first": {}, "done": False}
+
+        def pick(name, i, ctx=ctx):
+            if ctx["label"] is None:
+                return None
+            first = ctx["first"].setdefault(name, i)
+            return (f"{ctx['label']}, layer {REC_LAYER} ({name})"
+                    if i - first == REC_LAYER else None)
+
+        saved_step = serve_lib.mixed_step
+        if key == "C":
+            serve_lib.mixed_step = count_forward(saved_step)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        try:
+            with recorded(pick) as rec, plain_calls() as n_plain, \
+                    armed_recording(ctx, labels.get(key, lambda n, a: None)):
+                t0 = time.perf_counter()
+                got, steps, long_rid = serve_steps(sched, trace, late)
+                wall = time.perf_counter() - t0
+        finally:
+            serve_lib.mixed_step = saved_step
+        launches = dict(_build.LAUNCHES)
+        kept.update(rec)
+        streams[key] = got
+        st = sched.stats
+        info = dict(wall_s=wall, tokens_per_s=n_tok / wall, steps=st["steps"],
+                    model_steps=st["model_steps"], launches=launches,
+                    plain_calls=dict(n_plain),
+                    prefill_tokens_computed=sched.prefill_tokens_computed,
+                    prefix_hits=sched.prefix_hits,
+                    prefix_hit_tokens=sched.prefix_hit_tokens,
+                    cow_copies=sched.n_cow_copies,
+                    step_walls_ms=[round(w * 1e3, 3) for w, _, _ in steps])
+        first = next(i for i, (_, em, _) in enumerate(steps) if long_rid in em)
+        info["long_first_token_step_ms"] = steps[first][0] * 1e3
+        filling = [w for w, _, f in steps if f]
+        info["long_chunked_max_step_ms"] = max(filling) * 1e3 if filling else None
+        if sched.paged:
+            info.update(peak_pages_in_use=sched.peak_pages_in_use)
+            if sched.prefix_sharing:
+                info["directory_pages"] = sched.directory_pages()
+                sched.clear_prefix_cache()
+            info["pages_back"] = (len(sched.free_pages) == sched.num_pages - 1
+                                  and int(sched.page_ref.sum()) == 0)
+        out[key] = info
+        print(f"  {key} ({what[key]}): {wall:.2f} s, {n_tok / wall:.1f} tokens/s, "
+              f"{st['steps']} steps, {st['model_steps']} forwards, prefill tokens "
+              f"{sched.prefill_tokens_computed}, hits {sched.prefix_hits} "
+              f"({sched.prefix_hit_tokens} tokens), copies {sched.n_cow_copies}"
+              + (f", peak pages {sched.peak_pages_in_use}" if sched.paged else "")
+              + f", launches {launches} [{smi}]", flush=True)
+    print(f"  the step giving the {LONG}-token prompt its first token: B "
+          f"{out['B']['long_first_token_step_ms']:.1f} ms (its admission "
+          f"prefill); longest step while it is chunked in C: "
+          f"{out['C']['long_chunked_max_step_ms']:.1f} ms [{smi}]", flush=True)
+
+    parted = {f"{a}-{b}": first_diff(f"{a} vs {b}", streams[a], streams[b])
+              for a, b in (("A", "B"), ("A", "C"), ("A", "D"), ("E", "F"))}
+    probe = row_probe(model, params, cfg)
+    check(probe["norm_rows_equal"], "RMSNorm gives a row the same bits among 1, 8, 64 "
+          "and 2048 rows")
+    replay_served("mixed-step", kept, compare)
+    for label in ("tail prefill", "fused mixed step", "paired chunk wave"):
+        check(any(k.startswith(label) for k in kept), f"replayed a served {label}")
+
+    for key in runs:
+        check(not out[key]["plain_calls"], f"{key}: no plain-version call "
+              f"({out[key]['plain_calls']})")
+    check(not any(parted.values()), f"streams equal: A == B == C == D and E == F "
+          f"(requests parting: {parted})")
+    st = [len(s) == b for s, b in zip(streams["A"], [b for _, b in trace] + [late[1]])]
+    check(all(st) and all(0 <= t < V for s in streams["A"] for t in s),
+          "every request got its budget of in-vocabulary tokens")
+    for key in "BCD":
+        check(out[key]["prefix_hits"] == hits
+              and out[key]["prefix_hit_tokens"] == hit_tokens,
+              f"{key}: prefix hits {out[key]['prefix_hits']} == {hits}, hit "
+              f"tokens {out[key]['prefix_hit_tokens']} == {hit_tokens}")
+        check(out[key]["prefill_tokens_computed"]
+              == out["A"]["prefill_tokens_computed"] - hit_tokens,
+              f"{key}: prefill tokens computed "
+              f"{out[key]['prefill_tokens_computed']} == A's "
+              f"{out['A']['prefill_tokens_computed']} - {hit_tokens}")
+        check(out[key]["cow_copies"] >= 2, f"{key}: {out[key]['cow_copies']} "
+              "copy-on-write copies >= 2")
+    check(out["B"]["peak_pages_in_use"] < out["A"]["peak_pages_in_use"],
+          f"peak pages with sharing {out['B']['peak_pages_in_use']} < without "
+          f"{out['A']['peak_pages_in_use']}")
+    for key in "ABCD":
+        check(out[key]["pages_back"], f"{key}: every page back on the free list"
+              + (" after clear_prefix_cache()" if key != "A" else ""))
+    check(bool(forward_launches) and all(
+        f == {"pim_attention": L, "pim_decode": L} for f in forward_launches),
+        f"C: each of its {len(forward_launches)} fused mixed forwards launched "
+        f"{L} kernel-1 and {L} kernel-2 kernels")
+    for name in ("pim_attention", "pim_decode"):
+        if name in entries:
+            entries[name]["mixed_launches"] = out["C"]["launches"].get(name, 0)
+
+    # one fused mixed step of C (the third: decode rows beside a prefill
+    # chunk) under the profiler
+    def prepared():
+        sched = serve_lib.Scheduler(model, params, **MIX_KW, **runs["C"])
+        for p, b in trace:
+            sched.submit(p, b)
+        for _ in range(2):
+            sched.step()
+        return sched
+
+    def one_step(sched):
+        sched.step()
+
+    _, wall = unprofiled_wall(prepared, one_step, contextlib.nullcontext)
+    out["profile"] = profiled_report(prepared, one_step, "third step of C (one "
+                                     "fused mixed forward)", wall)
+    k = out["profile"]["kernels"]
+    print(f"  fused mixed step: kernel 1 {k['pim_attention_kernel']['us_per_launch']:.2f} "
+          f"us, kernel 2 {k['pim_decode_kernel']['us_per_launch']:.2f} us per launch "
+          f"[{smi}]", flush=True)
+    check(k["pim_attention_kernel"]["count"] == L and k["pim_decode_kernel"]["count"] == L,
+          "the profiled step was one fused mixed forward")
+    for name, kern in (("pim_attention", "pim_attention_kernel"),
+                       ("pim_decode", "pim_decode_kernel")):
+        if name in entries:
+            entries[name].setdefault("served_us", {})["mixed step"] = k[kern]["us_per_launch"]
+    out["row_probe"] = probe
+    out["parted"] = parted
+    return out
 
 
 # ---- 8. kernels 3 and 4 against their plain versions ------------------------
@@ -1549,7 +1888,7 @@ def main(argv=None) -> int:
         adc_kernels(dev, cfg, gen, entries)
     if 4 in phases:
         small_model(dev, 5 in phases)
-    if phases & {6, 7, 9}:
+    if phases & {6, 7, 9, 10}:
         serve_phases(dev, cfg, phases, entries, compare, results)
     stamp(f"phases {sorted(phases)} done: every check passed")
     for name in max_err:
@@ -1564,7 +1903,8 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("wrapper_ms", "cold_ms", "served_us", "served_bound_us", "paged_ms", "paged_bound_ms",
-             "paged_launches", "dense_sched_launches", "ideal_ms", "int_mm_ms")
+             "paged_launches", "dense_sched_launches", "mixed_launches", "ideal_ms",
+             "int_mm_ms")
     print(json.dumps({"kernels": [{**{k: e.get(k) for k in keys},
                                    **{k: e[k] for k in extra if k in e}}
                                   for e in entries.values()]}))
@@ -1607,7 +1947,8 @@ def small_model(dev, scheduler: bool) -> None:
 
 
 def serve_phases(dev, cfg, phases, entries, compare, results) -> None:
-    """Phases 6, 7 and 9 at full width and depth, on the phase 6 weights."""
+    """Phases 6, 7, 9 and 10 at full width and depth, on the phase 6
+    weights."""
     stamp("phase 6: model and weights")
     Dh = cfg.resolved_head_dim
     cfg = dataclasses.replace(cfg, attn_impl="kernel")
@@ -1628,6 +1969,10 @@ def serve_phases(dev, cfg, phases, entries, compare, results) -> None:
     if 9 in phases:
         stamp("phase 9")
         results["paper_fidelity"] = paper_fidelity(cfg, params, entries)
+    if 10 in phases:
+        stamp("phase 10")
+        results["mixed"] = mixed_scheduler(model, params, cfg, entries, compare,
+                                           results["card"])
 
 
 def serve_classic(model, params, cfg, entries, results) -> None:

@@ -3,7 +3,8 @@ the behavioral (paper-faithful) PIM attention and the fp baseline.
 
 Counterpart of the JAX package's `core/attention.py`: the dense cache
 (classic scalar fill or ragged per-slot lengths) and the paged pool with
-its trash page.  Ring caches belong to a later slice of the port.
+its trash page and page copies.  Ring caches belong to a later slice of
+the port.
 
 Score: int8 QK^T, requantized to 8-bit score codes.  Softmax: LUT exp and a
 two-phase normalization, in the shifted mode through the LUT softmax kernel
@@ -189,6 +190,22 @@ def paged_gather(pool: PagedKVCache, page_table: torch.Tensor,
                    dense(pool.k_scale), dense(pool.v_scale),
                    torch.as_tensor(kv_len, dtype=torch.int32,
                                    device=page_table.device).expand(B))
+
+
+def copy_pages(pool: PagedKVCache, src: torch.Tensor, dst: torch.Tensor,
+               page_axis: int = 0) -> PagedKVCache:
+    """Copy whole pages inside the pool, in place: page `dst[i]` becomes a
+    bit-exact copy of page `src[i]` in K, V and both scale planes, at any
+    KV precision.  The device half of copy-on-write: the scheduler copies a
+    shared page into a fresh one before pointing a slot's table entry at
+    it, so the shared original is never written.  `page_axis` is 1 for
+    layer-stacked pools.  Every source page is read before any destination
+    is written (one gather, then one indexed copy per plane)."""
+    src = torch.as_tensor(src, device=pool.k_q.device).long()
+    dst = torch.as_tensor(dst, device=pool.k_q.device).long()
+    for plane in (pool.k_q, pool.v_q, pool.k_scale, pool.v_scale):
+        plane.index_copy_(page_axis, dst, plane.index_select(page_axis, src))
+    return pool
 
 
 def quantize_kv(k: torch.Tensor, v: torch.Tensor, cfg: PIMConfig,

@@ -6,10 +6,17 @@ KV cache, greedy by default.
 
 `--continuous-batching` serves the batch through the slot scheduler
 (`--max-batch-slots`, retirement at `--eos-id`); `--page-size N` puts the
-slots on the paged KV pool of `--num-pages` pages (greedy only):
+slots on the paged KV pool of `--num-pages` pages (greedy only), where
+`--prefix-cache` shares prompt prefixes between requests (refcounted pages
+and copy-on-write, the directory capped at `--prefix-cache-pages`);
+`--mixed-steps` prefills prompts in chunks of at most
+`--prefill-chunk-budget` tokens a step beside the decoding slots, in one
+forward (`--mixed-dispatch fused`) or as a chunk wave paired with the
+decode chunk (`paired`, paged only):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
-      --attn-impl kernel --continuous-batching --page-size 16 --batch 8
+      --attn-impl kernel --continuous-batching --page-size 16 --batch 8 \
+      --prefix-cache --mixed-steps --prefill-chunk-budget 256
 
 Runs on the GPU; `--device cpu` runs the plain PyTorch versions instead
 (use `--smoke` there).  Weights are random, drawn from `--seed`.
@@ -69,11 +76,42 @@ def parse_args(argv=None):
     ap.add_argument("--num-pages", type=int, default=0,
                     help="KV pool pages incl. the reserved trash page "
                          "(0 = match the dense slot footprint)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="refcounted prefix sharing + copy-on-write pages: "
+                         "requests with a common page-aligned prompt prefix "
+                         "map the same pages and skip its prefill (requires "
+                         "--page-size)")
+    ap.add_argument("--prefix-cache-pages", type=int, default=0,
+                    help="cap on the distinct pages the prefix directory "
+                         "may hold (LRU-evicted; 0 = pool pressure only)")
+    ap.add_argument("--mixed-steps", action="store_true",
+                    help="chunked prefill: each scheduler step feeds prompt "
+                         "chunks beside the decode tokens, so admission "
+                         "never stalls decoding slots (requires "
+                         "--continuous-batching; identical streams)")
+    ap.add_argument("--prefill-chunk-budget", type=int, default=0,
+                    help="prompt tokens one mixed step may prefill across "
+                         "all prefilling slots (0 = 32)")
+    ap.add_argument("--mixed-dispatch", default="fused",
+                    choices=["fused", "paired"],
+                    help="one (B, L) forward per mixed step ('fused') or a "
+                         "chunk wave of the prefilling rows paired with the "
+                         "decode chunk ('paired'; requires --page-size)")
     args = ap.parse_args(argv)
     if args.page_size and not args.continuous_batching:
         ap.error("--page-size requires --continuous-batching")
     if args.num_pages and not args.page_size:
         ap.error("--num-pages requires --page-size")
+    if args.prefix_cache and not args.page_size:
+        ap.error("--prefix-cache requires --page-size")
+    if args.prefix_cache_pages and not args.prefix_cache:
+        ap.error("--prefix-cache-pages requires --prefix-cache")
+    if args.mixed_steps and not args.continuous_batching:
+        ap.error("--mixed-steps requires --continuous-batching")
+    if args.prefill_chunk_budget and not args.mixed_steps:
+        ap.error("--prefill-chunk-budget requires --mixed-steps")
+    if args.mixed_dispatch == "paired" and not args.page_size:
+        ap.error("--mixed-dispatch paired requires --page-size")
     return args
 
 
@@ -102,14 +140,22 @@ def main(argv=None):
         generator=gen, continuous_batching=args.continuous_batching,
         eos_id=None if args.eos_id < 0 else args.eos_id,
         max_batch_slots=args.max_batch_slots or None,
-        page_size=args.page_size, num_pages=args.num_pages)
+        page_size=args.page_size, num_pages=args.num_pages,
+        prefix_sharing=args.prefix_cache,
+        prefix_cache_pages=args.prefix_cache_pages,
+        mixed_steps=args.mixed_steps,
+        prefill_chunk_budget=args.prefill_chunk_budget,
+        mixed_dispatch=args.mixed_dispatch)
     out = out.cpu()
     dt = time.perf_counter() - t0
     toks = args.batch * args.new_tokens
     mode = "classic"
     if args.continuous_batching:
         mode = (f"scheduler({args.max_batch_slots or args.batch} slots"
-                + (f", paged ps={args.page_size})" if args.page_size else ")"))
+                + (f", paged ps={args.page_size}" if args.page_size else "")
+                + (", prefix cache" if args.prefix_cache else "")
+                + (f", mixed {args.mixed_dispatch}" if args.mixed_steps
+                   else "") + ")")
     print(f"[serve] arch={cfg.name} attn={cfg.attn_impl} device={model.device} "
           f"{mode} kv{cfg.kv_bits} temp={args.temperature} top_k={args.top_k} "
           f"top_p={args.top_p} generated {tuple(out.shape)} in {dt:.2f}s "

@@ -4,10 +4,13 @@ Counterpart of the attention half of the JAX package's `models/blocks.py`
 on three storages: the classic dense cache (scalar offset), ragged dense
 slots and the paged pool (per-row offsets).  Serve-path attention runs the
 paper's PIM pipeline, either the behavioral two-pass
-(`cfg.attn_impl == "behavioral"`) or the fused kernels (`"kernel"`).
-Mixed prefill+decode steps and speculative verify rows are later slices.
+(`cfg.attn_impl == "behavioral"`) or the fused kernels (`"kernel"`), and
+serves mixed prefill+decode steps.  Speculative verify rows are a later
+slice.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -32,7 +35,8 @@ def _qkv(params, x: torch.Tensor, cfg: ModelConfig, pos_ids: torch.Tensor):
 
 
 def _serve_attend(q, cache: A.KVCache, offset, cfg: ModelConfig,
-                  window: int, causal: bool, q_len=None):
+                  window: int, causal: bool, q_len=None,
+                  force_decode_kernel: bool = False):
     out_dtype = getattr(torch, cfg.compute_dtype)
     if cfg.attn_impl == "kernel":
         # Sq == 1 steps go to the split-K decode kernel unless
@@ -40,7 +44,8 @@ def _serve_attend(q, cache: A.KVCache, offset, cfg: ModelConfig,
         return ops.pim_flash_attention(
             q, cache, offset, cfg.pim, cfg.lut, causal=causal, window=window,
             out_dtype=out_dtype, decode_kernel=cfg.decode_kernel,
-            decode_block_k=cfg.decode_block_k, q_len=q_len)
+            decode_block_k=cfg.decode_block_k, q_len=q_len,
+            force_decode_kernel=force_decode_kernel)
     if cfg.attn_impl != "behavioral":
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     # per-row arithmetic: rows past a caller's q_len are garbage it ignores
@@ -49,7 +54,8 @@ def _serve_attend(q, cache: A.KVCache, offset, cfg: ModelConfig,
 
 
 def _serve_attend_paged(q, pool: A.PagedKVCache, pages, kv_len, offset,
-                        cfg: ModelConfig, causal: bool, q_len=None):
+                        cfg: ModelConfig, causal: bool, q_len=None,
+                        force_decode_kernel: bool = False):
     """Attend over the paged pool: the kernel path walks the page table in
     both kernels; the behavioral path runs the two-pass pipeline over the
     gathered slot-dense view (the bit-exact paged reference)."""
@@ -57,12 +63,46 @@ def _serve_attend_paged(q, pool: A.PagedKVCache, pages, kv_len, offset,
     if cfg.attn_impl == "kernel":
         return ops.pim_paged_flash_attention(
             q, pool, pages, kv_len, offset, cfg.pim, cfg.lut, causal=causal,
-            out_dtype=out_dtype, decode_kernel=cfg.decode_kernel, q_len=q_len)
+            out_dtype=out_dtype, decode_kernel=cfg.decode_kernel, q_len=q_len,
+            force_decode_kernel=force_decode_kernel)
     if cfg.attn_impl != "behavioral":
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     return A.pim_attention(q, A.paged_gather(pool, pages, kv_len), cfg.pim,
                            cfg.lut, q_offset=offset, causal=causal,
                            out_dtype=out_dtype)
+
+
+def _mixed_attend(q, cache, offset, kv_len, seq_lens, decode_rows,
+                  cfg: ModelConfig, causal: bool, window: int = 0,
+                  pages=None):
+    """Mixed prefill+decode attention on the kernel path: two launches
+    whose early-outs complement each other.  The prefill kernel serves the
+    chunk rows (decode rows masked to q_len 0: no KV block); the decode
+    dispatch serves the decode rows exactly as a separate Sq == 1 step
+    would (the split-K kernel, or the prefill kernel when cfg.decode_kernel
+    is off), on the step's first query column, with chunk rows masked to
+    kv_len 0.  Each row so gets the bits of its own unmixed dispatch.  The
+    dense decode launch reads a copy of the cache record whose `length` is
+    the decode rows' (the planes are shared, the record is not)."""
+    seq_lens = seq_lens.int()
+    ql_prefill = torch.where(decode_rows, 0, seq_lens)
+    ql_decode = torch.where(decode_rows, torch.clamp(seq_lens, max=1), 0)
+    kv_decode = torch.where(decode_rows, kv_len, 0).int()
+    if pages is not None:
+        o = _serve_attend_paged(q, cache, pages, kv_len, offset, cfg, causal,
+                                q_len=ql_prefill)
+        od = _serve_attend_paged(q[:, :1], cache, pages, kv_decode, offset,
+                                 cfg, causal, q_len=ql_decode,
+                                 force_decode_kernel=True)
+    else:
+        o = _serve_attend(q, cache, offset, cfg, window, causal,
+                          q_len=ql_prefill)
+        od = _serve_attend(q[:, :1], dataclasses.replace(cache,
+                                                         length=kv_decode),
+                           offset, cfg, window, causal, q_len=ql_decode,
+                           force_decode_kernel=True)
+    head = torch.where(decode_rows[:, None, None, None], od, o[:, :1])
+    return torch.cat([head, o[:, 1:]], dim=1)
 
 
 def attn_block_fwd_serve(params, x: torch.Tensor, cache, offset,
@@ -79,13 +119,20 @@ def attn_block_fwd_serve(params, x: torch.Tensor, cache, offset,
     positions and `seq_lens` the (B,) count of valid tokens of each row (0
     for an idle slot); each row masks against its own length.  Paged:
     `cache` is a `PagedKVCache` and `pages` the (B, max_pages) int32 page
-    table; row b's valid length is offset_b + seq_lens_b (or + S).
-    `decode_rows` (mixed steps) and `verify_len` > 1 (speculation) belong
-    to later slices of the port and raise."""
-    if decode_rows is not None or verify_len != 1:
+    table; row b's valid length is offset_b + seq_lens_b (or + S).  A
+    prefix-shared tail prefill is the paged case at offset > 0: the rows
+    write only their tail and attend over [0, offset + seq_lens) through
+    the table (the scheduler never lets a write land in a shared page).
+    Mixed (ragged or paged): `decode_rows` is a (B,) bool of the rows
+    carrying one decode token; the kernel path routes the two classes
+    through `_mixed_attend`, while the behavioral path's per-row
+    arithmetic needs no routing.  `verify_len` > 1 (speculation) belongs
+    to a later slice of the port and raises."""
+    if verify_len != 1:
         raise NotImplementedError(
-            "mixed prefill+decode steps and speculative verify rows are not "
-            "ported yet (ROADMAP.md §1 item 5 (d), (f))")
+            "speculative verify rows are not ported yet (ROADMAP.md §1 item "
+            "5 (f))")
+    mixed = decode_rows is not None and cfg.attn_impl == "kernel"
     B, S, _ = x.shape
     ragged = isinstance(offset, torch.Tensor)
     h = L.norm_apply(params["norm1"], x, cfg.norm)
@@ -100,12 +147,20 @@ def attn_block_fwd_serve(params, x: torch.Tensor, cache, offset,
             raise NotImplementedError("paged serving has no sliding window")
         A.paged_cache_write(cache, k, v, offset, cfg.pim, pages, seq_lens)
         kv_len = offset + (S if seq_lens is None else seq_lens)
-        o = _serve_attend_paged(q, cache, pages, kv_len, offset, cfg, causal,
-                                q_len=seq_lens)
+        if mixed:
+            o = _mixed_attend(q, cache, offset, kv_len, seq_lens, decode_rows,
+                              cfg, causal, pages=pages)
+        else:
+            o = _serve_attend_paged(q, cache, pages, kv_len, offset, cfg,
+                                    causal, q_len=seq_lens)
     elif ragged:
         A.cache_write_ragged(cache, k, v, offset, cfg.pim, seq_lens)
-        o = _serve_attend(q, cache, offset, cfg, window, causal,
-                          q_len=seq_lens)
+        if mixed:
+            o = _mixed_attend(q, cache, offset, cache.length, seq_lens,
+                              decode_rows, cfg, causal, window=window)
+        else:
+            o = _serve_attend(q, cache, offset, cfg, window, causal,
+                              q_len=seq_lens)
     else:
         A.cache_write(cache, k, v, offset, cfg.pim)
         o = _serve_attend(q, cache, offset, cfg, window, causal)

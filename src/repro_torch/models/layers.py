@@ -9,16 +9,42 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import pim
 
 
+def pairwise_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim (keepdim) in a fixed order: the row is halved
+    by elementwise adds until one column is left (an odd column joins
+    column 0).  Elementwise ops round each element alone, so a row's sum
+    never depends on the other rows of `x`."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        head = x[..., :h] + x[..., h:2 * h]
+        x = head if x.shape[-1] % 2 == 0 else torch.cat(
+            [head[..., :1] + x[..., 2 * h:], head[..., 1:]], dim=-1)
+    return x
+
+
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last dim (keepdim), whose bits do not depend on the
+    other rows of `x`.  On the card torch's reduction splits a row
+    differently with the number of rows, so a row normalized in a decode
+    step (8 rows) and in a mixed step (thousands) could round differently
+    and a served stream would depend on what it is batched with; there the
+    row is summed by `pairwise_row_sum`.  The CPU keeps torch's mean, which
+    equals the reference's eager one bit for bit."""
+    if not x.is_cuda:
+        return x.mean(dim=-1, keepdim=True)
+    return pairwise_row_sum(x) / x.shape[-1]
+
+
 def norm_apply(params, x: torch.Tensor, kind: str,
                eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     if kind == "layernorm":
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+        mu = row_mean(xf)
+        var = row_mean((xf - mu) ** 2)
         y = (xf - mu) * torch.rsqrt(var + eps)
         y = y * params["scale"] + params["bias"]
     else:  # rmsnorm
-        ms = (xf * xf).mean(dim=-1, keepdim=True)
+        ms = row_mean(xf * xf)
         y = xf * torch.rsqrt(ms + eps) * params["scale"]
     return y.to(x.dtype)
 

@@ -146,6 +146,17 @@ def cache_scatter(big, sub, slots: torch.Tensor):
     return big
 
 
+def cache_copy_pages(cache, src, dst):
+    """Copy pages `src[i]` -> `dst[i]` in every layer's paged pool, in
+    place: a slot's table row names the same page ids in every layer, so
+    one copy-on-write decision applies to the whole stack.  Pools under
+    "blocks" carry the layer axis (page axis 1), "tail" pools do not."""
+    for key, axis in (("blocks", 1), ("tail", 0)):
+        for pool in cache[key]:
+            A.copy_pages(pool, src, dst, page_axis=axis)
+    return cache
+
+
 def _index(tree, r: int):
     if isinstance(tree, dict):
         return {k: _index(v, r) for k, v in tree.items()}
@@ -153,9 +164,11 @@ def _index(tree, r: int):
 
 
 def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
-                  cfg: ModelConfig, seq_lens=None, pages=None):
-    """One serve step: a prefill chunk or a single-token decode.  Writes the
-    step's K/V into `cache` in place and returns (logits (B, V), cache).
+                  cfg: ModelConfig, seq_lens=None, pages=None,
+                  decode_rows=None):
+    """One serve step: a prefill chunk, a single-token decode or a mixed
+    batch of both.  Writes the step's K/V into `cache` in place and returns
+    (logits (B, V), cache).
 
     Classic: `offset` is an int and logits come from the last position.
     Ragged slots (`offset` a (B,) int32 tensor on the tokens' device): row
@@ -164,14 +177,19 @@ def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
     last valid position (a row with seq_lens 0 reads position 0: garbage
     the caller masks).  Paged: `cache` holds `PagedKVCache` pools and
     `pages` is the (B, max_pages) page table every layer writes and attends
-    through.  Every layer reuses the step's offsets, lengths and table as
-    they are: callers bring them to the device once per step."""
+    through.  Mixed: `decode_rows` is a (B,) bool marking the rows that
+    carry one decode token (the rest carry prefill chunks, or nothing);
+    on the kernel path every layer sends each class through the kernel its
+    separate dispatch would use (`blocks._mixed_attend`).  Every layer
+    reuses the step's offsets, lengths and table as they are: callers
+    bring them to the device once per step."""
     pat, R, tail = pattern_layout(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     ragged = isinstance(offset, torch.Tensor)
     x = L.embed_apply(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
-    kw = dict(causal=cfg.causal, seq_lens=seq_lens, pages=pages)
+    kw = dict(causal=cfg.causal, seq_lens=seq_lens, pages=pages,
+              decode_rows=decode_rows)
     for r in range(R):
         for j in range(len(pat)):
             x = blocks.attn_block_fwd_serve(

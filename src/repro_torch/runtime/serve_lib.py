@@ -15,16 +15,19 @@ Counterpart of the JAX package's `runtime/serve_lib.py`:
     share a paged pool: page-granular admission, lazy page allocation at
     decode boundaries, stall-or-evict when the pool runs dry, and pages
     freed at retirement.  `generate(..., continuous_batching=True)` wraps
-    one Scheduler run.
+    one Scheduler run.  On the paged pool the Scheduler can share prompt
+    prefixes between requests (refcounted pages, copy-on-write), and on
+    either storage it can prefill prompts in chunks inside mixed
+    prefill+decode steps.
 
 The Scheduler's host state is numpy, as in the reference.  Each forward
 gets its host inputs (tokens, offsets, lengths, page table) in one
 asynchronous copy, a decode chunk keeps its evolving lengths on the device,
-and the host reads the device once per prefill wave and once per chunk.
+and the host reads the device once per prefill wave, mixed step and chunk.
 The Scheduler decodes greedily: sampled streams need the reference's
 per-(request, token index) threefry keys, not ported yet.  Its other
-features (prefix sharing, mixed steps, spill, speculation, snapshots, ...)
-raise NotImplementedError naming their ROADMAP.md item.
+features (spill, speculation, snapshots, ...) raise NotImplementedError
+naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -111,9 +114,6 @@ def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator],
 # Scheduler options of the reference that later slices port: the value
 # each takes when it is off, and its ROADMAP.md §1 item.
 _NOT_PORTED = {
-    "prefix_sharing": (False, "5 (c)"), "prefix_cache_pages": (0, "5 (c)"),
-    "mixed_steps": (False, "5 (d)"), "prefill_chunk_budget": (0, "5 (d)"),
-    "mixed_dispatch": ("fused", "5 (d)"),
     "victim_pool_pages": (0, "5 (e)"), "max_queue": (0, "5 (e)"),
     "deadline_ms": (None, "5 (e)"), "ttl_steps": (None, "5 (e)"),
     "fault_plan": (None, "5 (e)"), "audit_every_step": (None, "5 (e)"),
@@ -124,10 +124,6 @@ _NOT_PORTED = {
     "snapshot_every": (0, "5 (h)"), "snapshot_dir": (None, "5 (h)"),
     "restore_from": (None, "5 (h)"), "rng": (None, "4"),
 }
-
-# smallest admission prefill width; waves pad to the next power-of-two
-# multiple of it (capped at the cache length)
-PREFILL_BUCKET = 16
 
 
 def _refuse_unported(options: Dict[str, Any]) -> None:
@@ -197,16 +193,50 @@ def ragged_prefill(model: Model, params, toks: np.ndarray, lens: np.ndarray,
 
 
 def paged_prefill(model: Model, params, toks: np.ndarray, lens: np.ndarray,
-                  pool, pages: np.ndarray):
+                  pool, pages: np.ndarray, offs: Optional[np.ndarray] = None):
     """Admission prefill into the paged pool: the prompts write straight
     into their slots' pages (the (n, max_pages) rows of the page table), no
-    sub-batch cache and no copy.  Returns the host (first tokens, finite
-    rows)."""
+    sub-batch cache and no copy.  `offs` is each row's absolute position of
+    its first token (default 0): after a prefix hit a row's leading table
+    entries already hold the shared prefix, and only its tail runs here,
+    attending over the prefix through the table.  A chunk wave of mixed
+    steps is the same call at the chunks' starts.  Returns the host (first
+    tokens, finite rows)."""
     n = toks.shape[0]
+    offs = np.zeros(n) if offs is None else offs
     toks_d, lens_d, offs_d, pages_d = to_device(
-        (toks, lens, np.zeros(n), pages), model.device)
+        (toks, lens, offs, pages), model.device)
     logits, _ = model.forward_serve(params, {"tokens": toks_d}, pool, offs_d,
                                     seq_lens=lens_d, pages=pages_d)
+    return _first_tokens(logits)
+
+
+def page_copy(model: Model, cache, pairs: Sequence[Tuple[int, int]]):
+    """Copy-on-write device step: page src -> dst for every (src, dst) of
+    `pairs`, in every layer's pool, in place (stream-ordered before the
+    next forward, which reads the copies)."""
+    src, dst = to_device(([s for s, _ in pairs], [d for _, d in pairs]),
+                         model.device)
+    return T.cache_copy_pages(cache, src, dst)
+
+
+def mixed_step(model: Model, params, toks: np.ndarray, cache,
+               offs: np.ndarray, seq_lens: np.ndarray,
+               decode_rows: np.ndarray, pages: Optional[np.ndarray] = None):
+    """One mixed scheduler forward over a (B, L) rectangle: row b carries
+    one decode token (`decode_rows[b]`, seq_lens 1 at its fill), a prefill
+    chunk (seq_lens[b] prompt tokens at offset offs[b]) or nothing
+    (seq_lens 0: no kernel work).  Attention sends each class through its
+    separate dispatch's kernel (`blocks._mixed_attend`).  Returns the host
+    (greedy token of every row at its last valid position, finite rows);
+    the caller keeps the decode rows' tokens and those of chunks that
+    complete a prompt."""
+    arrays = (toks, offs, seq_lens, decode_rows) + (
+        () if pages is None else (pages,))
+    toks_d, offs_d, seq_d, dec_d, *pt = to_device(arrays, model.device)
+    logits, _ = model.forward_serve(
+        params, {"tokens": toks_d}, cache, offs_d, seq_lens=seq_d,
+        pages=pt[0] if pt else None, decode_rows=dec_d.bool())
     return _first_tokens(logits)
 
 
@@ -261,6 +291,31 @@ def ragged_decode(model: Model, params, cache, tok, lengths, active,
 # ---------------------------------------------------------------------------
 # the scheduler
 # ---------------------------------------------------------------------------
+def plan_prefill_chunk(start: int, prompt_len: int, budget: int,
+                       page_size: int = 0) -> int:
+    """The end of the next prefill chunk of a prompt at progress `start`:
+    at most `budget` tokens, never past `prompt_len`, and in paged mode cut
+    back to a page boundary when the chunk does not finish the prompt and a
+    boundary past `start` is in reach.  Always advances; the last chunk
+    ends at `prompt_len`, so chunked admission computes every prompt token
+    once."""
+    if not 0 <= start < prompt_len:
+        raise ValueError(f"start {start} outside [0, {prompt_len})")
+    if budget < 1:
+        raise ValueError(f"prefill chunk budget must be >= 1, got {budget}")
+    end = min(prompt_len, start + budget)
+    if page_size and end < prompt_len:
+        aligned = (end // page_size) * page_size
+        if aligned > start:
+            end = aligned
+    return end
+
+
+DEFER = object()
+"""Sentinel: admission must wait for a prefill in flight to publish its
+prefix-directory entries (distinct from None, the pool is full)."""
+
+
 class Request:
     """One generation request tracked by the Scheduler.  `status` is
     "queued" -> "done" | "poisoned"."""
@@ -287,7 +342,8 @@ class Scheduler:
          prefill per admission wave (FCFS: the queue head waits rather than
          being skipped);
       2. runs one `decode_chunk`-step decode over all slots (idle slots cost
-         no kernel compute);
+         no kernel compute), or one mixed step while a prompt is being
+         prefilled in chunks;
       3. retires slots whose sequence hit EOS, its budget or the capacity,
          freeing them for the next wave, and returns the new tokens by
          request id.
@@ -303,14 +359,39 @@ class Scheduler:
     request re-queued as a continuation (prompt + tokens so far), which
     under greedy decoding resumes the same stream.
 
+    **Prefix sharing** (`prefix_sharing=True`, paged only): every page has
+    a refcount (slot table rows + directory entries hold it), and a prefix
+    directory maps page-aligned token prefixes, and whole prompts of
+    retired requests, to the pages holding their KV (LRU order).
+    Admission maps a request's leading table entries onto its longest
+    match and prefills only the tail (at least one token, which yields the
+    first token's logits), at a per-row offset.  A write about to land in
+    a page with refcount > 1 first copies it into a fresh page
+    (copy-on-write); a page returns to the pool only when nobody holds it.
+    Entries are LRU-evicted under pool pressure, and down to
+    `prefix_cache_pages` distinct pages when that cap is set.
+
+    **Mixed steps** (`mixed_steps=True`): an admitted request's slot enters
+    a prefilling state, and while any slot is prefilling each step feeds
+    the prefilling slots the next `plan_prefill_chunk` chunks of their
+    prompts (`prefill_chunk_budget` tokens a step, FCFS in admission
+    order) beside one decode token of every decoding slot.  `mixed_dispatch`
+    "fused" runs both classes in one (B, L) forward; "paired" (paged only)
+    runs a chunk wave of the prefilling rows, then the regular decode
+    chunk.  A request whose prefix is still being prefilled waits for its
+    registration.  Streams are identical with each option on or off.
+
     Greedy decoding only (see the module docstring); the reference's other
     options raise NotImplementedError."""
 
     def __init__(self, model: Model, params, *, max_batch_slots: int = 8,
                  max_len: int = 2048, eos_id: Optional[int] = None,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-                 decode_chunk: int = 8, page_size: int = 0,
-                 num_pages: int = 0, **not_ported):
+                 decode_chunk: int = 8, prefill_bucket: int = 16,
+                 page_size: int = 0, num_pages: int = 0,
+                 prefix_sharing: bool = False, prefix_cache_pages: int = 0,
+                 mixed_steps: bool = False, prefill_chunk_budget: int = 0,
+                 mixed_dispatch: str = "fused", **not_ported):
         _refuse_unported(not_ported)
         if temperature > 0.0:
             raise NotImplementedError(
@@ -327,6 +408,23 @@ class Scheduler:
         self.max_len = int(max_len)
         self.eos_id = eos_id
         self.decode_chunk = int(decode_chunk)
+        self.prefill_bucket = int(prefill_bucket)
+        self.mixed_steps = bool(mixed_steps)
+        self.prefill_chunk_budget = int(prefill_chunk_budget) or 32
+        if self.mixed_steps and self.prefill_chunk_budget < 1:
+            raise ValueError("prefill_chunk_budget must be >= 1")
+        if mixed_dispatch not in ("fused", "paired"):
+            raise ValueError(f"unknown mixed_dispatch {mixed_dispatch!r}")
+        if mixed_dispatch == "paired" and not int(page_size) > 0:
+            raise ValueError("mixed_dispatch='paired' requires page_size > 0 "
+                             "(only page-table rows can be sub-batched)")
+        self.mixed_dispatch = mixed_dispatch
+        # a prefilling slot holds its pending tokens; `lengths` is its
+        # progress.  _inflight_keys: slot -> the prefix keys it registers
+        # when its prefill completes (admissions wanting one wait)
+        self.prefilling = np.zeros(self.B, bool)
+        self._pend: List[Optional[List[int]]] = [None] * self.B
+        self._inflight_keys: Dict[int, set] = {}
         self.paged = int(page_size) > 0
         if self.paged:
             self.page_size = int(page_size)
@@ -338,6 +436,7 @@ class Scheduler:
                     f"sequence ({self.max_pages} pages + 1 reserved)")
             self.free_pages: List[int] = list(range(1, self.num_pages))
             self.page_table = np.full((self.B, self.max_pages), -1, np.int32)
+            # holders of a page: slot table rows and directory entries
             self.page_ref = np.zeros(self.num_pages, np.int32)
             self.peak_pages_in_use = 0
             self.cache = model.init_cache(
@@ -345,6 +444,21 @@ class Scheduler:
                 num_pages=self.num_pages)
         else:
             self.cache = model.init_cache(self.B, self.max_len, ragged=True)
+        self.prefix_sharing = bool(prefix_sharing)
+        if self.prefix_sharing and not self.paged:
+            raise ValueError("prefix_sharing requires page_size > 0")
+        self.prefix_cache_pages = int(prefix_cache_pages)
+        # serialized token prefix -> (pages, tokens covered), in LRU order
+        self.prefix_dir: "collections.OrderedDict[bytes, Tuple[Tuple[int, ...], int]]" = \
+            collections.OrderedDict()
+        self._dir_ref: Dict[int, int] = {}    # page -> directory holds
+        self._last_keys: list = []            # the candidate's keys
+        self.prefix_hits = 0                  # admissions that mapped pages
+        self.prefix_hit_tokens = 0            # prefill tokens skipped
+        self.prefill_tokens_computed = 0      # prefill tokens run
+        self.n_cow_copies = 0                 # copy-on-write page copies
+        self.prefix_evictions = 0             # directory entries evicted
+        self.n_reclaim_stalls = 0             # reclaims that freed nothing
         self.lengths = np.zeros(self.B, np.int32)      # per-slot kv fill
         self.active = np.zeros(self.B, bool)
         self.remaining = np.zeros(self.B, np.int32)    # token budget left
@@ -353,7 +467,8 @@ class Scheduler:
         self.queue: "collections.deque[Request]" = collections.deque()
         self.requests: Dict[int, Request] = {}
         self._next_rid = 0
-        # admission stamps: the youngest slot is the eviction victim
+        # admission stamps: chunks go FCFS, the youngest slot is the
+        # eviction victim
         self._admit_seq = np.zeros(self.B, np.int64)
         self._admit_counter = 0
         self._step_idx = 0
@@ -389,7 +504,7 @@ class Scheduler:
         return r.rid
 
     def _bucket(self, n: int) -> int:
-        b = PREFILL_BUCKET
+        b = self.prefill_bucket
         while b < n:
             b *= 2
         # never a prefill wider than the cache
@@ -401,12 +516,17 @@ class Scheduler:
 
     def _alloc_slot(self, slot: int, tokens: int) -> bool:
         """Grow `slot`'s page-table row to cover `tokens` tokens (capped at
-        max_len), all or nothing."""
+        max_len), all or nothing; a shortage first reclaims directory
+        entries."""
         need = self._pages_for(min(int(tokens), self.max_len))
         row = self.page_table[slot]
         have = int((row >= 0).sum())
+        if need <= have:
+            return True
         if need - have > len(self.free_pages):
-            return False
+            self._reclaim(need - have)
+            if need - have > len(self.free_pages):
+                return False
         for j in range(have, need):
             p = self.free_pages.pop()
             self.page_ref[p] = 1
@@ -414,21 +534,158 @@ class Scheduler:
         return True
 
     def _free_slot_pages(self, slot: int):
+        """Drop the slot's hold on its pages; a page nobody else holds (no
+        slot, no directory entry) returns to the pool."""
         row = self.page_table[slot]
         for p in row[row >= 0]:
+            p = int(p)
             self.page_ref[p] -= 1
             if self.page_ref[p] == 0:
-                self.free_pages.append(int(p))
+                self.free_pages.append(p)
         row[:] = -1
 
     def pages_in_use(self) -> int:
-        """Allocated (non-free, non-trash) pages right now."""
+        """Allocated (non-free, non-trash) pages right now; a shared page
+        counts once."""
         return (self.num_pages - 1) - len(self.free_pages)
 
     def _note_peak(self):
         if self.paged:
             self.peak_pages_in_use = max(self.peak_pages_in_use,
                                          self.pages_in_use())
+
+    # -- prefix directory (host metadata) -----------------------------------
+    @staticmethod
+    def _prefix_key(tokens: Sequence[int]) -> bytes:
+        return np.asarray(tokens, np.int32).tobytes()
+
+    def directory_pages(self) -> int:
+        """Distinct pages the directory holds."""
+        return len(self._dir_ref)
+
+    def _dir_put(self, key: bytes, pages: Sequence[int], covered: int):
+        if key in self.prefix_dir:
+            self.prefix_dir.move_to_end(key)
+            return
+        for p in pages:
+            self.page_ref[p] += 1
+            self._dir_ref[p] = self._dir_ref.get(p, 0) + 1
+        self.prefix_dir[key] = (tuple(int(p) for p in pages), int(covered))
+        if self.prefix_cache_pages:
+            while (len(self._dir_ref) > self.prefix_cache_pages
+                   and self.prefix_dir):
+                self._dir_evict_one()
+
+    def _dir_evict_one(self, key: Optional[bytes] = None):
+        if key is None:
+            key, (pages, _) = self.prefix_dir.popitem(last=False)   # LRU
+        else:
+            pages, _ = self.prefix_dir.pop(key)
+        for p in pages:
+            self.page_ref[p] -= 1
+            self._dir_ref[p] -= 1
+            if self._dir_ref[p] == 0:
+                del self._dir_ref[p]
+            if self.page_ref[p] == 0:
+                self.free_pages.append(p)
+        self.prefix_evictions += 1
+
+    def _reclaim(self, need: int):
+        """Evict directory entries, LRU first, until `need` pages are free.
+        Only an entry holding a page of which it is the last holder frees
+        anything; when none is left the reclaim stops (a stall) instead of
+        churning the directory."""
+        while len(self.free_pages) < need:
+            victim = None
+            for key, (pages, _) in self.prefix_dir.items():   # LRU order
+                if any(self.page_ref[p] == 1 for p in pages):
+                    victim = key
+                    break
+            if victim is None:
+                if self.prefix_dir:
+                    self.n_reclaim_stalls += 1
+                break
+            self._dir_evict_one(victim)
+
+    def clear_prefix_cache(self):
+        """Drop every directory entry (pages no slot holds return to the
+        pool)."""
+        while self.prefix_dir:
+            self._dir_evict_one()
+
+    def _lookup_prefix(self, prompt: Sequence[int]):
+        """The longest directory match of `prompt`: the exact prompt first
+        (a retired request's entry covers its partial last page too), then
+        page-aligned prefixes, longest first.  Returns (pages, covered) or
+        (None, 0); a match moves to the MRU end."""
+        buf = self._prefix_key(prompt)
+        hit = self.prefix_dir.get(buf)
+        if hit is not None and hit[1] == len(prompt):
+            self.prefix_dir.move_to_end(buf)
+            return hit
+        for k in range(len(prompt) // self.page_size, 0, -1):
+            key = buf[: 4 * k * self.page_size]
+            hit = self.prefix_dir.get(key)
+            if hit is not None and hit[1] == k * self.page_size:
+                self.prefix_dir.move_to_end(key)
+                return hit
+        return None, 0
+
+    def _registration_keys(self, prompt: Sequence[int], exact: bool):
+        """[(key, pages, tokens covered)] that `_register_prefixes` inserts
+        for `prompt`: each page-aligned prefix and, with `exact`, the whole
+        prompt (its partial last page included).  Key k is the first
+        4 * k * page_size bytes of the int32 prompt."""
+        ps = self.page_size
+        buf = self._prefix_key(prompt)
+        keys = [(buf[: 4 * k * ps], k, k * ps)
+                for k in range(1, len(prompt) // ps + 1)]
+        if exact and len(prompt) % ps:
+            keys.append((buf, self._pages_for(len(prompt)), len(prompt)))
+        return keys
+
+    def _register_prefixes(self, slot: int, prompt: Sequence[int],
+                           exact: bool):
+        """Publish `slot`'s prompt KV once no write can land in the covered
+        pages any more: the page-aligned prefixes after the prefill, the
+        whole prompt at retirement."""
+        row = self.page_table[slot]
+        for key, n_pages, covered in self._registration_keys(prompt, exact):
+            self._dir_put(key, [int(p) for p in row[:n_pages]], covered)
+
+    # -- copy-on-write ------------------------------------------------------
+    def _cow_range(self, slot: int, start: int, end: int,
+                   pairs: List[Tuple[int, int]]) -> bool:
+        """Privatize `slot`'s pages in the write range [start, end): a page
+        there with refcount > 1 gets a fresh page ((src, dst) appended to
+        `pairs`) and the table entry moves to it.  False when no fresh page
+        can be found even after a reclaim (entries already moved stay
+        moved; their copies must still run)."""
+        if start >= end:
+            return True
+        row = self.page_table[slot]
+        ps = self.page_size
+        for j in range(start // ps, (end - 1) // ps + 1):
+            p = int(row[j])
+            if p < 0 or self.page_ref[p] <= 1:
+                continue
+            if not self.free_pages:
+                self._reclaim(1)
+                if not self.free_pages:
+                    return False
+            fresh = self.free_pages.pop()
+            self.page_ref[fresh] = 1
+            self.page_ref[p] -= 1        # the shared original never reaches 0
+            row[j] = fresh
+            pairs.append((p, fresh))
+            self.n_cow_copies += 1
+        return True
+
+    def _apply_copies(self, pairs: List[Tuple[int, int]]):
+        """Run the collected copy-on-write copies on the device, before the
+        forward that reads or writes the fresh pages."""
+        if pairs:
+            page_copy(self.model, self.cache, pairs)
 
     # -- slot lifecycle -----------------------------------------------------
     def _eviction_victim(self) -> int:
@@ -440,19 +697,29 @@ class Scheduler:
 
     def _evict(self, slot: int):
         """Free a starved slot and re-queue its request at the head as a
-        continuation: re-admission prefills prompt + tokens so far."""
+        continuation: re-admission prefills prompt + tokens so far.  Pages
+        that other slots or the directory hold only lose this slot's
+        hold."""
         r = self.slot_req[slot]
         self.slot_req[slot] = None
         self.active[slot] = False
         self.lengths[slot] = 0
         self.cur_tok[slot] = -1
+        self.prefilling[slot] = False
+        self._pend[slot] = None
+        self._inflight_keys.pop(slot, None)
         if self.paged:
             self._free_slot_pages(slot)
         self.n_evictions += 1
         if r is not None:
             self.queue.appendleft(r)
 
-    def _retire(self, slot: int, status: str = "done"):
+    def _retire(self, slot: int, status: str = "done",
+                register: bool = True):
+        """Vacate `slot`.  With prefix sharing a finished request's whole
+        prompt stays in the directory (`register`; never for a poisoned
+        one): its rows past the prompt are never advertised, since a later
+        hit re-runs the last prompt token through a copy of the page."""
         r = self.slot_req[slot]
         if r is not None:
             r.done = True
@@ -460,35 +727,127 @@ class Scheduler:
         self.slot_req[slot] = None
         self.active[slot] = False
         self.lengths[slot] = 0
+        self.prefilling[slot] = False
+        self._pend[slot] = None
+        self._inflight_keys.pop(slot, None)
         if self.paged:
+            if self.prefix_sharing and r is not None and register:
+                self._register_prefixes(slot, r.prompt, exact=True)
             self._free_slot_pages(slot)
 
+    def _try_admit_paged(self, slot: int, r: Request, pending_keys,
+                         cow_pairs: List[Tuple[int, int]]):
+        """Place `r` into `slot` (paged): map its directory match (with
+        sharing), copy-on-write the tail's write range and allocate the
+        rest.  Returns the tail offset (prompt tokens whose prefill is
+        skipped; 0 without a hit), None when the pool cannot hold it, or
+        DEFER when a prefill in flight is about to register one of its
+        prefixes (a later wave maps them instead of duplicating them)."""
+        pend = r.prompt + r.tokens
+        p_len = len(pend)
+        if self.prefix_sharing:
+            keys = self._registration_keys(pend, True)
+            if any(key in pending_keys for key, _, _ in keys):
+                return DEFER
+            self._last_keys = keys
+            pages, covered = self._lookup_prefix(pend)
+            if pages:
+                # at least one tail token, whose logits give the first token
+                tail_start = min(covered, p_len - 1)
+                row = self.page_table[slot]
+                for j, p in enumerate(pages):
+                    row[j] = p
+                    self.page_ref[p] += 1
+                if (self._cow_range(slot, tail_start, p_len, cow_pairs)
+                        and self._alloc_slot(slot, p_len)):
+                    self.prefix_hits += 1
+                    self.prefix_hit_tokens += tail_start
+                    return tail_start
+                # roll back, and drop copies into pages just freed again
+                self._free_slot_pages(slot)
+                cow_pairs[:] = [pr for pr in cow_pairs
+                                if self.page_ref[pr[1]] > 0]
+                return None
+        return 0 if self._alloc_slot(slot, p_len) else None
+
     def _admit(self, emitted: Dict[int, List[int]]):
+        # a wave that ends on DEFER registers its prefixes at once, so a
+        # follow-up wave in the same step can map them (not in mixed mode,
+        # where registration waits for the chunked prefill to complete)
+        while self._admit_wave(emitted):
+            pass
+
+    def _admit_wave(self, emitted: Dict[int, List[int]]) -> bool:
         """One admission wave: place queued requests into free slots (in
-        paged mode only while the free pages cover each prompt), prefill
-        them together and sample their first tokens."""
+        paged mode only while the free pages cover each prompt), then
+        prefill them together and sample their first tokens, or (mixed
+        steps) put them in the prefilling state.  Returns True when a
+        follow-up wave should run now."""
         free = [i for i in range(self.B) if self.slot_req[i] is None]
-        wave = []
+        wave: List[Tuple[int, Request]] = []
+        offs: List[int] = []
+        cow_pairs: List[Tuple[int, int]] = []
+        pending_keys: set = (set().union(*self._inflight_keys.values())
+                             if self._inflight_keys else set())
+        deferred = False
         while free and self.queue:
-            r = self.queue[0]
-            if self.paged and not self._alloc_slot(
-                    free[0], len(r.prompt) + len(r.tokens)):
-                break                           # FCFS: no skipping ahead
+            if self.paged:
+                t = self._try_admit_paged(free[0], self.queue[0],
+                                          pending_keys, cow_pairs)
+                if t is DEFER:
+                    deferred = True
+                    break
+                if t is None:
+                    break                       # FCFS: no skipping ahead
+                offs.append(t)
+                if self.prefix_sharing:
+                    pending_keys.update(k for k, _, _ in self._last_keys)
+            else:
+                offs.append(0)
             wave.append((free.pop(0), self.queue.popleft()))
         if not wave:
-            return
+            return False
+        if self.paged:
+            # the copies land before any forward reads the fresh pages; the
+            # peak is sampled while the wave's prompt pages are held
+            self._apply_copies(cow_pairs)
+            self._note_peak()
+        if self.mixed_steps:
+            for (s, r), off in zip(wave, offs):
+                pend = r.prompt + r.tokens
+                self.slot_req[s] = r
+                self.prefilling[s] = True
+                self._pend[s] = pend
+                self.lengths[s] = off        # a prefix hit's KV is valid
+                self.cur_tok[s] = -1
+                self.active[s] = False
+                self._admit_counter += 1
+                self._admit_seq[s] = self._admit_counter
+                if self.paged and self.prefix_sharing:
+                    self._inflight_keys[s] = {
+                        k for k, _, _ in self._registration_keys(pend, True)}
+            # a deferral resolves only when a chunked prefill completes
+            return False
         prompts = [r.prompt + r.tokens for _, r in wave]
-        lens = np.array([len(p) for p in prompts], np.int32)
+        full_lens = np.array([len(p) for p in prompts], np.int32)
+        offs_a = np.array(offs, np.int32)
+        lens = full_lens - offs_a              # only the tails run
         toks = np.zeros((len(wave), self._bucket(int(lens.max()))), np.int32)
-        for i, p in enumerate(prompts):
-            toks[i, :len(p)] = p
+        for i, (p, o) in enumerate(zip(prompts, offs)):
+            toks[i, :len(p) - o] = p[o:]
         slots = np.array([s for s, _ in wave], np.int32)
+        self.prefill_tokens_computed += int(lens.sum())
         self.model_steps += 1
         if self.paged:
-            # sample the peak while the wave's prompt pages are held
-            self._note_peak()
             tok0, fin = paged_prefill(self.model, self.params, toks, lens,
-                                      self.cache, self.page_table[slots])
+                                      self.cache, self.page_table[slots],
+                                      offs_a)
+            if self.prefix_sharing:
+                # the prompts' KV is valid: publish the page-aligned
+                # prefixes of every finite row
+                for i, ((s, _), p) in enumerate(zip(wave, prompts)):
+                    if fin[i]:
+                        self._register_prefixes(s, p, exact=False)
         else:
             tok0, fin = ragged_prefill(self.model, self.params, toks, lens,
                                        self.cache, slots)
@@ -496,11 +855,11 @@ class Scheduler:
             self.slot_req[s] = r
             self._admit_counter += 1
             self._admit_seq[s] = self._admit_counter
-            self.lengths[s] = lens[i]
+            self.lengths[s] = full_lens[i]
             if not fin[i]:
                 # non-finite prompt logits: quarantine just this request
                 self.n_poisoned += 1
-                self._retire(s, status="poisoned")
+                self._retire(s, status="poisoned", register=False)
                 continue
             t0 = int(tok0[i])
             budget_left = r.max_new_tokens - len(r.tokens)
@@ -511,34 +870,44 @@ class Scheduler:
             # capacity counts as done: a continuation re-admitted at max_len
             # tokens just produced its last in-capacity token
             if ((self.eos_id is not None and t0 == self.eos_id)
-                    or budget_left <= 1 or int(lens[i]) >= self.max_len):
+                    or budget_left <= 1 or int(full_lens[i]) >= self.max_len):
                 self._retire(s)
             else:
                 self.active[s] = True
+        return deferred
 
-    def _plan_decode_run(self) -> np.ndarray:
-        """The active slots that can append `decode_chunk` tokens this step.
-        Paged mode allocates pages to cover them (capped at max_len); a
-        starved slot stalls, and if nothing can run the youngest active
-        slot is evicted until something can.  Dense: every active slot."""
+    def _plan_decode_run(self, ahead: int) -> np.ndarray:
+        """The active slots that can append `ahead` tokens this step.  Paged
+        mode allocates pages to cover them (capped at max_len) and copies
+        any still-shared page in the write range (the safety net for exact
+        prompt hits); a starved slot stalls, and if nothing can run the
+        youngest active slot is evicted until something can.  Dense: every
+        active slot."""
         if not self.paged:
             return self.active.copy()
+        cow_pairs: List[Tuple[int, int]] = []
         while True:
             run = self.active.copy()
             for b in np.flatnonzero(self.active):
-                if not self._alloc_slot(int(b), int(self.lengths[b])
-                                        + self.decode_chunk):
+                b = int(b)
+                upto = min(int(self.lengths[b]) + ahead, self.max_len)
+                if not (self._alloc_slot(b, upto)
+                        and self._cow_range(b, int(self.lengths[b]), upto,
+                                            cow_pairs)):
                     run[b] = False
             if run.any() or not self.active.any():
                 break
             self._evict(self._eviction_victim())
+            # a copy into a page the eviction just freed must not run
+            cow_pairs[:] = [pr for pr in cow_pairs if self.page_ref[pr[1]] > 0]
+        self._apply_copies(cow_pairs)
         self._note_peak()
         return run
 
     def _decode(self, emitted: Dict[int, List[int]]):
         if not self.active.any():
             return
-        run = self._plan_decode_run()
+        run = self._plan_decode_run(self.decode_chunk)
         if not run.any():
             return
         self.model_steps += self.decode_chunk
@@ -564,20 +933,165 @@ class Scheduler:
                 emitted.setdefault(r.rid, []).extend(step_toks)
             if pois[b]:
                 self.n_poisoned += 1
-                self._retire(b, status="poisoned")
-            elif not self.active[b]:
+                self._retire(b, status="poisoned", register=False)
+            elif not self.active[b] and not self.prefilling[b]:
+                # prefilling slots are not in the chunk
                 self._retire(b)
+
+    # -- mixed prefill+decode steps -----------------------------------------
+    def _finish_prefill(self, slot: int, tok0: int,
+                        emitted: Dict[int, List[int]]):
+        """A chunk completed `slot`'s prompt: publish its prefixes, record
+        its first token, and retire it or move it to decoding."""
+        r = self.slot_req[slot]
+        pend = self._pend[slot]
+        self.prefilling[slot] = False
+        self._pend[slot] = None
+        if self.paged and self.prefix_sharing:
+            self._inflight_keys.pop(slot, None)
+            self._register_prefixes(slot, pend, exact=False)
+        budget_left = r.max_new_tokens - len(r.tokens)
+        r.tokens.append(tok0)
+        emitted.setdefault(r.rid, []).append(tok0)
+        self.lengths[slot] = len(pend)
+        self.cur_tok[slot] = tok0
+        self.remaining[slot] = budget_left - 1
+        if ((self.eos_id is not None and tok0 == self.eos_id)
+                or budget_left <= 1 or len(pend) >= self.max_len):
+            self._retire(slot)
+        else:
+            self.active[slot] = True
+
+    def _post_decode_token(self, slot: int, tok: int,
+                           emitted: Dict[int, List[int]]):
+        """Bookkeeping of one decode token of a mixed step: the retirement
+        rules of the decode chunk (EOS, budget, capacity)."""
+        r = self.slot_req[slot]
+        r.tokens.append(tok)
+        emitted.setdefault(r.rid, []).append(tok)
+        self.remaining[slot] -= 1
+        new_len = int(self.lengths[slot]) + 1
+        if ((self.eos_id is not None and tok == self.eos_id)
+                or self.remaining[slot] <= 0 or new_len >= self.max_len):
+            self._retire(slot)
+        else:
+            self.lengths[slot] = new_len
+            self.cur_tok[slot] = tok
+
+    def _effective_chunk_budget(self) -> int:
+        """The per-step prefill token budget (the reference's degradation
+        ladder, which halves it, is not ported yet)."""
+        return self.prefill_chunk_budget
+
+    def _plan_chunks(self) -> List[Tuple[int, int, int]]:
+        """This step's prefill chunks as (slot, start, end): the budget
+        handed out FCFS in admission order, each chunk cut by
+        `plan_prefill_chunk`."""
+        budget = self._effective_chunk_budget()
+        chunks: List[Tuple[int, int, int]] = []
+        for b in sorted(np.flatnonzero(self.prefilling),
+                        key=lambda b: self._admit_seq[b]):
+            if budget <= 0:
+                break
+            start = int(self.lengths[b])
+            end = plan_prefill_chunk(start, len(self._pend[b]), budget,
+                                     self.page_size if self.paged else 0)
+            chunks.append((int(b), start, end))
+            budget -= end - start
+        return chunks
+
+    def _chunks_done(self, chunks, tok, fin, rows,
+                     emitted: Dict[int, List[int]]):
+        """Advance each chunk's slot; a chunk that completes its prompt
+        gives the slot its first token (row rows[i] of `tok` / `fin`)."""
+        for i, (b, _, e) in enumerate(chunks):
+            self.lengths[b] = e
+            if e == len(self._pend[b]):
+                if fin[rows[i]]:
+                    self._finish_prefill(b, int(tok[rows[i]]), emitted)
+                else:
+                    self.n_poisoned += 1
+                    self._retire(b, status="poisoned", register=False)
+
+    def _chunk_prefill_wave(self, emitted: Dict[int, List[int]]):
+        """Paired mixed step, prefill half: only the prefilling slots' rows
+        of the page table run, through the admission prefill at the
+        chunks' offsets."""
+        chunks = self._plan_chunks()
+        if not chunks:
+            return
+        n = len(chunks)
+        toks = np.zeros((n, self._bucket(max(e - s for _, s, e in chunks))),
+                        np.int32)
+        for i, (b, s, e) in enumerate(chunks):
+            toks[i, :e - s] = self._pend[b][s:e]
+        slots = np.array([b for b, _, _ in chunks], np.int32)
+        offs = np.array([s for _, s, _ in chunks], np.int32)
+        lens = np.array([e - s for _, s, e in chunks], np.int32)
+        self.prefill_tokens_computed += int(lens.sum())
+        self.model_steps += 1
+        tok0, fin = paged_prefill(self.model, self.params, toks, lens,
+                                  self.cache, self.page_table[slots], offs)
+        self._chunks_done(chunks, tok0, fin, range(n), emitted)
+
+    def _mixed_step_fused(self, emitted: Dict[int, List[int]]):
+        """Fused mixed step: one (B, L) forward in which every decoding
+        slot that can extend brings 1 token at column 0, prefilling slots
+        their chunk and idle rows nothing."""
+        run = self._plan_decode_run(1)
+        chunks = self._plan_chunks()
+        if not chunks and not run.any():
+            return
+        L = self._bucket(max([e - s for _, s, e in chunks] + [1]))
+        toks = np.zeros((self.B, L), np.int32)
+        offs = np.zeros(self.B, np.int32)
+        seq = np.zeros(self.B, np.int32)
+        dec = np.zeros(self.B, bool)
+        for b, s, e in chunks:
+            toks[b, :e - s] = self._pend[b][s:e]
+            offs[b] = s
+            seq[b] = e - s
+        for b in np.flatnonzero(run):
+            toks[b, 0] = self.cur_tok[b]
+            offs[b] = self.lengths[b]
+            seq[b] = 1
+            dec[b] = True
+        self.prefill_tokens_computed += sum(e - s for _, s, e in chunks)
+        self.model_steps += 1
+        tok, fin = mixed_step(self.model, self.params, toks, self.cache, offs,
+                              seq, dec, self.page_table if self.paged else None)
+        self._chunks_done(chunks, tok, fin, [b for b, _, _ in chunks], emitted)
+        for b in np.flatnonzero(dec):
+            if fin[b]:
+                self._post_decode_token(int(b), int(tok[b]), emitted)
+            else:
+                self.n_poisoned += 1
+                self._retire(int(b), status="poisoned", register=False)
+
+    def _mixed_step(self, emitted: Dict[int, List[int]]):
+        """One mixed step: "fused" runs both row classes in one forward,
+        "paired" a chunk wave of the prefilling rows and then the decode
+        chunk, back to back on one stream."""
+        if self.mixed_dispatch == "paired":
+            self._chunk_prefill_wave(emitted)
+            self._decode(emitted)
+        else:
+            self._mixed_step_fused(emitted)
 
     # -- driving --------------------------------------------------------------
     @torch.inference_mode()
     def step(self) -> Dict[int, List[int]]:
-        """One scheduling round: admit, then one decode chunk; returns the
+        """One scheduling round: admit, then one mixed step while a prompt
+        is being prefilled in chunks, else one decode chunk; returns the
         tokens generated this round by request id."""
         emitted: Dict[int, List[int]] = {}
         self._step_idx += 1
         self._queue_depths.append(len(self.queue))
         self._admit(emitted)
-        self._decode(emitted)
+        if self.mixed_steps and self.prefilling.any():
+            self._mixed_step(emitted)
+        else:
+            self._decode(emitted)
         self._note_peak()
         return emitted
 
@@ -606,6 +1120,7 @@ class Scheduler:
             "model_steps": self.model_steps,
             "evictions": self.n_evictions,
             "poisoned": self.n_poisoned,
+            "reclaim_stalls": self.n_reclaim_stalls,
             "kv_bytes_per_token": kv_bytes_per_token(self.model.cfg),
             "queue_depth_p50": float(np.percentile(depths, 50)),
             "queue_depth_p95": float(np.percentile(depths, 95)),
@@ -613,14 +1128,24 @@ class Scheduler:
 
     def audit(self):
         """Check the slot and page-accounting invariants; raises
-        `AuditError` listing every violation.  Paged: each page's refcount
-        equals the table entries holding it, refcount 0 iff on the free
-        list, no page twice on the free list, the trash page never handed
-        out, table rows contiguous and covering their slot's fill."""
+        `AuditError` listing every violation.  Slots: no active or
+        prefilling slot without a request, never both, a prefilling slot
+        has its pending tokens.  Paged: each page's refcount equals its
+        holders (table entries + directory entries), refcount 0 iff on the
+        free list, no page twice on the free list, the trash page never
+        handed out, table rows contiguous and covering their slot's fill,
+        and the directory's per-page holds in sync with its entries."""
         errs: List[str] = []
         for b in range(self.B):
-            if self.slot_req[b] is None and self.active[b]:
+            occupied = self.slot_req[b] is not None
+            if not occupied and self.active[b]:
                 errs.append(f"slot {b}: active without a request")
+            if not occupied and self.prefilling[b]:
+                errs.append(f"slot {b}: prefilling without a request")
+            if self.active[b] and self.prefilling[b]:
+                errs.append(f"slot {b}: both active and prefilling")
+            if self.prefilling[b] and self._pend[b] is None:
+                errs.append(f"slot {b}: prefilling with no pending tokens")
         if self.paged:
             P = self.num_pages
             free_set = set(self.free_pages)
@@ -628,6 +1153,9 @@ class Scheduler:
                 errs.append("free list holds duplicate pages (double-free)")
             if TRASH_PAGE in free_set:
                 errs.append("reserved trash page is on the free list")
+            for p in free_set:
+                if not 0 < p < P:
+                    errs.append(f"free list holds out-of-range page {p}")
             expected = np.zeros(P, np.int64)
             for b in range(self.B):
                 row = self.page_table[b]
@@ -646,6 +1174,17 @@ class Scheduler:
                         and k < self._pages_for(int(self.lengths[b]))):
                     errs.append(f"slot {b}: kv fill {int(self.lengths[b])} "
                                 f"not covered by its {k} pages")
+            dir_ref: Dict[int, int] = {}
+            for pages, _ in self.prefix_dir.values():
+                for p in pages:
+                    dir_ref[p] = dir_ref.get(p, 0) + 1
+                    if 0 < p < P:
+                        expected[p] += 1
+                    else:
+                        errs.append(f"directory maps invalid page {p}")
+            if dir_ref != self._dir_ref:
+                errs.append("directory page holds (_dir_ref) out of sync "
+                            "with the directory's entries")
             for p in range(1, P):
                 ref = int(self.page_ref[p])
                 if ref != int(expected[p]):
@@ -670,7 +1209,10 @@ def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
              continuous_batching: bool = False,
              eos_id: Optional[int] = None, decode_chunk: int = 8,
              max_batch_slots: Optional[int] = None, page_size: int = 0,
-             num_pages: int = 0, **not_ported) -> torch.Tensor:
+             num_pages: int = 0, prefix_sharing: bool = False,
+             prefix_cache_pages: int = 0, mixed_steps: bool = False,
+             prefill_chunk_budget: int = 0, mixed_dispatch: str = "fused",
+             **not_ported) -> torch.Tensor:
     """Batched generation; returns (B, max_new_tokens) token ids.
 
     Default: equal-length prefill, then one decode step per further token;
@@ -678,7 +1220,10 @@ def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
     with 0 on the model's device).  With `continuous_batching=True` it is
     one greedy `Scheduler` run over `max_batch_slots` slots (default: the
     batch size), retiring rows at `eos_id` and padding them with it (or 0);
-    `page_size > 0` puts the slots on the paged pool of `num_pages` pages."""
+    `page_size > 0` puts the slots on the paged pool of `num_pages` pages,
+    `prefix_sharing` shares prompt prefixes there (`prefix_cache_pages`
+    caps the directory), and `mixed_steps` prefills prompts in chunks of
+    `prefill_chunk_budget` tokens beside the decoding slots (`Scheduler`)."""
     _refuse_unported(not_ported)
     tokens = torch.as_tensor(prompt_batch["tokens"])
     B, S = tokens.shape
@@ -687,7 +1232,11 @@ def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
                           max_len=max_len, eos_id=eos_id,
                           temperature=temperature, top_k=top_k, top_p=top_p,
                           decode_chunk=decode_chunk, page_size=page_size,
-                          num_pages=num_pages)
+                          num_pages=num_pages, prefix_sharing=prefix_sharing,
+                          prefix_cache_pages=prefix_cache_pages,
+                          mixed_steps=mixed_steps,
+                          prefill_chunk_budget=prefill_chunk_budget,
+                          mixed_dispatch=mixed_dispatch)
         rows = tokens.cpu().numpy()
         rids = [sched.submit(rows[b].tolist(), max_new_tokens) for b in range(B)]
         results = sched.run()

@@ -201,10 +201,10 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError):
         build_model(dataclasses.replace(cfg, block_pattern=("attn", "mlstm")), "cpu")
     m = build_model(cfg, "cpu")
-    # continuous batching is ported (tests/test_torch_sched.py); its later
-    # features are not
+    # continuous batching is ported (tests/test_torch_sched.py), with prefix
+    # sharing and mixed steps; its later features are not
     with pytest.raises(NotImplementedError):
         TS.generate(m, m.init(), {"tokens": torch.zeros(1, 4, dtype=torch.long)},
-                    2, 8, continuous_batching=True, prefix_sharing=True)
+                    2, 8, continuous_batching=True, victim_pool_pages=4)
     with pytest.raises(KeyError):
         get_config("gemma-7b")

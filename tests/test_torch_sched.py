@@ -7,8 +7,10 @@ schedulers decode greedily and must produce identical token streams, on
 ragged dense slots and on the paged pool: equal-length prompts against
 classic generation, mixed lengths with slot reuse, EOS mid-chunk, a
 starved pool that stalls and evicts, and the `generate` entry point.
-Also: the page accounting (`audit()`), typed rejections, and every
-reference option that is not ported yet raising NotImplementedError.
+Also: the page accounting (`audit()`), typed rejections, the sharing and
+mixed-step options refusing what the reference refuses, `prefill_bucket`,
+and every reference option that is not ported yet raising
+NotImplementedError.
 """
 import dataclasses
 
@@ -155,8 +157,40 @@ def test_audit_catches_broken_page_accounting(models):
         sched.audit()
 
 
+@pytest.mark.parametrize("options", [
+    dict(prefix_sharing=True),
+    dict(mixed_steps=True, mixed_dispatch="paired"),
+    dict(mixed_steps=True, mixed_dispatch="bogus", page_size=8),
+    dict(mixed_steps=True, prefill_chunk_budget=-1),
+    dict(prefix_sharing=True, mixed_steps=True, page_size=0)])
+def test_sharing_and_mixed_options_validate_like_jax(models, options):
+    """Each refused combination raises the reference's ValueError in both
+    schedulers."""
+    jm, jp, tm, tp = models
+    with pytest.raises(ValueError) as jerr:
+        JS.Scheduler(jm, jp, max_batch_slots=2, max_len=32, **options)
+    with pytest.raises(ValueError) as terr:
+        TS.Scheduler(tm, tp, max_batch_slots=2, max_len=32, **options)
+    assert str(terr.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("page_size", [0, 8])
+def test_prefill_bucket_gives_jax_admission_widths(models, page_size):
+    """A non-default `prefill_bucket` pads admission waves to the widths
+    the reference's does (and, capped at max_len, never wider)."""
+    jm, jp, tm, tp = models
+    kw = dict(max_batch_slots=2, prefill_bucket=12, page_size=page_size)
+    j = JS.Scheduler(jm, jp, max_len=MAX_LEN, **kw)
+    t = TS.Scheduler(tm, tp, max_len=MAX_LEN, **kw)
+    for n in (1, 12, 13, 25, 48, 63):
+        assert t._bucket(n) == j._bucket(n)
+    trace = _trace(3, [5, 13, 30], [3, 4, 5])
+    js, ts, _ = _both(models, trace, **kw)
+    assert ts == js
+
+
 @pytest.mark.parametrize("option,value", [
-    ("prefix_sharing", True), ("mixed_steps", True), ("speculate", True),
+    ("speculate", True),
     ("victim_pool_pages", 4), ("max_queue", 2), ("fault_plan", object()),
     ("integrity", "checksum"), ("tbt_target_ms", 5.0), ("snapshot_every", 2),
     ("kv_bits", 4), ("temperature", 0.7), ("rng", object())])
@@ -184,8 +218,22 @@ def test_serve_cli_continuous_batching_on_cpu():
             "--max-batch-slots", "2"]
     dense = tserve.main(args)
     paged = tserve.main(args + ["--page-size", "8", "--num-pages", "9"])
+    shared = tserve.main(args + ["--page-size", "8", "--prefix-cache",
+                                 "--prefix-cache-pages", "4", "--mixed-steps",
+                                 "--prefill-chunk-budget", "3",
+                                 "--mixed-dispatch", "paired"])
+    mixed = tserve.main(args + ["--mixed-steps", "--prefill-chunk-budget", "5"])
     assert tuple(dense.shape) == (3, 4)
     assert torch.equal(dense, paged)
-    for bad in (["--page-size", "8"], ["--continuous-batching", "--num-pages", "9"]):
+    assert torch.equal(dense, shared)
+    assert torch.equal(dense, mixed)
+    for bad in (["--page-size", "8"], ["--continuous-batching", "--num-pages", "9"],
+                ["--continuous-batching", "--prefix-cache"],
+                ["--continuous-batching", "--page-size", "8",
+                 "--prefix-cache-pages", "4"],
+                ["--mixed-steps"],
+                ["--continuous-batching", "--prefill-chunk-budget", "8"],
+                ["--continuous-batching", "--mixed-steps", "--mixed-dispatch",
+                 "paired"]):
         with pytest.raises(SystemExit):
             tserve.parse_args(["--arch", ARCH] + bad)
