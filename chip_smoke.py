@@ -16,7 +16,8 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    internlm2-1.8b (16 query heads over 8 KV heads, head_dim 128): causal,
    windowed and 4-bit prefill at Sq 512, and at Sq 512 a group of 4 q
    heads (16 over 4 KV heads) and head_dim 64; split-K decode at kv_len 4096 with
-   block_k 256, verify rows (Sq 4), a q_len-0 row and 4-bit KV; iteration
+   block_k 256, verify rows (Sq 4 and 5, bit-identical to single-step
+   launches), a q_len-0 row and 4-bit KV; iteration
    maps against the analytic count; and decode at the served request's
    own shape (a 160-token cache holding 129..159 tokens, one partial
    partition), with verify rows and 4-bit KV there too.  Times kernel,
@@ -44,8 +45,9 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    request cut to 8 new tokens, once as it is and once under
    torch.profiler, and prints where its device time goes: the busy share
    over the unprofiled wall time, each attention kernel's device time per
-   launch (the profiler must see one kernel per wrapper call), kernel 2's
-   bound at the cut's shapes beside it, and the top device operators.
+   launch (the profiler must see one kernel per wrapper call), kernels 1
+   and 2's bounds at the cut's shapes beside them, and the top device
+   operators.
 7. Serves a 16-request trace (prompts 16-256 tokens, budgets 16-64) through
    the Scheduler at full width, on dense slots and on the paged pool,
    counting kernel launches in each (24 prefill launches a prefill forward,
@@ -56,8 +58,8 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    pages, a repeatable paged stream and, for prompts of one page, dense and
    paged prefill logits equal bit for bit; prints where and by how much
    the two storages' streams and logits part; then profiles the first 3
-   steps of the paged run as phase 6 does, with kernel 2's bound at the
-   shapes of those steps' decode calls.
+   steps of the paged run as phase 6 does, with kernels 1 and 2's bounds
+   at the shapes of those steps' calls.
 8. (Run right after phase 3, beside the other kernel checks.)  Holds the
    PIM matmul (kernel 3) in both ADC modes and the LUT softmax (kernel 4)
    against their plain versions bit for bit: the linears' shapes (K 2048
@@ -84,8 +86,8 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    memory, a replay of served launches of both kernels (a prefill and a
    decode step) against their plain versions, kernel 4's on its served
    broadcast mask with no other device kernel around it, and a profile as
-   in phases 6 and 7, with kernel 4's bound at its served operands and
-   the device kernels per forward.
+   in phases 6 and 7, with kernels 3 and 4's bounds at their served
+   operands and the device kernels per forward.
 10. Serves, with the phase 6 weights at decode_block_k 16, a 16-request
    trace through 8 slots of 1,536 tokens: 12 prompts open with one
    256-token system prompt (two pairs of them equal and page-aligned), 3
@@ -101,9 +103,28 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    launches of both kernels, a tail prefill at offset 256 over shared
    pages and a paired chunk wave against the plain versions.  Prints each
    run's wall and tokens/s, the step admitting the long prompt in B
-   against the longest step while it is chunked in C, whether RMSNorm and
-   the unembed give a row the same bits beside other row counts, and a
-   profile of one fused mixed step.
+   against the longest step while it is chunked in C, and a profile of
+   one fused mixed step with kernels 1 and 2's bounds.  Then serves A and
+   C once more at the paper's fidelity (behavioral attention, 6-bit ADC)
+   and checks A == C there too.
+11. Serves, with the phase 6 weights at decode_block_k 16, a 16-request
+   trace (prompts of 48-400 tokens, 12 of them a repeated motif before a
+   random tail; budgets 32-96) through 8 slots of 1,024 tokens on the
+   paged pool, seven ways: greedy (G), + speculation with draft_len 4
+   (H), + fused mixed steps (I), sampled at temperature 0.8, top_k 50,
+   top_p 0.95 under PRNGKey(7) (J), + fused mixed steps (K), +
+   speculation (L, served twice); `audit()` after every step.  Checks
+   G == H == I, J == K, L == L2, fewer forwards with speculation and
+   drafts accepted, kernel 2 launched with verify rows (Sq > 1), no
+   plain-version call, and replays a served speculative step's launches
+   of both kernels against the plain versions.  Prints each run's wall,
+   tokens/s, forwards, tokens per forward and accept rate; profiles one
+   sampled speculative step (busy share, kernels 1 and 2's us per launch
+   beside their bounds) and times the sampler alone on its logits.
+Phases 10 and 11 first run a row probe: RMSNorm, the bf16 unembed, the
+top-k / top-p truncation, its softmax and the Gumbel arg-max must give a
+row the same bits alone and among other rows (up to 40 = 8 slots x 5
+verify columns).
 
 Exits non-zero, printing no result, when there is no GPU or any check
 fails.  The last line is the device JSON.
@@ -155,7 +176,7 @@ F32_OPS = 67e12
 REL_TOL = 1e-5
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
 # what a phase needs run first: kernel entries (2, 8) or the small model (4)
 NEEDS = {3: {2}, 5: {4}, 6: {2}, 7: {2}, 9: {8}}
 
@@ -361,35 +382,64 @@ def decode_bound(kv_lens, q_lens, Sq: int, cfg):
     return attention_bound(nbytes, sum(H * ql * kv for kv, ql in live), Dh)
 
 
+def prefill_bound(offs, kv_lens, q_lens, Sq: int, cfg):
+    """(ms, limit) of one pim_attention call at a served shape: bytes as
+    `decode_bound`, against the causal pairs of each slot's valid query
+    rows (row i at position offs + i sees min(kv_len, offs + i + 1)
+    keys)."""
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    live = [(o, kv, min(ql, Sq)) for o, kv, ql in zip(offs, kv_lens, q_lens) if ql > 0]
+    nbytes = (sum(kv for _, kv, _ in live) * Hkv * (2 * Dh + 8)
+              + len(kv_lens) * H * Sq * (Dh + 4 + 4 * Dh))
+    pairs = sum(int(np.minimum(kv, o + np.arange(ql) + 1).sum()) for o, kv, ql in live)
+    return attention_bound(nbytes, H * pairs, Dh)
+
+
 @contextlib.contextmanager
-def decode_shapes(cfg):
-    """Within the block, the decode wrapper keeps each launch's scalar table
-    on the device (no host sync); after it, the list holds ([kv_len],
-    [q_len], Sq) of every launch, one slot per sequence of the batch."""
-    dec_k.SHAPES, seen = [], []
+def launch_shapes(cfg):
+    """Within the block, both attention wrappers keep each launch's scalar
+    table on the device (no host sync); after it, {wrapper: [([q_offset],
+    [kv_len], [q_len], Sq)]} of every launch, one slot per sequence."""
+    mods = {"pim_attention": attn_k, "pim_decode": dec_k}
+    seen = {name: [] for name in mods}
+    for mod in mods.values():
+        mod.SHAPES = []
     try:
         yield seen
     finally:
-        kept, dec_k.SHAPES = dec_k.SHAPES, None
-    for scalars, (BH, Sq, _) in kept:
-        _, kv, ql = scalars.tolist()
-        B = BH // cfg.num_heads
-        if len(kv) == 1:   # int lengths: one column for the batch
-            kv, ql = kv * B, ql * B
-        seen.append((kv[:B], ql[:B], Sq))
+        kept = {name: mod.SHAPES for name, mod in mods.items()}
+        for mod in mods.values():
+            mod.SHAPES = None
+    for name, launches in kept.items():
+        for scalars, (BH, Sq, _) in launches:
+            off, kv, ql = scalars.tolist()
+            B = BH // cfg.num_heads
+            if len(kv) == 1:   # int lengths: one column for the batch
+                off, kv, ql = off * B, kv * B, ql * B
+            seen[name].append((off[:B], kv[:B], ql[:B], Sq))
 
 
-def served_decode(entries, label: str, report: dict, shapes, cfg) -> None:
-    """Kernel 2's device us per launch of a profiled serving run beside its
-    mean bound over the same launches' shapes (those of the unprofiled run
-    of the same work)."""
-    bounds = [decode_bound(kv, ql, Sq, cfg)[0] * 1e3 for kv, ql, Sq in shapes]
-    us = report["kernels"]["pim_decode_kernel"]["us_per_launch"]
-    b_us = sum(bounds) / len(bounds)
-    entries["pim_decode"].setdefault("served_us", {})[label] = us
-    entries["pim_decode"].setdefault("served_bound_us", {})[label] = b_us
-    print(f"  kernel 2 on the {label}: {us:.2f} us per launch, bound {b_us:.3f} us "
-          f"(mean over its {len(bounds)} calls' shapes), {b_us / us:.1%} of it")
+def served_attention(entries, label: str, report: dict, shapes, cfg) -> dict:
+    """Kernels 1 and 2's device us per launch of a profiled serving run
+    beside their mean bounds over the same launches' shapes (those of the
+    unprofiled run of the same work); returns {wrapper: (us, bound us)}."""
+    out = {}
+    for name, kernel, num in (("pim_attention", "pim_attention_kernel", 1),
+                              ("pim_decode", "pim_decode_kernel", 2)):
+        if not shapes[name]:
+            continue
+        bounds = [(prefill_bound(*s, cfg) if num == 1 else decode_bound(*s[1:], cfg))[0]
+                  * 1e3 for s in shapes[name]]
+        us = report["kernels"][kernel]["us_per_launch"]
+        b_us = sum(bounds) / len(bounds)
+        if name in entries:
+            entries[name].setdefault("served_us", {})[label] = us
+            entries[name].setdefault("served_bound_us", {})[label] = b_us
+        out[name] = (us, b_us)
+        print(f"  kernel {num} on the {label}: {us:.2f} us per launch, bound "
+              f"{b_us:.3f} us (mean over its {len(bounds)} calls' shapes), "
+              f"{b_us / us:.1%} of it")
+    return out
 
 
 PAGE = 16     # tokens per KV page in phases 3, 5 and 7
@@ -605,14 +655,15 @@ def prefill_logits(model, params, prompts):
 
 
 @contextlib.contextmanager
-def recorded(pick, targets=None):
+def recorded(pick, targets=None, by_sq=None):
     """Within the block, keeps copies of the operands of the serving path's
     kernel launches that `pick(name, index)` labels (name a key of
     `targets`, {name: (module, attribute)} of the wrappers the path calls,
     by default the attention wrappers of `ops`; index of the launch among
     that wrapper's in the block): yields {label: (name, args, kwargs)}.  The
     copies are taken at launch, since the scheduler writes its cache in
-    place afterwards."""
+    place afterwards.  A dict `by_sq` counts every launch by (name, the
+    query rows Sq of its first operand)."""
     def copied(x):
         """A copy of a tensor operand in its layout: a broadcast (stride 0)
         dim stays a broadcast of the copied storage."""
@@ -628,6 +679,9 @@ def recorded(pick, targets=None):
     def wrap(name, fn):
         def launch(*args, **kw):
             i = counts[name] = counts.get(name, -1) + 1
+            if by_sq is not None:
+                key = (name, int(args[0].shape[-2]))
+                by_sq[key] = by_sq.get(key, 0) + 1
             label = pick(name, i)
             if label:
                 kept[label] = (name, tuple(copied(a) for a in args),
@@ -796,10 +850,10 @@ def full_scheduler(model, params, cfg, entries, compare) -> dict:
         for _ in range(PROFILED_STEPS):
             sched.step()
 
-    shapes, wall = unprofiled_wall(submitted, steps, lambda: decode_shapes(cfg))
+    shapes, wall = unprofiled_wall(submitted, steps, lambda: launch_shapes(cfg))
     paged_info["profile"] = profiled_report(
         submitted, steps, f"first {PROFILED_STEPS} steps of the paged trace", wall)
-    served_decode(entries, "trace", paged_info["profile"], shapes, cfg)
+    served_attention(entries, "trace", paged_info["profile"], shapes, cfg)
     return dict(dense=dense_info, paged=paged_info, agree=agree,
                 prompts=lens.tolist(), budgets=budgets.tolist())
 
@@ -869,11 +923,11 @@ def serve_steps(sched, trace, late):
 
 
 @contextlib.contextmanager
-def armed_recording(ctx, label_of):
-    """Wrap `serve_lib.mixed_step` and `serve_lib.paged_prefill`: the first
+def armed_recording(ctx, label_of, names=("mixed_step", "paged_prefill")):
+    """Wrap the scheduler's device steps `names` of `serve_lib`: the first
     call for which `label_of(fn name, args)` gives a label records its
     REC_LAYER launches of both attention wrappers (through `recorded`)."""
-    saved = {n: getattr(serve_lib, n) for n in ("mixed_step", "paged_prefill")}
+    saved = {n: getattr(serve_lib, n) for n in names}
 
     def wrap(name):
         def call(*a, **k):
@@ -895,12 +949,27 @@ def armed_recording(ctx, label_of):
             setattr(serve_lib, n, f)
 
 
+PROBE_ROWS = (3, 8, 40)   # 40 = n * P at 8 slots and P = draft_len + 1
+
+
+def rows_apart(fn, ns=PROBE_ROWS) -> list:
+    """How many of the first 8 rows get other bits from the row-wise op
+    `fn(lo, hi)` (its output for rows lo..hi - 1) alone than among the
+    first n rows, for each n of `ns`."""
+    alone = torch.cat([fn(i, i + 1) for i in range(8)])
+    return [int((fn(0, n)[:8] != alone[:min(n, 8)]).flatten(1).any(-1).sum())
+            for n in ns]
+
+
 def row_probe(model, params, cfg) -> dict:
     """Whether a row's bits depend on the rows beside it, for the ops that
-    see a served row among other row counts in phase 10's runs: RMSNorm
+    see a served row among other row counts in phases 10-11: RMSNorm
     (`layers.norm_apply`, and torch's own mean beside it) over 8 rows
-    against the same rows among 1, 64 and 2048, and the bf16 unembed over
-    1, 3 and 8 rows."""
+    against the same rows among 1, 64 and 2048; and, alone against among
+    3, 8 and 40 rows, the unembed (bf16 and float32), the top-k / top-p
+    truncation, its
+    softmax and the Gumbel arg-max of the sampler (with torch's own cumsum
+    beside the truncation's, which the sampler does not use)."""
     from repro_torch.models import layers as Lm
     dev = model.device
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -915,16 +984,44 @@ def row_probe(model, params, cfg) -> dict:
     mean_rows = [int((torch.cat([xf[i:i + 1].mean(-1) for i in range(8)]) != m8).sum())] + [
         int((xf[:n].mean(-1)[:8] != m8).sum()) for n in (64, 2048)]
     head = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    rows = torch.cat([Lm.unembed_apply(head, x[i:i + 1]) for i in range(8)])
-    unembed_eq = all(torch.equal(rows[:n], Lm.unembed_apply(head, x[:n])) for n in (3, 8))
+    normed = Lm.norm_apply(scale, x[:40], cfg.norm)
+    unembed = rows_apart(lambda lo, hi: Lm.unembed_apply(head, normed[lo:hi]))
+    normed32 = normed.float()
+    unembed_f32 = rows_apart(lambda lo, hi: Lm.unembed_apply(head, normed32[lo:hi]))
+    logits = Lm.unembed_apply(head, normed).float()
+    T, k, p = SAMPLED["temperature"], SAMPLED["top_k"], SAMPLED["top_p"]
+    trunc = rows_apart(lambda lo, hi: serve_lib._truncate_logits(logits[lo:hi] / T, k, p))
+    lt = serve_lib._truncate_logits(logits / T, k, p)
+    softmax = rows_apart(lambda lo, hi: torch.softmax(lt[lo:hi], dim=-1))
+    probs = torch.softmax(lt, dim=-1)
+    torch_cumsum = rows_apart(lambda lo, hi: torch.cumsum(probs[lo:hi], dim=-1))
+    keys = serve_lib._row_keys(serve_lib.prng.PRNGKey(SPEC_SEED, dev),
+                               torch.arange(40, device=dev),
+                               torch.zeros(40, dtype=torch.long, device=dev))
+    draw = rows_apart(lambda lo, hi: serve_lib.sample_logits_per_row(
+        logits[lo:hi], keys[lo:hi], T, k, p)[:, None])
     out = dict(norm_rows_equal=norm_eq, torch_mean_rows_differing=mean_rows,
-               unembed_rows_equal=unembed_eq)
+               unembed_rows_differing=unembed, unembed_f32_rows_differing=unembed_f32,
+               truncation_rows_differing=trunc,
+               softmax_rows_differing=softmax, draw_rows_differing=draw,
+               torch_cumsum_rows_differing=torch_cumsum)
     print(f"  row probe: RMSNorm of 8 rows bit-equal alone and among 8 / 64 / 2048 "
           f"rows: {norm_eq} (torch's own float32 mean of those 8 rows differs from "
           f"its 8-row value in {mean_rows} rows: alone / among 64 / among 2048); "
-          f"bf16 unembed of a row bit-equal alone and among 3 / 8 rows: "
-          f"{unembed_eq}", flush=True)
+          f"of 8 rows, the number whose bits differ alone and among {PROBE_ROWS} "
+          f"rows: bf16 unembed {unembed}, float32 unembed {unembed_f32}, top-k {k} / "
+          f"top-p {p} truncation {trunc}, "
+          f"its softmax {softmax}, the Gumbel arg-max {draw} (torch's own cumsum of "
+          f"the truncated probabilities: {torch_cumsum})", flush=True)
     return out
+
+
+def check_row_probe(probe: dict) -> None:
+    check(probe["norm_rows_equal"], "RMSNorm gives a row the same bits among 1, 8, 64 "
+          "and 2048 rows")
+    for op in ("unembed", "unembed_f32", "truncation", "softmax", "draw"):
+        check(not any(probe[f"{op}_rows_differing"]), f"the {op} gives a row the same "
+              f"bits alone and among {PROBE_ROWS} rows")
 
 
 def first_diff(name, a, b):
@@ -1053,9 +1150,6 @@ def mixed_scheduler(model, params, cfg, entries, compare, smi) -> dict:
 
     parted = {f"{a}-{b}": first_diff(f"{a} vs {b}", streams[a], streams[b])
               for a, b in (("A", "B"), ("A", "C"), ("A", "D"), ("E", "F"))}
-    probe = row_probe(model, params, cfg)
-    check(probe["norm_rows_equal"], "RMSNorm gives a row the same bits among 1, 8, 64 "
-          "and 2048 rows")
     replay_served("mixed-step", kept, compare)
     for label in ("tail prefill", "fused mixed step", "paired chunk wave"):
         check(any(k.startswith(label) for k in kept), f"replayed a served {label}")
@@ -1107,7 +1201,7 @@ def mixed_scheduler(model, params, cfg, entries, compare, smi) -> dict:
     def one_step(sched):
         sched.step()
 
-    _, wall = unprofiled_wall(prepared, one_step, contextlib.nullcontext)
+    shapes, wall = unprofiled_wall(prepared, one_step, lambda: launch_shapes(cfg))
     out["profile"] = profiled_report(prepared, one_step, "third step of C (one "
                                      "fused mixed forward)", wall)
     k = out["profile"]["kernels"]
@@ -1116,12 +1210,236 @@ def mixed_scheduler(model, params, cfg, entries, compare, smi) -> dict:
           f"[{smi}]", flush=True)
     check(k["pim_attention_kernel"]["count"] == L and k["pim_decode_kernel"]["count"] == L,
           "the profiled step was one fused mixed forward")
-    for name, kern in (("pim_attention", "pim_attention_kernel"),
-                       ("pim_decode", "pim_decode_kernel")):
-        if name in entries:
-            entries[name].setdefault("served_us", {})["mixed step"] = k[kern]["us_per_launch"]
-    out["row_probe"] = probe
+    served_attention(entries, "mixed step", out["profile"], shapes, cfg)
     out["parted"] = parted
+    out["paper_fidelity"] = paper_mixed(cfg, params, trace, late, smi, model.device)
+    return out
+
+
+def paper_mixed(cfg, params, trace, late, smi, dev) -> dict:
+    """Phase 10's runs A (paged) and C (sharing and fused mixed steps) at
+    the paper's fidelity (behavioral attention, 6-bit quantized ADC): its
+    float32 ADC sums over more than 512 keys (the 1,024-token prompt) meet
+    other row counts in C's fused steps than in A's decode chunks, so the
+    two streams hold only if those sums are row-local."""
+    pcfg = dataclasses.replace(cfg, attn_impl="behavioral",
+                               pim=dataclasses.replace(cfg.pim, adc_mode="quantized"))
+    model = build_model(pcfg, dev)
+    n_tok = sum(b for _, b in trace) + late[1]
+    runs = {"A": dict(page_size=PAGE),
+            "C": dict(page_size=PAGE, prefix_sharing=True, mixed_steps=True,
+                      prefill_chunk_budget=MIX_BUDGET)}
+    out, streams = {}, {}
+    for key, extra in runs.items():
+        sched = serve_lib.Scheduler(model, params, **MIX_KW, **extra)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        with plain_calls() as n_plain:
+            t0 = time.perf_counter()
+            streams[key], _, _ = serve_steps(sched, trace, late)
+            wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        check(not n_plain, f"paper fidelity {key}: no plain-version call ({n_plain})")
+        check(launches.get("pim_matmul", 0) > 0 and launches.get("lut_softmax", 0) > 0
+              and not launches.get("pim_attention") and not launches.get("pim_decode"),
+              f"paper fidelity {key}: kernels 3 and 4 served it, no attention kernel "
+              f"({launches})")
+        st = sched.stats
+        out[key] = dict(wall_s=wall, tokens_per_s=n_tok / wall, steps=st["steps"],
+                        model_steps=st["model_steps"], launches=launches)
+        print(f"  paper fidelity {key}: {wall:.2f} s, {n_tok / wall:.1f} tokens/s, "
+              f"{st['model_steps']} forwards, launches {launches} [{smi}]", flush=True)
+    out["parted"] = first_diff("paper fidelity A vs C", streams["A"], streams["C"])
+    check(out["parted"] == 0, "paper fidelity: A == C token for token (the ADC sums "
+          "of a row do not depend on the rows beside it)")
+    return out
+
+
+# ---- 11. sampled and speculative serving at full width ---------------------
+SPEC_KW = dict(max_batch_slots=8, max_len=1024, decode_chunk=8, page_size=PAGE)
+DRAFT = 4            # draft_len of the speculative runs
+SPEC_BUDGET = 256    # prefill_chunk_budget of the mixed runs
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+SPEC_SEED = 7        # the sampled runs draw under PRNGKey(7)
+
+
+def spec_trace(V: int):
+    """Phase 11's trace, from seed 11: 16 prompts of 48-400 tokens; in 12
+    of them a motif of 8-32 tokens repeats through about two thirds of
+    the prompt before a random tail, so the n-gram proposer has matches
+    from the first step; 4 are random tokens.  Budgets 32-96."""
+    rng = np.random.RandomState(11)
+    toks = data.lm_batch(11, 16, 400, V)
+    lens, budgets = rng.randint(48, 401, 16), rng.randint(32, 97, 16)
+    trace = []
+    for i, (n, b) in enumerate(zip(lens, budgets)):
+        if i % 4 == 3:
+            prompt = toks[i, :n].tolist()
+        else:
+            m, rep = int(rng.randint(8, 33)), 2 * int(n) // 3
+            prompt = ((toks[i, :m].tolist() * (rep // m + 1))[:rep]
+                      + toks[i, m:m + n - rep].tolist())
+        trace.append((prompt, int(b)))
+    return trace
+
+
+def spec_scheduler(model, params, cfg, entries, compare, smi) -> dict:
+    """Phase 11: the trace served greedy (G), with speculation (H), with
+    speculation and fused mixed steps (I), sampled (J), sampled with fused
+    mixed steps (K) and sampled with speculation, twice (L, L2)."""
+    cfg = dataclasses.replace(cfg, decode_block_k=PAGE)
+    model = build_model(cfg, model.device)
+    V, L = cfg.vocab_size, cfg.num_layers
+    trace = spec_trace(V)
+    n_tok = sum(b for _, b in trace)
+    print(f"spec scheduler: {len(trace)} requests, prompts "
+          f"{[len(p) for p, _ in trace]}, budgets {[b for _, b in trace]} ({n_tok} "
+          f"tokens), {SPEC_KW}, decode_block_k {PAGE}, draft_len {DRAFT}, sampled "
+          f"runs {SAMPLED} under PRNGKey({SPEC_SEED}), chunk budget {SPEC_BUDGET}",
+          flush=True)
+    spec = dict(speculate=True, draft_len=DRAFT)
+    mixed = dict(mixed_steps=True, prefill_chunk_budget=SPEC_BUDGET)
+    sampled = dict(SAMPLED, rng=serve_lib.prng.PRNGKey(SPEC_SEED))
+    runs = {"G": {}, "H": spec, "I": dict(spec, **mixed), "J": sampled,
+            "K": dict(sampled, **mixed), "L": dict(sampled, **spec),
+            "L2": dict(sampled, **spec)}
+
+    def verify_step(name, a):
+        seq, dec = np.asarray(a[5]), np.asarray(a[6])
+        if name != "spec_step" or not (seq[dec] > 1).any():
+            return None
+        return ("speculative step with verify rows"
+                + (" and chunk rows" if (seq[~dec] > 0).any() else "") + " (I)")
+
+    out, streams, kept = {}, {}, {}
+    for key, extra in runs.items():
+        sched = serve_lib.Scheduler(model, params, **SPEC_KW, **extra)
+        ctx = {"label": None, "first": {}, "done": False}
+
+        def pick(name, i, ctx=ctx):
+            if ctx["label"] is None:
+                return None
+            first = ctx["first"].setdefault(name, i)
+            return (f"{ctx['label']}, layer {REC_LAYER} ({name})"
+                    if i - first == REC_LAYER else None)
+
+        by_sq = {}
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        with recorded(pick, by_sq=by_sq) as rec, plain_calls() as n_plain, \
+                armed_recording(ctx, verify_step if key == "I" else lambda n, a: None,
+                                ("spec_step",)):
+            t0 = time.perf_counter()
+            got = run_audited(sched, trace)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kept.update(rec)
+        streams[key] = got
+        st = sched.stats
+        check(not n_plain, f"{key}: no plain-version call ({n_plain})")
+        check(all(len(s) == b for s, (_, b) in zip(got, trace))
+              and all(0 <= t < V for s in got for t in s),
+              f"{key}: every request got its budget of in-vocabulary tokens")
+        check(len(sched.free_pages) == sched.num_pages - 1,
+              f"{key}: every page back on the free list")
+        info = dict(wall_s=wall, tokens_per_s=n_tok / wall, steps=st["steps"],
+                    model_steps=st["model_steps"], tokens_per_model_step=n_tok / st["model_steps"],
+                    launches=dict(_build.LAUNCHES),
+                    decode_launches_by_sq={sq: n for (name, sq), n in sorted(by_sq.items())
+                                           if name == "pim_decode"},
+                    **{k: st[k] for k in ("spec_steps", "spec_proposed", "spec_accepted",
+                                          "spec_rejected", "spec_accept_rate")})
+        out[key] = info
+        print(f"  {key}: {wall:.2f} s, {n_tok / wall:.1f} tokens/s, {st['steps']} steps, "
+              f"{st['model_steps']} forwards ({info['tokens_per_model_step']:.2f} tokens "
+              f"a forward), kernel 2 launches by Sq {info['decode_launches_by_sq']}"
+              + (f", drafts {st['spec_proposed']} proposed, {st['spec_accepted']} "
+                 f"accepted ({st['spec_accept_rate']:.1%})" if st["spec_steps"] else "")
+              + f" [{smi}]", flush=True)
+
+    parted = {f"{a}-{b}": first_diff(f"{a} vs {b}", streams[a], streams[b])
+              for a, b in (("G", "H"), ("G", "I"), ("J", "K"), ("L", "L2"))}
+    out["parted"] = parted
+    check(not any(parted.values()), f"streams equal: G == H == I, J == K, L == L2 "
+          f"(requests parting: {parted})")
+    print(f"  sampled streams J against greedy G: {first_diff('J vs G', streams['J'], streams['G'])} "
+          "of 16 requests differ", flush=True)
+    for spec_key, base in (("H", "G"), ("L", "J")):
+        o = out[spec_key]
+        check(o["model_steps"] < out[base]["model_steps"] and o["spec_proposed"] > 0
+              and o["spec_accepted"] > 0,
+              f"{spec_key}: {o['model_steps']} forwards < {base}'s "
+              f"{out[base]['model_steps']}, {o['spec_proposed']} drafts proposed, "
+              f"{o['spec_accepted']} accepted")
+    check(any(sq > 1 for sq in out["H"]["decode_launches_by_sq"]),
+          f"kernel 2 ran verify rows (Sq > 1) on the served path: launches by Sq "
+          f"{out['H']['decode_launches_by_sq']}")
+    replay_served("speculative", kept, compare)
+    check(any(k.startswith("speculative step") and "pim_decode" in k for k in kept),
+          "replayed a served speculative step's verify rows")
+    if "pim_decode" in entries:
+        entries["pim_decode"]["verify_launches"] = sum(
+            n for sq, n in out["H"]["decode_launches_by_sq"].items() if sq > 1)
+
+    # one speculative step of L (its second: 8 decode rows verifying their
+    # drafts) under the profiler, and its sampler alone on the step's inputs
+    inputs = {}
+
+    def prepared():
+        sched = serve_lib.Scheduler(model, params, **SPEC_KW, **runs["L"])
+        for p, b in trace:
+            sched.submit(p, b)
+        sched.step()
+        return sched
+
+    def one_step(sched):
+        sched.step()
+
+    @contextlib.contextmanager
+    def sampler_inputs():
+        with launch_shapes(cfg) as shapes:
+            fn = serve_lib.spec_accept
+
+            def keep(*a):
+                inputs["spec_accept"] = tuple(x.clone() if isinstance(x, torch.Tensor)
+                                              else x for x in a)
+                return fn(*a)
+            serve_lib.spec_accept = keep
+            try:
+                yield shapes
+            finally:
+                serve_lib.spec_accept = fn
+
+    shapes, wall = unprofiled_wall(prepared, one_step, sampler_inputs)
+    out["profile"] = profiled_report(prepared, one_step, "second step of L (one "
+                                     "sampled speculative forward)", wall)
+    k = out["profile"]["kernels"]
+    check(k["pim_attention_kernel"]["count"] == L and k["pim_decode_kernel"]["count"] == L,
+          "the profiled step was one speculative forward")
+    check(all(sq == DRAFT + 1 for *_, sq in shapes["pim_decode"]),
+          f"the profiled step's kernel 2 launches carry verify rows of Sq {DRAFT + 1}")
+    out["served"] = served_attention(entries, f"speculative step (Sq {DRAFT + 1})",
+                                     out["profile"], shapes, cfg)
+    logits = inputs["spec_accept"][0]
+    rows = logits.flatten(0, 1)[:8]
+    keys = serve_lib._row_keys(serve_lib.prng.PRNGKey(SPEC_SEED, model.device),
+                               torch.arange(8, device=model.device),
+                               torch.zeros(8, dtype=torch.long, device=model.device))
+    sampler = {}
+    for name, fn in (("speculative accept", lambda: serve_lib.spec_accept(*inputs["spec_accept"])),
+                     ("per-row draw", lambda: serve_lib.sample_logits_per_row(
+                         rows, keys, SAMPLED["temperature"], SAMPLED["top_k"],
+                         SAMPLED["top_p"]))):
+        times = profiled(fn, 3)
+        sampler[name] = dict(device_us=sum(us for us, _ in times.values()) / 3,
+                             launches=sum(n for _, n in times.values()) / 3)
+        print(f"  sampler, {name} ({tuple(logits.shape) if 'accept' in name else tuple(rows.shape)} "
+              f"logits): {sampler[name]['launches']:.0f} device kernels and copies, "
+              f"{sampler[name]['device_us']:.1f} us of device time a step [{smi}]", flush=True)
+    out["sampler"] = sampler
+    print(f"  speculative step: kernel 1 {k['pim_attention_kernel']['us_per_launch']:.2f} "
+          f"us, kernel 2 {k['pim_decode_kernel']['us_per_launch']:.2f} us per launch "
+          f"[{smi}]", flush=True)
     return out
 
 
@@ -1468,37 +1786,47 @@ def replay_adc(label: str, kept: dict, rows: dict) -> None:
 
 
 @contextlib.contextmanager
-def softmax_bounds():
-    """Within the block, each kernel 4 call of the behavioral attention
-    records its bound in us (`softmax_bound` of its operands): yields the
-    list."""
-    seen, fn = [], A._lut_softmax_kernel
+def adc_bounds():
+    """Within the block, each kernel 4 call of the behavioral attention and
+    each kernel 3 call of a PIM linear records its bound in us
+    (`softmax_bound` of its operands, `matmul_bound` of its M, K, N under
+    the ADC): yields {"lut_softmax": [...], "pim_matmul": [...]}."""
+    seen = {"lut_softmax": [], "pim_matmul": []}
+    sm, mm = A._lut_softmax_kernel, core_pim._adc_matmul
 
-    def call(scores, mask, cfg):
-        seen.append(softmax_bound(scores, mask)[0] * 1e3)
-        return fn(scores, mask, cfg)
+    def softmax_call(scores, mask, cfg):
+        seen["lut_softmax"].append(softmax_bound(scores, mask)[0] * 1e3)
+        return sm(scores, mask, cfg)
 
-    A._lut_softmax_kernel = call
+    def matmul_call(x, w, cfg):
+        seen["pim_matmul"].append(
+            matmul_bound(x.shape[0], x.shape[1], w.shape[1], True)[0] * 1e3)
+        return mm(x, w, cfg)
+
+    A._lut_softmax_kernel, core_pim._adc_matmul = softmax_call, matmul_call
     try:
         yield seen
     finally:
-        A._lut_softmax_kernel = fn
+        A._lut_softmax_kernel, core_pim._adc_matmul = sm, mm
 
 
-def served_softmax(entries, label: str, report: dict, bounds, L: int) -> None:
-    """Kernel 4's device us per launch of a profiled serving run beside its
-    mean bound over the launches of the unprofiled run of the same work, and
-    the run's device kernels and copies per forward (one kernel 4 launch
-    per layer and forward)."""
-    k = report["kernels"]["lut_softmax_kernel"]
-    us, b_us = k["us_per_launch"], sum(bounds) / len(bounds)
-    forwards = k["launched"] // L
+def served_adc(entries, label: str, report: dict, bounds, L: int) -> None:
+    """Kernels 4 and 3's device us per launch of a profiled serving run
+    beside their mean bounds over the launches of the unprofiled run of the
+    same work, and the run's device kernels and copies per forward (one
+    kernel 4 launch per layer and forward)."""
+    forwards = report["kernels"]["lut_softmax_kernel"]["launched"] // L
     report["device_events_per_forward"] = report["device_events"] / forwards
-    entries["lut_softmax"].setdefault("served_us", {})[label] = us
-    entries["lut_softmax"].setdefault("served_bound_us", {})[label] = b_us
-    print(f"  kernel 4 on the {label}: {us:.2f} us per launch, bound {b_us:.3f} us "
-          f"(mean over its {len(bounds)} calls' operands), {b_us / us:.1%} of it; "
-          f"{report['device_events_per_forward']:.1f} device kernels and copies "
+    for name, kernel, num in (("lut_softmax", "lut_softmax_kernel", 4),
+                              ("pim_matmul", "pim_matmul_kernel", 3)):
+        us = report["kernels"][kernel]["us_per_launch"]
+        b_us = sum(bounds[name]) / len(bounds[name])
+        entries[name].setdefault("served_us", {})[label] = us
+        entries[name].setdefault("served_bound_us", {})[label] = b_us
+        print(f"  kernel {num} on the {label}: {us:.2f} us per launch, bound "
+              f"{b_us:.3f} us (mean over its {len(bounds[name])} calls' operands), "
+              f"{b_us / us:.1%} of it", flush=True)
+    print(f"  {report['device_events_per_forward']:.1f} device kernels and copies "
           f"per forward ({forwards} forwards)", flush=True)
 
 
@@ -1576,14 +1904,14 @@ def paper_fidelity(cfg, params, entries) -> dict:
     def cut(_):
         serve_lib.generate(model, params, batch, PROFILED_TOKENS, P + T)
 
-    bounds, wall = unprofiled_wall(lambda: None, cut, softmax_bounds)
+    bounds, wall = unprofiled_wall(lambda: None, cut, adc_bounds)
     out["classic"] = dict(
         prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_ms,
         tokens_per_s=Bs * T / total_s, total_s=total_s, launches=launches,
         peak_gib=peak, **profiled_report(
             lambda: None, cut, f"paper-fidelity request cut to {PROFILED_TOKENS} new "
             "tokens", wall, ADC_KERNELS))
-    served_softmax(entries, "classic request", out["classic"], bounds, L)
+    served_adc(entries, "classic request", out["classic"], bounds, L)
 
     trace, lens, budgets = sched_trace(V)
     n_tok = int(budgets.sum())
@@ -1643,7 +1971,7 @@ def paper_fidelity(cfg, params, entries) -> dict:
         for _ in range(PROFILED_STEPS):
             sched.step()
 
-    bounds, cut_wall = unprofiled_wall(submitted, steps, softmax_bounds)
+    bounds, cut_wall = unprofiled_wall(submitted, steps, adc_bounds)
     out["paged"] = dict(
         wall_s=wall, tokens_per_s=n_tok / wall, ms_per_step=wall / st["steps"] * 1e3,
         steps=st["steps"], model_steps=st["model_steps"], launches=launches,
@@ -1651,7 +1979,7 @@ def paper_fidelity(cfg, params, entries) -> dict:
         profile=profiled_report(
             submitted, steps, f"first {PROFILED_STEPS} steps of the paper-fidelity "
             "paged trace", cut_wall, ADC_KERNELS))
-    served_softmax(entries, "paged trace", out["paged"]["profile"], bounds, L)
+    served_adc(entries, "paged trace", out["paged"]["profile"], bounds, L)
     return out
 
 
@@ -1754,17 +2082,19 @@ def dense_kernels(dev, cfg, gen, operands, compare, bound, entries) -> None:
           f"bound {b_ms:.4f} ({b_by}); wall of back-to-back calls: wrapper "
           f"{walls['wrapper_ms']:.4f}, plain {walls['plain_wall_ms']:.4f}, "
           f"sdpa {walls['library_wall_ms']:.4f}")
-    # verify rows: Sq 4, bit-identical to single-step launches
-    qv, cache_v, opnd_v = operands(4, kv, kv)
-    o_v, it_v = pim_decode(*opnd_v, kv - 4, kv, **kw)
-    compare("decode verify rows Sq4", (o_v, it_v),
-            pim_decode_plain(*opnd_v, kv - 4, kv, **kw))
-    same = True
-    for l in range(4):
-        o_1 = ops.pim_flash_attention(qv[:, l:l + 1], cache_v, kv - 4 + l,
-                                      pim_cfg, lut_cfg, out_dtype=torch.float32)
-        same &= torch.equal(o_v.reshape(B, H, 4, Dh)[:, :, l], o_1[:, 0])
-    check(bool(same), "verify rows bit-identical to single-step decodes")
+    # verify rows, bit-identical to single-step launches: Sq 4 (8 packed
+    # rows, one row tile) and Sq 5 (10, two tiles: draft_len 4's rows)
+    for sq in (4, 5):
+        qv, cache_v, opnd_v = operands(sq, kv, kv)
+        o_v, it_v = pim_decode(*opnd_v, kv - sq, kv, **kw)
+        compare(f"decode verify rows Sq{sq}", (o_v, it_v),
+                pim_decode_plain(*opnd_v, kv - sq, kv, **kw))
+        same = True
+        for l in range(sq):
+            o_1 = ops.pim_flash_attention(qv[:, l:l + 1], cache_v, kv - sq + l,
+                                          pim_cfg, lut_cfg, out_dtype=torch.float32)
+            same &= torch.equal(o_v.reshape(B, H, sq, Dh)[:, :, l], o_1[:, 0])
+        check(bool(same), f"verify rows Sq{sq} bit-identical to single-step decodes")
     ql = torch.tensor([1, 0, 1, 1], device=dev)
     compare("decode ragged q_len with a 0 row",
             pim_decode(*opnd, kv - 1, kv, q_len=ql, **kw),
@@ -1888,7 +2218,7 @@ def main(argv=None) -> int:
         adc_kernels(dev, cfg, gen, entries)
     if 4 in phases:
         small_model(dev, 5 in phases)
-    if phases & {6, 7, 9, 10}:
+    if phases & {6, 7, 9, 10, 11}:
         serve_phases(dev, cfg, phases, entries, compare, results)
     stamp(f"phases {sorted(phases)} done: every check passed")
     for name in max_err:
@@ -1903,8 +2233,8 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("wrapper_ms", "cold_ms", "served_us", "served_bound_us", "paged_ms", "paged_bound_ms",
-             "paged_launches", "dense_sched_launches", "mixed_launches", "ideal_ms",
-             "int_mm_ms")
+             "paged_launches", "dense_sched_launches", "mixed_launches", "verify_launches",
+             "ideal_ms", "int_mm_ms")
     print(json.dumps({"kernels": [{**{k: e.get(k) for k in keys},
                                    **{k: e[k] for k in extra if k in e}}
                                   for e in entries.values()]}))
@@ -1947,7 +2277,7 @@ def small_model(dev, scheduler: bool) -> None:
 
 
 def serve_phases(dev, cfg, phases, entries, compare, results) -> None:
-    """Phases 6, 7, 9 and 10 at full width and depth, on the phase 6
+    """Phases 6, 7, 9, 10 and 11 at full width and depth, on the phase 6
     weights."""
     stamp("phase 6: model and weights")
     Dh = cfg.resolved_head_dim
@@ -1969,10 +2299,17 @@ def serve_phases(dev, cfg, phases, entries, compare, results) -> None:
     if 9 in phases:
         stamp("phase 9")
         results["paper_fidelity"] = paper_fidelity(cfg, params, entries)
+    if phases & {10, 11}:
+        results["row_probe"] = row_probe(model, params, cfg)
+        check_row_probe(results["row_probe"])
     if 10 in phases:
         stamp("phase 10")
         results["mixed"] = mixed_scheduler(model, params, cfg, entries, compare,
                                            results["card"])
+    if 11 in phases:
+        stamp("phase 11")
+        results["spec"] = spec_scheduler(model, params, cfg, entries, compare,
+                                         results["card"])
 
 
 def serve_classic(model, params, cfg, entries, results) -> None:
@@ -2021,13 +2358,13 @@ def serve_classic(model, params, cfg, entries, results) -> None:
     def cut(_):
         serve_lib.generate(model, params, batch, PROFILED_TOKENS, P + T)
 
-    shapes, wall = unprofiled_wall(lambda: None, cut, lambda: decode_shapes(cfg))
+    shapes, wall = unprofiled_wall(lambda: None, cut, lambda: launch_shapes(cfg))
     results["serve"] = dict(
         prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_ms,
         tokens_per_s=Bs * T / total_s, total_s=total_s, launches=launches,
         **profiled_report(lambda: None, cut,
                           f"request cut to {PROFILED_TOKENS} new tokens", wall))
-    served_decode(entries, "classic request", results["serve"], shapes, cfg)
+    served_attention(entries, "classic request", results["serve"], shapes, cfg)
 
 
 if __name__ == "__main__":

@@ -115,6 +115,12 @@ def launch_plan(dh: int, dhk: int, block_q: int, q_per_kv: int,
                       blocks_per_unit=max(1, KV_ROWS // block_k), smem=smem)
 
 
+# When a list, every launch appends its (3, nb) int32 scalar table on the
+# device (q_offset, kv_len, q_len) and q's (BH, Sq, Dh): the served shapes
+# of a run, read after it without a host sync during it.
+SHAPES: Optional[list] = None
+
+
 def scalar_table(q_offset, kv_len, q_len, device, nb: int = 1):
     """The (3, nb) int32 table [q_offset, kv_len, q_len] of a launch; each
     entry is an int or a (B,) tensor on `device`, and nb is at least B.
@@ -416,4 +422,6 @@ def _launch(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table, scalars,
         float((1 << (lut_cfg.input_bits - 1)) - 1), 1.0 / (1 << frac), stream)
     _build.check(err, "pim_attention launch")
     _build.LAUNCHES["pim_attention"] += 1
+    if SHAPES is not None:
+        SHAPES.append((scalars, tuple(q_q.shape)))
     return out, iters

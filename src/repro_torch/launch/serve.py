@@ -6,20 +6,23 @@ KV cache, greedy by default.
 
 `--continuous-batching` serves the batch through the slot scheduler
 (`--max-batch-slots`, retirement at `--eos-id`); `--page-size N` puts the
-slots on the paged KV pool of `--num-pages` pages (greedy only), where
+slots on the paged KV pool of `--num-pages` pages, where
 `--prefix-cache` shares prompt prefixes between requests (refcounted pages
 and copy-on-write, the directory capped at `--prefix-cache-pages`);
 `--mixed-steps` prefills prompts in chunks of at most
 `--prefill-chunk-budget` tokens a step beside the decoding slots, in one
 forward (`--mixed-dispatch fused`) or as a chunk wave paired with the
-decode chunk (`paired`, paged only):
+decode chunk (`paired`, paged only); `--speculate` verifies up to
+`--draft-len` n-gram drafts a slot and step (`--draft-mode ngram`):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
       --attn-impl kernel --continuous-batching --page-size 16 --batch 8 \
-      --prefix-cache --mixed-steps --prefill-chunk-budget 256
+      --prefix-cache --mixed-steps --prefill-chunk-budget 256 --speculate
 
-Runs on the GPU; `--device cpu` runs the plain PyTorch versions instead
-(use `--smoke` there).  Weights are random, drawn from `--seed`.
+`--temperature` > 0 samples (with `--top-k` / `--top-p`) from the threefry
+key `PRNGKey(--seed)`, as the JAX package's CLI does.  Runs on the GPU;
+`--device cpu` runs the plain PyTorch versions instead (use `--smoke`
+there).  Weights are random, drawn from seed 0.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data import pipeline as data
 from repro_torch.models.model_zoo import build_model
-from repro_torch.runtime import serve_lib
+from repro_torch.runtime import prng, serve_lib
 
 
 def parse_args(argv=None):
@@ -59,13 +62,13 @@ def parse_args(argv=None):
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="nucleus sampling mass (1.0 = all)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights and of sampling")
+                    help="sampling rng seed (the key PRNGKey(seed))")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain versions)")
     ap.add_argument("--continuous-batching", action="store_true",
                     help="serve through the ragged slot scheduler (per-"
-                         "sequence KV lengths + EOS retirement; greedy)")
+                         "sequence KV lengths + EOS retirement)")
     ap.add_argument("--max-batch-slots", type=int, default=0,
                     help="KV cache slots for the scheduler (0 = --batch)")
     ap.add_argument("--eos-id", type=int, default=-1,
@@ -97,6 +100,16 @@ def parse_args(argv=None):
                     help="one (B, L) forward per mixed step ('fused') or a "
                          "chunk wave of the prefilling rows paired with the "
                          "decode chunk ('paired'; requires --page-size)")
+    ap.add_argument("--speculate", action="store_true",
+                    help="speculative decoding: n-gram drafts verified in "
+                         "one multi-token decode launch a step (requires "
+                         "--continuous-batching; greedy streams unchanged, "
+                         "sampling distribution-preserving)")
+    ap.add_argument("--draft-len", type=int, default=4,
+                    help="most drafted tokens a slot and step (the depth "
+                         "adapts between 1 and this cap)")
+    ap.add_argument("--draft-mode", default="ngram", choices=["ngram"],
+                    help="draft proposer: 'ngram' = prompt lookup")
     args = ap.parse_args(argv)
     if args.page_size and not args.continuous_batching:
         ap.error("--page-size requires --continuous-batching")
@@ -112,6 +125,8 @@ def parse_args(argv=None):
         ap.error("--prefill-chunk-budget requires --mixed-steps")
     if args.mixed_dispatch == "paired" and not args.page_size:
         ap.error("--mixed-dispatch paired requires --page-size")
+    if args.speculate and not args.continuous_batching:
+        ap.error("--speculate requires --continuous-batching")
     return args
 
 
@@ -127,17 +142,17 @@ def main(argv=None):
     if args.kv_bits:
         cfg = dataclasses.replace(cfg, kv_bits=args.kv_bits)
     model = build_model(cfg, args.device)
-    params = model.init(seed=args.seed)
+    params = model.init(seed=0)
     tokens = data.lm_batch(0, args.batch, args.prompt_len, cfg.vocab_size)
     batch = {"tokens": torch.from_numpy(tokens).long()}
     max_len = args.prompt_len + args.new_tokens
-    gen = torch.Generator(device=model.device).manual_seed(args.seed)
 
     t0 = time.perf_counter()
     out = serve_lib.generate(
         model, params, batch, args.new_tokens, max_len,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-        generator=gen, continuous_batching=args.continuous_batching,
+        rng=prng.PRNGKey(args.seed),
+        continuous_batching=args.continuous_batching,
         eos_id=None if args.eos_id < 0 else args.eos_id,
         max_batch_slots=args.max_batch_slots or None,
         page_size=args.page_size, num_pages=args.num_pages,
@@ -145,7 +160,8 @@ def main(argv=None):
         prefix_cache_pages=args.prefix_cache_pages,
         mixed_steps=args.mixed_steps,
         prefill_chunk_budget=args.prefill_chunk_budget,
-        mixed_dispatch=args.mixed_dispatch)
+        mixed_dispatch=args.mixed_dispatch, speculate=args.speculate,
+        draft_len=args.draft_len, draft_mode=args.draft_mode)
     out = out.cpu()
     dt = time.perf_counter() - t0
     toks = args.batch * args.new_tokens
@@ -155,6 +171,8 @@ def main(argv=None):
                 + (f", paged ps={args.page_size}" if args.page_size else "")
                 + (", prefix cache" if args.prefix_cache else "")
                 + (f", mixed {args.mixed_dispatch}" if args.mixed_steps
+                   else "")
+                + (f", speculate k={args.draft_len}" if args.speculate
                    else "") + ")")
     print(f"[serve] arch={cfg.name} attn={cfg.attn_impl} device={model.device} "
           f"{mode} kv{cfg.kv_bits} temp={args.temperature} top_k={args.top_k} "

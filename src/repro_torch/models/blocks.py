@@ -5,8 +5,7 @@ on three storages: the classic dense cache (scalar offset), ragged dense
 slots and the paged pool (per-row offsets).  Serve-path attention runs the
 paper's PIM pipeline, either the behavioral two-pass
 (`cfg.attn_impl == "behavioral"`) or the fused kernels (`"kernel"`), and
-serves mixed prefill+decode steps.  Speculative verify rows are a later
-slice.
+serves mixed prefill+decode steps and speculative verify rows.
 """
 from __future__ import annotations
 
@@ -74,35 +73,39 @@ def _serve_attend_paged(q, pool: A.PagedKVCache, pages, kv_len, offset,
 
 def _mixed_attend(q, cache, offset, kv_len, seq_lens, decode_rows,
                   cfg: ModelConfig, causal: bool, window: int = 0,
-                  pages=None):
+                  pages=None, verify_len: int = 1):
     """Mixed prefill+decode attention on the kernel path: two launches
     whose early-outs complement each other.  The prefill kernel serves the
     chunk rows (decode rows masked to q_len 0: no KV block); the decode
-    dispatch serves the decode rows exactly as a separate Sq == 1 step
+    dispatch serves the decode rows exactly as separate Sq == 1 steps
     would (the split-K kernel, or the prefill kernel when cfg.decode_kernel
-    is off), on the step's first query column, with chunk rows masked to
-    kv_len 0.  Each row so gets the bits of its own unmixed dispatch.  The
+    is off), on the step's first Lv = min(verify_len, S) query columns,
+    with chunk rows masked to kv_len 0.  A decode row carries seq_lens in
+    [1, verify_len] tokens, its current token and its speculative drafts,
+    and each of its columns gets the bits of the single-token step it
+    replaces; every row so gets the bits of its own unmixed dispatch.  The
     dense decode launch reads a copy of the cache record whose `length` is
     the decode rows' (the planes are shared, the record is not)."""
     seq_lens = seq_lens.int()
+    Lv = min(int(verify_len), q.shape[1])
     ql_prefill = torch.where(decode_rows, 0, seq_lens)
-    ql_decode = torch.where(decode_rows, torch.clamp(seq_lens, max=1), 0)
+    ql_decode = torch.where(decode_rows, torch.clamp(seq_lens, max=Lv), 0)
     kv_decode = torch.where(decode_rows, kv_len, 0).int()
     if pages is not None:
         o = _serve_attend_paged(q, cache, pages, kv_len, offset, cfg, causal,
                                 q_len=ql_prefill)
-        od = _serve_attend_paged(q[:, :1], cache, pages, kv_decode, offset,
+        od = _serve_attend_paged(q[:, :Lv], cache, pages, kv_decode, offset,
                                  cfg, causal, q_len=ql_decode,
                                  force_decode_kernel=True)
     else:
         o = _serve_attend(q, cache, offset, cfg, window, causal,
                           q_len=ql_prefill)
-        od = _serve_attend(q[:, :1], dataclasses.replace(cache,
-                                                         length=kv_decode),
+        od = _serve_attend(q[:, :Lv], dataclasses.replace(cache,
+                                                          length=kv_decode),
                            offset, cfg, window, causal, q_len=ql_decode,
                            force_decode_kernel=True)
-    head = torch.where(decode_rows[:, None, None, None], od, o[:, :1])
-    return torch.cat([head, o[:, 1:]], dim=1)
+    head = torch.where(decode_rows[:, None, None, None], od, o[:, :Lv])
+    return torch.cat([head, o[:, Lv:]], dim=1)
 
 
 def attn_block_fwd_serve(params, x: torch.Tensor, cache, offset,
@@ -124,14 +127,11 @@ def attn_block_fwd_serve(params, x: torch.Tensor, cache, offset,
     write only their tail and attend over [0, offset + seq_lens) through
     the table (the scheduler never lets a write land in a shared page).
     Mixed (ragged or paged): `decode_rows` is a (B,) bool of the rows
-    carrying one decode token; the kernel path routes the two classes
+    carrying decode tokens; the kernel path routes the two classes
     through `_mixed_attend`, while the behavioral path's per-row
-    arithmetic needs no routing.  `verify_len` > 1 (speculation) belongs
-    to a later slice of the port and raises."""
-    if verify_len != 1:
-        raise NotImplementedError(
-            "speculative verify rows are not ported yet (ROADMAP.md §1 item "
-            "5 (f))")
+    arithmetic needs no routing.  `verify_len` > 1 (speculation) widens a
+    decode row to up to verify_len tokens, its current token and drafts,
+    all verified through the split-K decode launch in one step."""
     mixed = decode_rows is not None and cfg.attn_impl == "kernel"
     B, S, _ = x.shape
     ragged = isinstance(offset, torch.Tensor)
@@ -149,7 +149,7 @@ def attn_block_fwd_serve(params, x: torch.Tensor, cache, offset,
         kv_len = offset + (S if seq_lens is None else seq_lens)
         if mixed:
             o = _mixed_attend(q, cache, offset, kv_len, seq_lens, decode_rows,
-                              cfg, causal, pages=pages)
+                              cfg, causal, pages=pages, verify_len=verify_len)
         else:
             o = _serve_attend_paged(q, cache, pages, kv_len, offset, cfg,
                                     causal, q_len=seq_lens)
@@ -157,7 +157,8 @@ def attn_block_fwd_serve(params, x: torch.Tensor, cache, offset,
         A.cache_write_ragged(cache, k, v, offset, cfg.pim, seq_lens)
         if mixed:
             o = _mixed_attend(q, cache, offset, cache.length, seq_lens,
-                              decode_rows, cfg, causal, window=window)
+                              decode_rows, cfg, causal, window=window,
+                              verify_len=verify_len)
         else:
             o = _serve_attend(q, cache, offset, cfg, window, causal,
                               q_len=seq_lens)

@@ -53,9 +53,26 @@ def embed_apply(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return params["table"][tokens].to(dtype)
 
 
+UNEMBED_ROWS = 64
+
+
 def unembed_apply(params, x: torch.Tensor) -> torch.Tensor:
-    """Logits against the (V, D) head table, in the dtype of x."""
-    return x @ params["table"].to(x.dtype).t()
+    """Logits against the (V, D) head table, in the dtype of x.  On the
+    card cuBLAS picks its kernel, and so a row's order of sums, by the
+    number of rows (in float32 a row's logits change between 3 and 15
+    rows), so a verify column's logits could differ from those of the
+    single-token step it replaces; there the rows run through products of
+    exactly UNEMBED_ROWS rows, the last one padded with zeros.  The CPU
+    keeps one product."""
+    w = params["table"].to(x.dtype).t()
+    if not x.is_cuda:
+        return x @ w
+    rows = x.reshape(-1, x.shape[-1])
+    n = rows.shape[0]
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, -n % UNEMBED_ROWS))
+    out = torch.cat([rows[i:i + UNEMBED_ROWS] @ w
+                     for i in range(0, rows.shape[0], UNEMBED_ROWS)])
+    return out[:n].reshape(*x.shape[:-1], w.shape[1])
 
 
 def rope_apply(x: torch.Tensor, positions: torch.Tensor,

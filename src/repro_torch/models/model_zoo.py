@@ -26,7 +26,7 @@ class Model(NamedTuple):
     device: torch.device
     init: Callable[..., Any]            # (generator=None, seed=0) -> params
     init_cache: Callable[..., Any]      # (batch, max_len[, ragged, page_size, num_pages])
-    forward_serve: Callable[..., Any]   # (params, batch, cache, offset[, seq_lens, pages, decode_rows])
+    forward_serve: Callable[..., Any]   # (params, batch, cache, offset[, seq_lens, pages, decode_rows, logit_positions, verify_len])
 
 
 def _is_linear(node) -> bool:
@@ -104,9 +104,12 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
                             page_size=page_size, num_pages=num_pages)
 
     def forward_serve(params, batch, cache, offset, seq_lens=None,
-                      pages=None, decode_rows=None):
+                      pages=None, decode_rows=None, logit_positions=None,
+                      verify_len: int = 1):
         return T.forward_serve(params, batch, cache, offset, cfg,
                                seq_lens=seq_lens, pages=pages,
-                               decode_rows=decode_rows)
+                               decode_rows=decode_rows,
+                               logit_positions=logit_positions,
+                               verify_len=verify_len)
 
     return Model(cfg, device, init, init_cache, forward_serve)

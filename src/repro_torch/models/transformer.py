@@ -165,7 +165,7 @@ def _index(tree, r: int):
 
 def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
                   cfg: ModelConfig, seq_lens=None, pages=None,
-                  decode_rows=None):
+                  decode_rows=None, logit_positions=None, verify_len: int = 1):
     """One serve step: a prefill chunk, a single-token decode or a mixed
     batch of both.  Writes the step's K/V into `cache` in place and returns
     (logits (B, V), cache).
@@ -180,16 +180,21 @@ def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
     through.  Mixed: `decode_rows` is a (B,) bool marking the rows that
     carry one decode token (the rest carry prefill chunks, or nothing);
     on the kernel path every layer sends each class through the kernel its
-    separate dispatch would use (`blocks._mixed_attend`).  Every layer
-    reuses the step's offsets, lengths and table as they are: callers
-    bring them to the device once per step."""
+    separate dispatch would use (`blocks._mixed_attend`).  Speculative
+    verify: `verify_len` widens a decode row to up to that many tokens
+    (current token and drafts), and `logit_positions`, a (B, P) int tensor
+    of in-step columns, asks for logits at every one of them: the return
+    is then (B, P, V), column j of a row equal to the logits of the
+    single-token step it replaces.  Every layer reuses the step's offsets,
+    lengths and table as they are: callers bring them to the device once
+    per step."""
     pat, R, tail = pattern_layout(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     ragged = isinstance(offset, torch.Tensor)
     x = L.embed_apply(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
     kw = dict(causal=cfg.causal, seq_lens=seq_lens, pages=pages,
-              decode_rows=decode_rows)
+              decode_rows=decode_rows, verify_len=verify_len)
     for r in range(R):
         for j in range(len(pat)):
             x = blocks.attn_block_fwd_serve(
@@ -204,11 +209,17 @@ def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
             c.length = offset + S if not ragged else torch.clamp(
                 offset + (S if seq_lens is None else seq_lens), max=max_len
             ).to(torch.int32)
-    if seq_lens is not None:
-        idx = torch.clamp(seq_lens.long(), min=1) - 1
-        x = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[-1]))
+    if logit_positions is not None:
+        idx = torch.clamp(logit_positions.long(), 0, S - 1)
+    elif seq_lens is not None:
+        idx = (torch.clamp(seq_lens.long(), min=1) - 1)[:, None]
     else:
+        idx = None
+    if idx is None:
         x = x[:, -1:]
+    else:
+        x = torch.gather(x, 1, idx[:, :, None].expand(*idx.shape, x.shape[-1]))
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
     head = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return L.unembed_apply(head, x)[:, 0], cache
+    logits = L.unembed_apply(head, x)
+    return (logits if logit_positions is not None else logits[:, 0]), cache

@@ -18,16 +18,18 @@ Counterpart of the JAX package's `runtime/serve_lib.py`:
     one Scheduler run.  On the paged pool the Scheduler can share prompt
     prefixes between requests (refcounted pages, copy-on-write), and on
     either storage it can prefill prompts in chunks inside mixed
-    prefill+decode steps.
+    prefill+decode steps, and verify n-gram drafts in speculative steps.
 
-The Scheduler's host state is numpy, as in the reference.  Each forward
-gets its host inputs (tokens, offsets, lengths, page table) in one
-asynchronous copy, a decode chunk keeps its evolving lengths on the device,
-and the host reads the device once per prefill wave, mixed step and chunk.
-The Scheduler decodes greedily: sampled streams need the reference's
-per-(request, token index) threefry keys, not ported yet.  Its other
-features (spill, speculation, snapshots, ...) raise NotImplementedError
-naming their ROADMAP.md item.
+Sampling draws with the reference's threefry keys (`runtime/prng.py`):
+classic generation splits one key per step, the Scheduler folds (request
+id, token index) into its base key, so sampled streams equal the
+reference's token for token.  The Scheduler's host state is numpy, as in
+the reference.  Each forward gets its host inputs (tokens, offsets,
+lengths, page table, request ids and token indices) in one asynchronous
+copy, a decode chunk keeps its evolving lengths on the device, and the
+host reads the device once per prefill wave, mixed or speculative step and
+chunk.  Its other features (spill, snapshots, ...) raise
+NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import TRASH_PAGE
 from repro_torch.models import transformer as T
 from repro_torch.models.model_zoo import Model
+from repro_torch.runtime import prng
 
 
 def kv_bytes_per_token(cfg: ModelConfig) -> int:
@@ -74,13 +77,44 @@ class AuditError(AssertionError):
     """`Scheduler.audit()` found a broken invariant of the page accounting."""
 
 
+SCAN_BLOCK = 16
+
+
+def _sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
+    out = x.clone()
+    for k in range(1, x.shape[-1]):
+        out[..., k] += out[..., k - 1]
+    return out
+
+
+def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float sum over the last dim in the order of XLA's
+    reduce-window rewrite of `jnp.cumsum` on the CPU: blocks of 16 summed
+    in sequence, their totals scanned the same way recursively and added
+    in.  Equal bit for bit to the reference's cumsum, and made of
+    elementwise ops, so a row's sums never depend on the rows beside it
+    (on CUDA torch.cumsum scans a lone row with another algorithm)."""
+    n = x.shape[-1]
+    if n <= SCAN_BLOCK:
+        return _sequential_cumsum(x)
+    nb = -(-n // SCAN_BLOCK)
+    xp = torch.nn.functional.pad(x, (0, nb * SCAN_BLOCK - n))
+    within = _sequential_cumsum(xp.view(*x.shape[:-1], nb, SCAN_BLOCK))
+    before = torch.nn.functional.pad(blocked_cumsum(within[..., -1])[..., :-1],
+                                     (1, 0))
+    return (within + before[..., None]).view(*x.shape[:-1], -1)[..., :n]
+
+
 def _truncate_logits(l: torch.Tensor, top_k: int, top_p: float) -> torch.Tensor:
     """top_k / nucleus truncation of temperature-scaled float32 logits
-    (masked entries -> -inf) over the last axis.
+    (masked entries -> -inf) over the last axis, any leading dims.
 
-    Nucleus rule: keep the shortest descending-probability prefix whose
-    exclusive cumulative mass is below top_p; the boundary token is kept,
-    so the set is never empty."""
+    top_k keeps the logits not below the k-th largest value (ties at it
+    stay, as with `lax.top_k`'s k-th value).  Nucleus rule: keep the
+    shortest descending-probability prefix whose exclusive cumulative
+    mass is below top_p, in the order of a stable sort (ties keep the
+    lower token id first, as the reference's stable `argsort(-probs)`);
+    the boundary token is kept, so the set is never empty."""
     V = l.shape[-1]
     if top_k:
         k = min(int(top_k), V)
@@ -90,7 +124,7 @@ def _truncate_logits(l: torch.Tensor, top_k: int, top_p: float) -> torch.Tensor:
     if top_p < 1.0:
         probs = torch.softmax(l, dim=-1)
         sp, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-        exclusive = torch.cumsum(sp, dim=-1) - sp
+        exclusive = blocked_cumsum(sp) - sp
         keep_sorted = exclusive < top_p
         keep_sorted[..., 0] = True
         keep = torch.empty_like(keep_sorted).scatter_(-1, order, keep_sorted)
@@ -98,17 +132,71 @@ def _truncate_logits(l: torch.Tensor, top_k: int, top_p: float) -> torch.Tensor:
     return l
 
 
-def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator],
+def sample_logits(logits: torch.Tensor, key: Optional[torch.Tensor],
                   temperature: float = 0.0, top_k: int = 0,
                   top_p: float = 1.0) -> torch.Tensor:
     """(B, V) logits -> (B,) token ids: greedy at temperature 0 (first
-    maximum on ties), else a categorical draw from the temperature-scaled,
-    top_k / top_p truncated distribution with `generator`."""
+    maximum on ties; `key` may be None), else the reference's draw from
+    the temperature-scaled, top_k / top_p truncated distribution with the
+    one threefry `key` for the whole batch (`prng.categorical`)."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
     l = _truncate_logits(logits.float() / temperature, top_k, top_p)
-    probs = torch.softmax(l, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return prng.categorical(key, l)
+
+
+def _row_keys(base_key: torch.Tensor, rids, gens) -> torch.Tensor:
+    """(B, 2) per-row sampling keys: (request id, generated-token index)
+    folded into the scheduler's base key.  A request's i-th token samples
+    with the same key whichever dispatch computes it (admission prefill,
+    mixed step, decode chunk, or the re-prefill of an eviction
+    continuation)."""
+    return prng.fold_in(prng.fold_in(base_key, torch.clamp(rids, min=0)), gens)
+
+
+def _row_key_grid(base_key: torch.Tensor, rids, gens, P: int) -> torch.Tensor:
+    """(B, P, 2) keys: column j of row b is the `_row_keys` key of token
+    index gens[b] + j, so the speculative verifier's column-j coin and
+    resample use the key stream of the non-speculative scheduler."""
+    col = torch.arange(P, device=gens.device, dtype=gens.dtype)
+    kr = prng.fold_in(base_key, torch.clamp(rids, min=0))
+    return prng.fold_in(kr[:, None, :], gens[:, None] + col[None, :])
+
+
+def sample_logits_per_row(logits: torch.Tensor, keys, temperature: float = 0.0,
+                          top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
+    """`sample_logits` with its own key per batch row (keys: (B, 2) from
+    `_row_keys`; ignored when greedy).  One call hashes the (B, V) noise
+    grid of every row, where the reference vmaps a row at a time."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    l = _truncate_logits(logits.float() / temperature, top_k, top_p)
+    return prng.categorical(keys, l)
+
+
+class Sampling:
+    """How the scheduler's device steps pick a row's token: greedy at
+    temperature 0, else with the key of its (request id, token index)
+    under the base `key` (`_row_keys`)."""
+
+    def __init__(self, temperature: float, top_k: int, top_p: float,
+                 key: torch.Tensor):
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.key = key
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature <= 0.0
+
+    def rows(self, logits: torch.Tensor, rids, gens) -> torch.Tensor:
+        """(n, V) logits and (n,) device rids / gens -> (n,) tokens."""
+        if self.greedy:
+            return torch.argmax(logits, dim=-1)
+        return sample_logits_per_row(
+            logits, _row_keys(self.key, rids.long(), gens.long()),
+            self.temperature, self.top_k, self.top_p)
 
 
 # Scheduler options of the reference that later slices port: the value
@@ -117,12 +205,11 @@ _NOT_PORTED = {
     "victim_pool_pages": (0, "5 (e)"), "max_queue": (0, "5 (e)"),
     "deadline_ms": (None, "5 (e)"), "ttl_steps": (None, "5 (e)"),
     "fault_plan": (None, "5 (e)"), "audit_every_step": (None, "5 (e)"),
-    "speculate": (False, "5 (f)"), "draft_len": (4, "5 (f)"),
-    "draft_mode": ("ngram", "5 (f)"), "kv_bits": (0, "5 (g)"),
+    "kv_bits": (0, "5 (g)"),
     "integrity": ("off", "5 (h)"), "tbt_target_ms": (0.0, "5 (h)"),
     "queue_depth_target": (0, "5 (h)"), "ladder_cooldown_steps": (8, "5 (h)"),
     "snapshot_every": (0, "5 (h)"), "snapshot_dir": (None, "5 (h)"),
-    "restore_from": (None, "5 (h)"), "rng": (None, "4"),
+    "restore_from": (None, "5 (h)"),
 }
 
 
@@ -165,50 +252,54 @@ def to_device(arrays, device) -> Tuple[torch.Tensor, ...]:
     return tuple(out)
 
 
-def _first_tokens(logits: torch.Tensor):
-    """Greedy tokens of a prefill's (n, V) logits, -1 where a row's logits
-    are not all finite; one device-to-host copy.  Returns host (tok0, fin)."""
+def _first_tokens(logits: torch.Tensor, sampling: Sampling, rids, gens):
+    """The tokens of a prefill's (n, V) logits (`sampling`, with the rows'
+    device rids / gens), -1 where a row's logits are not all finite; one
+    device-to-host copy.  Returns host (tok0, fin).  The reference's
+    `poison` operand injects faults (ROADMAP.md §1 item 5 (e)); the port
+    passes none and keeps only the finiteness check."""
     fin = torch.isfinite(logits).all(dim=-1)
-    tok = torch.where(fin, torch.argmax(logits, dim=-1), -1)
+    tok = torch.where(fin, sampling.rows(logits, rids, gens), -1)
     out = torch.stack([tok, fin.long()]).cpu().numpy()
     return out[0].astype(np.int32), out[1].astype(bool)
 
 
 def ragged_prefill(model: Model, params, toks: np.ndarray, lens: np.ndarray,
-                   big_cache, slots: np.ndarray):
+                   big_cache, slots: np.ndarray, *, rids: np.ndarray,
+                   gens: np.ndarray, sampling: Sampling):
     """Admission prefill into dense slots: n left-aligned prompts padded to
     L ((n, L) tokens, (n,) valid lengths) run through one forward over an
     L-token sub-batch ragged cache (padding K/V is written but never
     advertised), whose rows are then copied into the first L positions of
-    the big cache's `slots`.  Returns the host (first tokens, finite
-    rows)."""
+    the big cache's `slots`.  Each row's first token is sampled from its
+    last valid position with the key of its (rids, gens) entry.  Returns
+    the host (first tokens, finite rows)."""
     n, L = toks.shape
-    toks_d, lens_d, offs_d, slots_d = to_device(
-        (toks, lens, np.zeros(n), slots), model.device)
+    toks_d, lens_d, offs_d, slots_d, rids_d, gens_d = to_device(
+        (toks, lens, np.zeros(n), slots, rids, gens), model.device)
     sub = model.init_cache(n, L, ragged=True)
     logits, sub = model.forward_serve(params, {"tokens": toks_d}, sub,
                                       offs_d, seq_lens=lens_d)
     T.cache_scatter(big_cache, sub, slots_d.long())
-    return _first_tokens(logits)
+    return _first_tokens(logits, sampling, rids_d, gens_d)
 
 
 def paged_prefill(model: Model, params, toks: np.ndarray, lens: np.ndarray,
-                  pool, pages: np.ndarray, offs: Optional[np.ndarray] = None):
+                  pool, pages: np.ndarray, offs: np.ndarray, *,
+                  rids: np.ndarray, gens: np.ndarray, sampling: Sampling):
     """Admission prefill into the paged pool: the prompts write straight
     into their slots' pages (the (n, max_pages) rows of the page table), no
     sub-batch cache and no copy.  `offs` is each row's absolute position of
-    its first token (default 0): after a prefix hit a row's leading table
+    its first token (0 without a prefix hit): after a hit a row's leading table
     entries already hold the shared prefix, and only its tail runs here,
     attending over the prefix through the table.  A chunk wave of mixed
-    steps is the same call at the chunks' starts.  Returns the host (first
-    tokens, finite rows)."""
-    n = toks.shape[0]
-    offs = np.zeros(n) if offs is None else offs
-    toks_d, lens_d, offs_d, pages_d = to_device(
-        (toks, lens, offs, pages), model.device)
+    steps is the same call at the chunks' starts.  Sampling as in
+    `ragged_prefill`.  Returns the host (first tokens, finite rows)."""
+    toks_d, lens_d, offs_d, pages_d, rids_d, gens_d = to_device(
+        (toks, lens, offs, pages, rids, gens), model.device)
     logits, _ = model.forward_serve(params, {"tokens": toks_d}, pool, offs_d,
                                     seq_lens=lens_d, pages=pages_d)
-    return _first_tokens(logits)
+    return _first_tokens(logits, sampling, rids_d, gens_d)
 
 
 def page_copy(model: Model, cache, pairs: Sequence[Tuple[int, int]]):
@@ -222,44 +313,50 @@ def page_copy(model: Model, cache, pairs: Sequence[Tuple[int, int]]):
 
 def mixed_step(model: Model, params, toks: np.ndarray, cache,
                offs: np.ndarray, seq_lens: np.ndarray,
-               decode_rows: np.ndarray, pages: Optional[np.ndarray] = None):
+               decode_rows: np.ndarray, pages: Optional[np.ndarray], *,
+               rids: np.ndarray, gens: np.ndarray, sampling: Sampling):
     """One mixed scheduler forward over a (B, L) rectangle: row b carries
     one decode token (`decode_rows[b]`, seq_lens 1 at its fill), a prefill
     chunk (seq_lens[b] prompt tokens at offset offs[b]) or nothing
     (seq_lens 0: no kernel work).  Attention sends each class through its
     separate dispatch's kernel (`blocks._mixed_attend`).  Returns the host
-    (greedy token of every row at its last valid position, finite rows);
-    the caller keeps the decode rows' tokens and those of chunks that
-    complete a prompt."""
-    arrays = (toks, offs, seq_lens, decode_rows) + (
+    (token of every row at its last valid position, sampled with its
+    (rids, gens) key, and finite rows); the caller keeps the decode rows'
+    tokens and those of chunks that complete a prompt."""
+    arrays = (toks, offs, seq_lens, decode_rows, rids, gens) + (
         () if pages is None else (pages,))
-    toks_d, offs_d, seq_d, dec_d, *pt = to_device(arrays, model.device)
+    toks_d, offs_d, seq_d, dec_d, rids_d, gens_d, *pt = to_device(
+        arrays, model.device)
     logits, _ = model.forward_serve(
         params, {"tokens": toks_d}, cache, offs_d, seq_lens=seq_d,
         pages=pt[0] if pt else None, decode_rows=dec_d.bool())
-    return _first_tokens(logits)
+    return _first_tokens(logits, sampling, rids_d, gens_d)
 
 
 def ragged_decode(model: Model, params, cache, tok, lengths, active,
                   remaining, chunk: int, eos_id: Optional[int], max_len: int,
-                  pages: Optional[np.ndarray] = None):
-    """`chunk` greedy decode steps for all slots, from host (B,) arrays.
+                  pages: Optional[np.ndarray], *, rids: np.ndarray,
+                  gens: np.ndarray, sampling: Sampling):
+    """`chunk` decode steps for all slots, from host (B,) arrays.
 
     Every step writes each active slot's token at its own position, attends
-    with per-slot lengths (idle slots run no KV partition), and retires
-    rows that hit EOS, their budget or the cache capacity: a retired row's
-    length drops to 0 for the rest of the chunk.  A row whose logits are
-    not all finite emits nothing, stops and is reported.  The lengths stay
-    on the device between steps; the host reads the chunk once at its end.
-    Paged callers pass the (B, max_pages) page table, which must cover
-    lengths + chunk tokens of every active slot.
+    with per-slot lengths (idle slots run no KV partition), samples each
+    row with the key of its (rids, gens) entry, gens advancing on the
+    device while the row stays active, and retires rows that hit EOS,
+    their budget or the cache capacity: a retired row's length drops to 0
+    for the rest of the chunk.  A row whose logits are not all finite
+    emits nothing, stops and is reported.  The lengths stay on the device
+    between steps; the host reads the chunk once at its end.  Paged
+    callers pass the (B, max_pages) page table, which must cover lengths +
+    chunk tokens of every active slot.
 
     Returns host arrays (tok, lengths, active, remaining, toks (chunk, B),
     emitted (chunk, B) bool, poisoned (B,) bool)."""
     eos = -2 if eos_id is None else int(eos_id)      # -2 matches no token
-    arrays = (tok, lengths, active, remaining) + (
+    arrays = (tok, lengths, active, remaining, rids, gens) + (
         () if pages is None else (pages,))
-    tok, lengths, active, remaining, *pt = to_device(arrays, model.device)
+    tok, lengths, active, remaining, rids, gens, *pt = to_device(
+        arrays, model.device)
     pt = pt[0] if pt else None
     active = active.bool()
     pois = torch.zeros_like(active)
@@ -271,11 +368,12 @@ def ragged_decode(model: Model, params, cache, tok, lengths, active,
             lengths, seq_lens=act, pages=pt)
         fin = torch.isfinite(logits).all(dim=-1)
         live = active & fin
-        nxt = torch.where(live, torch.argmax(logits, dim=-1).int(), -1)
+        nxt = torch.where(live, sampling.rows(logits, rids, gens).int(), -1)
         new_len = lengths + act
         new_active = live & (nxt != eos) & (remaining > 1) & (new_len < max_len)
         lengths = torch.where(active & ~new_active, 0, new_len)
         remaining = remaining - act
+        gens = gens + act
         pois = pois | (active & ~fin)
         toks.append(nxt)
         emitted.append(live)
@@ -286,6 +384,126 @@ def ragged_decode(model: Model, params, cache, tok, lengths, active,
     tok, lengths, active, remaining, pois = out[2 * chunk:]
     return (tok, lengths, active.astype(bool), remaining, out[:chunk],
             out[chunk:2 * chunk].astype(bool), pois.astype(bool))
+
+
+def spec_accept(logits: torch.Tensor, toks: torch.Tensor, seq_lens, dec,
+                rids, gens, sampling: Sampling):
+    """The accept rule of `spec_step`, on the device: (n, P, V) logits, the
+    step's (n, L >= P) tokens, (n,) seq_lens, decode-row mask, rids and
+    gens -> ((n, P) tokens, (n,) accepted drafts acc); row b emits its
+    first acc[b] + 1 tokens.
+
+    Column j scores the token drafted at column j + 1.  Greedy: the
+    longest prefix of drafts equal to the argmax chain, emitting
+    argmax[0..acc].  Sampled: rejection sampling against the truncated
+    distribution p; draft d_j survives with probability p_j(d_j) (coin
+    `uniform(fold_in(key_j, 1))`), the first rejection resamples from p_j
+    with d_j masked (`fold_in(key_j, 2)`), and a row whose drafts all
+    survive draws a bonus token from its last column with key_j itself,
+    so zero-draft rows and chunk rows reduce to the mixed-step sampler.
+    Row b's key_j is the `_row_keys` key of token index gens[b] + j."""
+    n, P = logits.shape[:2]
+    col = torch.arange(P, device=seq_lens.device, dtype=seq_lens.dtype)
+    drafts = toks[:, 1:P]                                # (n, P - 1)
+    valid = dec[:, None] & (col[None, 1:] < seq_lens[:, None])
+    if sampling.greedy:
+        out = torch.argmax(logits, dim=-1).int()         # (n, P)
+        match = (drafts == out[:, :P - 1]) & valid
+        return out, torch.cumprod(match.int(), dim=-1).sum(dim=-1)
+    keys = _row_key_grid(sampling.key, rids.long(), gens.long(), P)
+    lt = _truncate_logits(logits.float() / sampling.temperature,
+                          sampling.top_k, sampling.top_p)
+    p = torch.softmax(lt, dim=-1)
+    p_draft = torch.gather(p[:, :P - 1], -1, drafts.long()[..., None])[..., 0]
+    u = prng.uniform(prng.fold_in(keys[:, :P - 1], 1))
+    accept = valid & (u < p_draft)
+    acc = torch.cumprod(accept.int(), dim=-1).sum(dim=-1)
+    rows = torch.arange(n, device=acc.device)
+    l_acc = lt[rows, acc]                                # (n, V)
+    k_acc = keys[rows, acc]
+    d_acc = toks[rows, torch.clamp(acc + 1, max=P - 1)].long()
+    rejected = dec & (acc < seq_lens - 1)
+    l_res = l_acc.scatter(-1, d_acc[:, None], float("-inf"))
+    t_rej = prng.categorical(prng.fold_in(k_acc, 2), l_res)
+    t_bonus = prng.categorical(k_acc, l_acc)
+    t = torch.where(rejected, t_rej, t_bonus).int()
+    shifted = torch.nn.functional.pad(drafts, (0, 1))
+    return torch.where(col[None, :] < acc[:, None], shifted, t[:, None]), acc
+
+
+def spec_step(model: Model, params, toks: np.ndarray, cache,
+              offs: np.ndarray, seq_lens: np.ndarray, decode_rows: np.ndarray,
+              verify_len: int, pages: Optional[np.ndarray], *,
+              rids: np.ndarray, gens: np.ndarray, sampling: Sampling):
+    """One speculative scheduler forward (the reference's
+    `make_spec_step_fn`): decode rows carry their current token and up to
+    `verify_len` - 1 drafted tokens (seq_lens 1 + k), chunk rows their
+    chunk, idle rows nothing.  Every drafted position of a decode row runs
+    through the split-K decode launch (`blocks._mixed_attend`), so each is
+    scored as the single-token step it replaces, and the forward returns
+    logits at all P = verify_len columns (`logit_positions`), which
+    `spec_accept` turns into tokens.  KV of rejected drafts is written but
+    never advertised.  No poison operand (ROADMAP.md §1 item 5 (e)).
+
+    Returns host (out (n, P), n_emit (n,), fin (n,) bool): row b emits
+    out[b, :n_emit[b]]."""
+    n, P = toks.shape[0], int(verify_len)
+    arrays = (toks, offs, seq_lens, decode_rows, rids, gens) + (
+        () if pages is None else (pages,))
+    toks_d, offs_d, sl, dec_d, rids_d, gens_d, *pt = to_device(
+        arrays, model.device)
+    dec = dec_d.bool()
+    col = torch.arange(P, device=sl.device, dtype=sl.dtype)
+    last = torch.clamp(sl, min=1) - 1
+    pos = torch.where(dec[:, None], torch.minimum(col[None, :], last[:, None]),
+                      last[:, None].expand(n, P))
+    logits, _ = model.forward_serve(
+        params, {"tokens": toks_d}, cache, offs_d, seq_lens=sl,
+        pages=pt[0] if pt else None, decode_rows=dec, logit_positions=pos,
+        verify_len=P)                                    # (n, P, V)
+    fin = torch.isfinite(logits).flatten(1).all(dim=-1)
+    out, acc = spec_accept(logits, toks_d, sl, dec, rids_d, gens_d, sampling)
+    res = torch.cat([out.int(), (acc + 1).int()[:, None],
+                     fin.int()[:, None]], dim=1).cpu().numpy()
+    return res[:, :P], res[:, P], res[:, P + 1].astype(bool)
+
+
+def propose_draft_tokens(context: Sequence[int], k: int, *,
+                         max_ngram: int = 3,
+                         eos_id: Optional[int] = None) -> List[int]:
+    """Self-speculative n-gram (prompt-lookup) draft proposer.
+
+    Finds the rightmost earlier occurrence of the longest suffix n-gram
+    (from `max_ngram` tokens down to 1) of `context`, the slot's own
+    prompt + generated tokens, and proposes the tokens that followed it.
+    When the match sits near the end (a tight cycle), the lookup runs
+    again on context + draft so far, until `k` tokens are proposed or no
+    suffix repeats.  Returns [] when nothing repeats.  A proposal is cut
+    at the first EOS, inclusive.  Deterministic: a context always gives
+    the same proposal."""
+    ctx = [int(t) for t in context]
+    if k <= 0 or len(ctx) < 2:
+        return []
+    out: List[int] = []
+    while len(out) < k:
+        ext = ctx + out
+        n = len(ext)
+        chunk: List[int] = []
+        for g in range(min(int(max_ngram), n - 1), 0, -1):
+            suffix = ext[n - g:]
+            for i in range(n - g - 1, -1, -1):
+                if ext[i:i + g] == suffix:
+                    chunk = ext[i + g: i + g + (k - len(out))]
+                    break
+            if chunk:
+                break
+        if not chunk:
+            break
+        if eos_id is not None and int(eos_id) in chunk:
+            out += chunk[: chunk.index(int(eos_id)) + 1]
+            break
+        out += chunk
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -321,7 +539,7 @@ class Request:
     "queued" -> "done" | "poisoned"."""
 
     __slots__ = ("rid", "prompt", "max_new_tokens", "tokens", "done",
-                 "status")
+                 "status", "spec_k")
 
     def __init__(self, rid: int, prompt: Sequence[int], max_new_tokens: int):
         self.rid = rid
@@ -330,6 +548,10 @@ class Request:
         self.tokens: List[int] = []
         self.done = False
         self.status = "queued"
+        # adaptive draft length of speculation: on the request, so that it
+        # survives eviction and re-admission; None until the first
+        # speculative step seeds it with draft_len
+        self.spec_k: Optional[int] = None
 
 
 class Scheduler:
@@ -381,22 +603,41 @@ class Scheduler:
     chunk.  A request whose prefix is still being prefilled waits for its
     registration.  Streams are identical with each option on or off.
 
-    Greedy decoding only (see the module docstring); the reference's other
-    options raise NotImplementedError."""
+    **Sampling** (`temperature > 0`, with `top_k` / `top_p`): a request's
+    i-th token draws with the threefry key of (request id, i) under the
+    base key `rng` (default `PRNGKey(0)`), whichever dispatch computes it,
+    so sampled streams do not depend on batch composition, chunking,
+    sharing, eviction or speculation.
+
+    **Speculative decoding** (`speculate=True`): every step, each decoding
+    slot's prompt + tokens is scanned by the n-gram proposer
+    (`propose_draft_tokens`; `draft_mode="ngram"`) for up to `draft_len`
+    drafts (the request's adaptive `spec_k`: + 1 after a step that
+    accepts every draft, halved after one that accepts none), and its row
+    carries [current token, drafts] as a verify row of 1 + k tokens; one
+    forward scores every drafted position through the split-K decode
+    kernel, bit-identical to the single-token steps it replaces.  The
+    accepted prefix and a bonus or correction token are emitted (greedy:
+    streams equal the non-speculative ones; sampled: rejection sampling
+    on the same key stream).  Rejected drafts' KV is written but never
+    advertised.  Paged allocation asks for each row's 1 + k writes
+    without evicting, drops a starved row's drafts, and only then evicts.
+
+    The reference's other options raise NotImplementedError naming their
+    ROADMAP.md item."""
 
     def __init__(self, model: Model, params, *, max_batch_slots: int = 8,
                  max_len: int = 2048, eos_id: Optional[int] = None,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-                 decode_chunk: int = 8, prefill_bucket: int = 16,
+                 decode_chunk: int = 8, rng: Optional[torch.Tensor] = None,
+                 prefill_bucket: int = 16,
                  page_size: int = 0, num_pages: int = 0,
                  prefix_sharing: bool = False, prefix_cache_pages: int = 0,
                  mixed_steps: bool = False, prefill_chunk_budget: int = 0,
-                 mixed_dispatch: str = "fused", **not_ported):
+                 mixed_dispatch: str = "fused", speculate: bool = False,
+                 draft_len: int = 4, draft_mode: str = "ngram",
+                 **not_ported):
         _refuse_unported(not_ported)
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "sampled scheduler streams need the reference's per-(request, "
-                "token) threefry keys (ROADMAP.md §1 item 4)")
         if not scheduler_supported(model.cfg):
             raise NotImplementedError(
                 f"arch {model.cfg.name!r} is not supported by the slot "
@@ -409,6 +650,20 @@ class Scheduler:
         self.eos_id = eos_id
         self.decode_chunk = int(decode_chunk)
         self.prefill_bucket = int(prefill_bucket)
+        key = prng.PRNGKey(0) if rng is None else torch.as_tensor(
+            rng, dtype=torch.int64)
+        self.sampling = Sampling(temperature, top_k, top_p,
+                                 key.to(model.device))
+        self.speculate = bool(speculate)
+        self.draft_len = int(draft_len)
+        self.draft_mode = str(draft_mode)
+        if self.speculate:
+            if self.draft_len < 1:
+                raise ValueError(f"draft_len must be >= 1, got {draft_len}")
+            if self.draft_mode != "ngram":
+                raise ValueError(
+                    f"unknown draft_mode {draft_mode!r} (only the "
+                    "self-speculative 'ngram' proposer exists)")
         self.mixed_steps = bool(mixed_steps)
         self.prefill_chunk_budget = int(prefill_chunk_budget) or 32
         if self.mixed_steps and self.prefill_chunk_budget < 1:
@@ -476,6 +731,10 @@ class Scheduler:
         self.model_steps = 0         # device forwards (a chunk counts each)
         self.n_evictions = 0
         self.n_poisoned = 0
+        self.n_spec_steps = 0        # speculative forwards
+        self.spec_proposed = 0       # draft tokens sent to verification
+        self.spec_accepted = 0
+        self.spec_rejected = 0
 
     # -- request intake -----------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int,
@@ -836,12 +1095,15 @@ class Scheduler:
         for i, (p, o) in enumerate(zip(prompts, offs)):
             toks[i, :len(p) - o] = p[o:]
         slots = np.array([s for s, _ in wave], np.int32)
+        ids = dict(rids=np.array([r.rid for _, r in wave], np.int32),
+                   gens=np.array([len(r.tokens) for _, r in wave], np.int32),
+                   sampling=self.sampling)
         self.prefill_tokens_computed += int(lens.sum())
         self.model_steps += 1
         if self.paged:
             tok0, fin = paged_prefill(self.model, self.params, toks, lens,
                                       self.cache, self.page_table[slots],
-                                      offs_a)
+                                      offs_a, **ids)
             if self.prefix_sharing:
                 # the prompts' KV is valid: publish the page-aligned
                 # prefixes of every finite row
@@ -850,7 +1112,7 @@ class Scheduler:
                         self._register_prefixes(s, p, exact=False)
         else:
             tok0, fin = ragged_prefill(self.model, self.params, toks, lens,
-                                       self.cache, slots)
+                                       self.cache, slots, **ids)
         for i, (s, r) in enumerate(wave):
             self.slot_req[s] = r
             self._admit_counter += 1
@@ -876,26 +1138,31 @@ class Scheduler:
                 self.active[s] = True
         return deferred
 
-    def _plan_decode_run(self, ahead: int) -> np.ndarray:
-        """The active slots that can append `ahead` tokens this step.  Paged
+    def _plan_decode_run(self, ahead, evict_on_starve: bool = True
+                         ) -> np.ndarray:
+        """The active slots that can append `ahead` tokens this step (a
+        scalar, or per slot (B,): speculative steps ask 1 + k_b).  Paged
         mode allocates pages to cover them (capped at max_len) and copies
         any still-shared page in the write range (the safety net for exact
         prompt hits); a starved slot stalls, and if nothing can run the
-        youngest active slot is evicted until something can.  Dense: every
-        active slot."""
+        youngest active slot is evicted until something can, unless
+        `evict_on_starve` is off: then the all-stalled plan is returned for
+        the caller to retry with a smaller ask.  Dense: every active
+        slot."""
         if not self.paged:
             return self.active.copy()
+        ahead = np.broadcast_to(np.asarray(ahead, np.int32), (self.B,))
         cow_pairs: List[Tuple[int, int]] = []
         while True:
             run = self.active.copy()
             for b in np.flatnonzero(self.active):
                 b = int(b)
-                upto = min(int(self.lengths[b]) + ahead, self.max_len)
+                upto = min(int(self.lengths[b]) + int(ahead[b]), self.max_len)
                 if not (self._alloc_slot(b, upto)
                         and self._cow_range(b, int(self.lengths[b]), upto,
                                             cow_pairs)):
                     run[b] = False
-            if run.any() or not self.active.any():
+            if run.any() or not self.active.any() or not evict_on_starve:
                 break
             self._evict(self._eviction_victim())
             # a copy into a page the eviction just freed must not run
@@ -903,6 +1170,21 @@ class Scheduler:
         self._apply_copies(cow_pairs)
         self._note_peak()
         return run
+
+    def _slot_rids_gens(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(rids, gens) of every slot for `_row_keys` (0 for empty slots,
+        whose samples are discarded)."""
+        rids = np.zeros(self.B, np.int32)
+        gens = np.zeros(self.B, np.int32)
+        for b, r in enumerate(self.slot_req):
+            if r is not None:
+                rids[b] = r.rid
+                gens[b] = len(r.tokens)
+        return rids, gens
+
+    def _slot_ids(self) -> Dict[str, Any]:
+        rids, gens = self._slot_rids_gens()
+        return dict(rids=rids, gens=gens, sampling=self.sampling)
 
     def _decode(self, emitted: Dict[int, List[int]]):
         if not self.active.any():
@@ -917,7 +1199,7 @@ class Scheduler:
             self.model, self.params, self.cache, self.cur_tok,
             self.lengths * run, run, self.remaining, self.decode_chunk,
             self.eos_id, self.max_len,
-            self.page_table if self.paged else None)
+            self.page_table if self.paged else None, **self._slot_ids())
         stalled = self.active & ~run
         self.cur_tok = np.where(run, tok, self.cur_tok).astype(np.int32)
         self.lengths = np.where(run, lengths, self.lengths).astype(np.int32)
@@ -1028,10 +1310,13 @@ class Scheduler:
         slots = np.array([b for b, _, _ in chunks], np.int32)
         offs = np.array([s for _, s, _ in chunks], np.int32)
         lens = np.array([e - s for _, s, e in chunks], np.int32)
+        rids, gens = self._slot_rids_gens()
         self.prefill_tokens_computed += int(lens.sum())
         self.model_steps += 1
         tok0, fin = paged_prefill(self.model, self.params, toks, lens,
-                                  self.cache, self.page_table[slots], offs)
+                                  self.cache, self.page_table[slots], offs,
+                                  rids=rids[slots], gens=gens[slots],
+                                  sampling=self.sampling)
         self._chunks_done(chunks, tok0, fin, range(n), emitted)
 
     def _mixed_step_fused(self, emitted: Dict[int, List[int]]):
@@ -1059,7 +1344,8 @@ class Scheduler:
         self.prefill_tokens_computed += sum(e - s for _, s, e in chunks)
         self.model_steps += 1
         tok, fin = mixed_step(self.model, self.params, toks, self.cache, offs,
-                              seq, dec, self.page_table if self.paged else None)
+                              seq, dec, self.page_table if self.paged else None,
+                              **self._slot_ids())
         self._chunks_done(chunks, tok, fin, [b for b, _, _ in chunks], emitted)
         for b in np.flatnonzero(dec):
             if fin[b]:
@@ -1078,17 +1364,117 @@ class Scheduler:
         else:
             self._mixed_step_fused(emitted)
 
+    # -- speculative decoding -----------------------------------------------
+    def _propose(self, slot: int) -> List[int]:
+        """Drafts for `slot`, capped so that a step accepting all of them
+        overruns neither the token budget (it emits k + 1 tokens) nor the
+        cache capacity (k + 1 writes from the slot's fill)."""
+        r = self.slot_req[slot]
+        if r.spec_k is None:
+            r.spec_k = self.draft_len
+        cap = min(r.spec_k, int(self.remaining[slot]) - 1,
+                  self.max_len - int(self.lengths[slot]) - 1)
+        if cap < 1:
+            return []
+        return propose_draft_tokens(r.prompt + r.tokens, cap,
+                                    eos_id=self.eos_id)
+
+    def _spec_step(self, emitted: Dict[int, List[int]],
+                   with_chunks: bool = False):
+        """One speculative step: drafts for every decoding slot, verified
+        (with this step's prefill chunks when `with_chunks`) in one
+        forward, then each row's accepted prefix and bonus or correction
+        token through the per-token retirement rules.  Paged allocation
+        asks for 1 + k_b writes without evicting; slots the pool cannot
+        stretch drop their drafts (k_b = 0), and only if that starves too
+        does the regular evict-youngest plan run, so speculation never
+        evicts a neighbour to chase drafts."""
+        chunks = self._plan_chunks() if with_chunks else []
+        drafts: List[List[int]] = [[] for _ in range(self.B)]
+        karr = np.zeros(self.B, np.int32)
+        for b in np.flatnonzero(self.active):
+            drafts[b] = self._propose(int(b))
+            karr[b] = len(drafts[b])
+        run = self._plan_decode_run(1 + karr, evict_on_starve=False)
+        starved = self.active & ~run
+        if starved.any():
+            karr[starved] = 0
+            for b in np.flatnonzero(starved):
+                drafts[b] = []
+            run = self._plan_decode_run(1 + karr)
+        if not chunks and not run.any():
+            return
+        P = self.draft_len + 1
+        # P columns cover every verify row; a step carrying chunks widens
+        # to their bucket
+        L = (max(P, self._bucket(max(e - s for _, s, e in chunks)))
+             if chunks else P)
+        toks = np.zeros((self.B, L), np.int32)
+        offs = np.zeros(self.B, np.int32)
+        seq = np.zeros(self.B, np.int32)
+        dec = np.zeros(self.B, bool)
+        for b, s, e in chunks:
+            toks[b, :e - s] = self._pend[b][s:e]
+            offs[b] = s
+            seq[b] = e - s
+        for b in np.flatnonzero(run):
+            k = int(karr[b])
+            toks[b, 0] = self.cur_tok[b]
+            toks[b, 1:1 + k] = drafts[b]
+            offs[b] = self.lengths[b]
+            seq[b] = 1 + k
+            dec[b] = True
+        self.prefill_tokens_computed += sum(e - s for _, s, e in chunks)
+        self.model_steps += 1
+        self.n_spec_steps += 1
+        out, n_emit, fin = spec_step(
+            self.model, self.params, toks, self.cache, offs, seq, dec, P,
+            self.page_table if self.paged else None, **self._slot_ids())
+        self._chunks_done(chunks, out[:, 0], fin, [b for b, _, _ in chunks],
+                          emitted)
+        for b in np.flatnonzero(dec):
+            b = int(b)
+            if not fin[b]:
+                # nothing of the step is emitted; draft counters untouched
+                self.n_poisoned += 1
+                self._retire(b, status="poisoned", register=False)
+                continue
+            r = self.slot_req[b]
+            k, m = int(karr[b]), int(n_emit[b])
+            if k:
+                a = m - 1
+                self.spec_proposed += k
+                self.spec_accepted += a
+                self.spec_rejected += k - a
+                if a == k:
+                    r.spec_k = min(self.draft_len, r.spec_k + 1)
+                elif a == 0:
+                    r.spec_k = max(1, r.spec_k // 2)
+            for j in range(m):
+                self._post_decode_token(b, int(out[b, j]), emitted)
+                if self.slot_req[b] is None:
+                    break      # retired inside the prefix: the rest is dropped
+
     # -- driving --------------------------------------------------------------
     @torch.inference_mode()
     def step(self) -> Dict[int, List[int]]:
-        """One scheduling round: admit, then one mixed step while a prompt
-        is being prefilled in chunks, else one decode chunk; returns the
-        tokens generated this round by request id."""
+        """One scheduling round: admit, then one speculative step (with
+        this step's prefill chunks, or after a paired chunk wave), or one
+        mixed step while a prompt is being prefilled in chunks, else one
+        decode chunk; returns the tokens generated this round by request
+        id."""
         emitted: Dict[int, List[int]] = {}
         self._step_idx += 1
         self._queue_depths.append(len(self.queue))
         self._admit(emitted)
-        if self.mixed_steps and self.prefilling.any():
+        filling = self.mixed_steps and self.prefilling.any()
+        if self.speculate:
+            if filling and self.mixed_dispatch == "paired":
+                self._chunk_prefill_wave(emitted)
+                self._spec_step(emitted)
+            else:
+                self._spec_step(emitted, with_chunks=filling)
+        elif filling:
             self._mixed_step(emitted)
         else:
             self._decode(emitted)
@@ -1118,6 +1504,12 @@ class Scheduler:
         return {
             "steps": self._step_idx,
             "model_steps": self.model_steps,
+            "spec_steps": self.n_spec_steps,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "spec_rejected": self.spec_rejected,
+            "spec_accept_rate": (self.spec_accepted
+                                 / max(self.spec_proposed, 1)),
             "evictions": self.n_evictions,
             "poisoned": self.n_poisoned,
             "reclaim_stalls": self.n_reclaim_stalls,
@@ -1205,38 +1597,51 @@ class Scheduler:
 def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
              max_new_tokens: int, max_len: int, temperature: float = 0.0,
              top_k: int = 0, top_p: float = 1.0,
-             generator: Optional[torch.Generator] = None,
+             rng: Optional[torch.Tensor] = None,
              continuous_batching: bool = False,
              eos_id: Optional[int] = None, decode_chunk: int = 8,
              max_batch_slots: Optional[int] = None, page_size: int = 0,
              num_pages: int = 0, prefix_sharing: bool = False,
              prefix_cache_pages: int = 0, mixed_steps: bool = False,
              prefill_chunk_budget: int = 0, mixed_dispatch: str = "fused",
-             **not_ported) -> torch.Tensor:
+             speculate: bool = False, draft_len: int = 4,
+             draft_mode: str = "ngram", **not_ported) -> torch.Tensor:
     """Batched generation; returns (B, max_new_tokens) token ids.
 
     Default: equal-length prefill, then one decode step per further token;
-    greedy at temperature 0, else sampled with `generator` (default: seeded
-    with 0 on the model's device).  With `continuous_batching=True` it is
-    one greedy `Scheduler` run over `max_batch_slots` slots (default: the
-    batch size), retiring rows at `eos_id` and padding them with it (or 0);
-    `page_size > 0` puts the slots on the paged pool of `num_pages` pages,
-    `prefix_sharing` shares prompt prefixes there (`prefix_cache_pages`
-    caps the directory), and `mixed_steps` prefills prompts in chunks of
-    `prefill_chunk_budget` tokens beside the decoding slots (`Scheduler`)."""
+    greedy at temperature 0, else sampled (top_k- and / or top_p-truncated)
+    with the threefry key `rng` (default `PRNGKey(0)`), split as the
+    reference splits it: one subkey for the prefill's tokens, then one per
+    step.  With `continuous_batching=True` it is one `Scheduler` run over
+    `max_batch_slots` slots (default: the batch size), retiring rows at
+    `eos_id` and padding them with it (or 0); `page_size > 0` puts the
+    slots on the paged pool of `num_pages` pages, `prefix_sharing` shares
+    prompt prefixes there (`prefix_cache_pages` caps the directory),
+    `mixed_steps` prefills prompts in chunks of `prefill_chunk_budget`
+    tokens beside the decoding slots, and `speculate` verifies up to
+    `draft_len` drafted tokens a slot and step (`draft_mode`; see
+    `Scheduler`)."""
     _refuse_unported(not_ported)
     tokens = torch.as_tensor(prompt_batch["tokens"])
     B, S = tokens.shape
+    rng = (prng.PRNGKey(0) if rng is None
+           else torch.as_tensor(rng, dtype=torch.int64)).to(model.device)
+    if speculate and not continuous_batching:
+        raise ValueError("speculate requires continuous_batching=True "
+                         "(drafts are verified by the scheduler's ragged "
+                         "decode rows)")
     if continuous_batching:
         sched = Scheduler(model, params, max_batch_slots=max_batch_slots or B,
                           max_len=max_len, eos_id=eos_id,
                           temperature=temperature, top_k=top_k, top_p=top_p,
-                          decode_chunk=decode_chunk, page_size=page_size,
+                          decode_chunk=decode_chunk, rng=rng,
+                          page_size=page_size,
                           num_pages=num_pages, prefix_sharing=prefix_sharing,
                           prefix_cache_pages=prefix_cache_pages,
                           mixed_steps=mixed_steps,
                           prefill_chunk_budget=prefill_chunk_budget,
-                          mixed_dispatch=mixed_dispatch)
+                          mixed_dispatch=mixed_dispatch, speculate=speculate,
+                          draft_len=draft_len, draft_mode=draft_mode)
         rows = tokens.cpu().numpy()
         rids = [sched.submit(rows[b].tolist(), max_new_tokens) for b in range(B)]
         results = sched.run()
@@ -1252,17 +1657,17 @@ def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
     if S + max_new_tokens > max_len + 1:
         raise ValueError(f"prompt {S} + {max_new_tokens} new tokens do not fit "
                          f"a cache of {max_len}")
-    if generator is None and temperature > 0.0:
-        generator = torch.Generator(device=model.device).manual_seed(0)
     cache = model.init_cache(B, max_len)
     with torch.inference_mode():
         logits, cache = model.forward_serve(params, {"tokens": tokens}, cache, 0)
-        tok = sample_logits(logits, generator, temperature, top_k, top_p)
+        key, sub = prng.split(rng)
+        tok = sample_logits(logits, sub, temperature, top_k, top_p)
         out = [tok]
         for t in range(max_new_tokens - 1):
             logits, cache = model.forward_serve(
                 params, {"tokens": tok[:, None]}, cache, S + t)
-            tok = sample_logits(logits, generator, temperature, top_k, top_p)
+            key, sub = prng.split(key)
+            tok = sample_logits(logits, sub, temperature, top_k, top_p)
             out.append(tok)
     return torch.stack(out, dim=1)
 

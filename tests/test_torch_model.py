@@ -146,8 +146,7 @@ def test_truncate_logits_matches_jax(top_k, top_p):
 
 def test_sampling_stays_inside_the_truncated_set():
     l = torch.from_numpy(np.random.RandomState(6).randn(64, 50).astype(np.float32))
-    gen = torch.Generator().manual_seed(0)
-    ids = TS.sample_logits(l, gen, temperature=0.8, top_k=3)
+    ids = TS.sample_logits(l, TS.prng.PRNGKey(0), temperature=0.8, top_k=3)
     top3 = torch.topk(l, 3, dim=-1).indices
     assert bool((top3 == ids[:, None]).any(dim=-1).all())
     assert torch.equal(TS.sample_logits(l, None), torch.argmax(l, dim=-1))

@@ -190,10 +190,9 @@ def test_prefill_bucket_gives_jax_admission_widths(models, page_size):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("speculate", True),
     ("victim_pool_pages", 4), ("max_queue", 2), ("fault_plan", object()),
     ("integrity", "checksum"), ("tbt_target_ms", 5.0), ("snapshot_every", 2),
-    ("kv_bits", 4), ("temperature", 0.7), ("rng", object())])
+    ("kv_bits", 4)])
 def test_unported_scheduler_options_raise(models, option, value):
     _, _, tm, tp = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
