@@ -57,9 +57,9 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    table) against their plain versions; checks budgets, vocabulary, freed
    pages, a repeatable paged stream and, for prompts of one page, dense and
    paged prefill logits equal bit for bit; prints where and by how much
-   the two storages' streams and logits part; then profiles the first 3
-   steps of the paged run as phase 6 does, with kernels 1 and 2's bounds
-   at the shapes of those steps' calls.
+   the two storages' streams and logits part; then profiles the first
+   step of the paged run (an admission wave and a decode chunk) as phase
+   6 does, with kernels 1 and 2's bounds at the shapes of its calls.
 8. (Run right after phase 3, beside the other kernel checks.)  Holds the
    PIM matmul (kernel 3) in both ADC modes and the LUT softmax (kernel 4)
    against their plain versions bit for bit: the linears' shapes (K 2048
@@ -121,7 +121,29 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    tokens/s, forwards, tokens per forward and accept rate; profiles one
    sampled speculative step (busy share, kernels 1 and 2's us per launch
    beside their bounds) and times the sampler alone on its logits.
-Phases 10 and 11 first run a row probe: RMSNorm, the bf16 unembed, the
+12. Serves, with the phase 6 weights at decode_block_k 16, a 16-request
+   trace (prompts of 64-384 tokens, budgets 48-128, seed 12) through 8
+   slots of 1,024 tokens on 16-token pages, five ways: (U) the unstarved
+   pool of 513 pages, (R) a starved pool of 112 pages + the trash page
+   with recompute evictions, (S) that pool spilling evicted slots to a
+   host victim pool of 256 pages, (C) the victim pool capped at 16 pages
+   (spills and recompute fallbacks mix), (F) S under a fault plan (forced
+   evictions, failed allocations, delayed restores, refcount corruptions,
+   one NaN poison) with a late request of ttl 2 steps; `audit()` after
+   every step.  Checks S == U token for token, R and C equal to U but
+   where a recompute continuation parts after its re-prefill (printing
+   where; the reference's continuations do the same), in F
+   every request but the poisoned one (a prefix) equal to U and the late
+   one shed, the counts of spills, restores, fallbacks, spill bytes,
+   fired faults and detected corruptions, every page back and the victim
+   pool empty, no plain-version call; replays kernel 2's launch on the
+   first decode after a restore and kernel 1's on a recompute
+   continuation's re-prefill against the plain versions.  Prints each
+   run's wall, tokens/s, evictions, spills, restores and peak pages, the
+   device time of each spill and restore (per page, GB/s), R's and S's
+   longest steps, and a profile of a step that restores (kernels 1 and
+   2's us per launch beside their bounds).
+Phases 10-12 first run a row probe: RMSNorm, the bf16 unembed, the
 top-k / top-p truncation, its softmax and the Gumbel arg-max must give a
 row the same bits alone and among other rows (up to 40 = 8 slots x 5
 verify columns).
@@ -176,7 +198,7 @@ F32_OPS = 67e12
 REL_TOL = 1e-5
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
 # what a phase needs run first: kernel entries (2, 8) or the small model (4)
 NEEDS = {3: {2}, 5: {4}, 6: {2}, 7: {2}, 9: {8}}
 
@@ -443,7 +465,7 @@ def served_attention(entries, label: str, report: dict, shapes, cfg) -> dict:
 
 
 PAGE = 16     # tokens per KV page in phases 3, 5 and 7
-PROFILED_STEPS = 3   # scheduler steps of the paged trace under the profiler
+PROFILED_STEPS = 1   # scheduler steps of the paged trace under the profiler
 PROFILED_TOKENS = 8  # new tokens of the classic request under the profiler
 
 
@@ -838,8 +860,9 @@ def full_scheduler(model, params, cfg, entries, compare) -> dict:
         entries[name]["paged_launches"] = paged_info["launches"].get(name, 0)
 
     # the profiler's summary costs about 0.6 ms of host time per launch, so
-    # it covers the first PROFILED_STEPS steps (both runs of them are the
-    # same work: the trace and the scheduler are deterministic)
+    # it covers the first PROFILED_STEPS steps, an admission wave and a
+    # decode chunk (both runs of them are the same work: the trace and the
+    # scheduler are deterministic); three steps took 110 s of the limit
     def submitted():
         sched = serve_lib.Scheduler(model, params, page_size=PAGE, **kw)
         for p, b in trace:
@@ -1440,6 +1463,349 @@ def spec_scheduler(model, params, cfg, entries, compare, smi) -> dict:
     print(f"  speculative step: kernel 1 {k['pim_attention_kernel']['us_per_launch']:.2f} "
           f"us, kernel 2 {k['pim_decode_kernel']['us_per_launch']:.2f} us per launch "
           f"[{smi}]", flush=True)
+    return out
+
+
+# ---- 12. overload control at full width: the starved trace -----------------
+STARVE_KW = dict(max_batch_slots=8, max_len=1024, decode_chunk=8, page_size=PAGE,
+                 audit_every_step=True)
+STARVED_POOL = 113   # 112 pages + the trash page (the unstarved pool: 513)
+VICTIM = 256         # host pages of the victim pool of S and F
+VICTIM_CAP = 16      # C's cap: the first spill fits, a later one falls back
+LATE_AT, LATE_TTL = 3, 2   # F: a request submitted after 3 steps, ttl 2 steps
+FAULTS = dict(evict_steps=(6, 21), alloc_fail_steps=(8, 16),
+              restore_delay_steps=(9, 12, 24), corrupt_refcount_steps=(4, 15, 30),
+              nan_logit_steps=(11,))
+
+
+def starved_trace(V: int):
+    """Phase 12's trace, from seed 12: 16 prompts of 64-384 tokens, budgets
+    of 48-128; and F's late request (a 200-token prompt, budget 64)."""
+    rng = np.random.RandomState(12)
+    toks = data.lm_batch(12, 17, 384, V)
+    lens, budgets = rng.randint(64, 385, 16), rng.randint(48, 129, 16)
+    trace = [(toks[i, :n].tolist(), int(b)) for i, (n, b) in enumerate(zip(lens, budgets))]
+    return trace, (toks[16, :200].tolist(), 64)
+
+
+@contextlib.contextmanager
+def overload_watch(ctx):
+    """Wrap the scheduler's spill, restore, admission-prefill and decode
+    steps of `serve_lib` for phase 12: time each spill (`page_fetch`: gather
+    and copy to the host) and restore (`page_restore`: copy to the card and
+    scatter) with CUDA events, count re-prefilled continuation rows, and arm
+    `recorded` (through ctx["label"]) for the first decode after a restore
+    and the first re-prefill of a recompute continuation."""
+    saved = {n: getattr(serve_lib, n) for n in
+             ("page_fetch", "page_restore", "paged_prefill", "ragged_decode")}
+
+    def timed(name):
+        def call(model, cache, pages, *a):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = saved[name](model, cache, pages, *a)
+            end.record()
+            end.synchronize()
+            real = [int(p) for p in pages if int(p) != A.TRASH_PAGE]
+            ctx[name].append(dict(pages=len(real), width=len(pages),
+                                  device_ms=start.elapsed_time(end),
+                                  host_ms=(time.perf_counter() - t0) * 1e3))
+            if name == "page_restore":
+                ctx["restored_pages"] = real
+            return out
+        return call
+
+    def prefill(*a, **k):
+        cont = int((np.asarray(k["gens"]) > 0).sum())
+        ctx["reprefilled"] += cont
+        for rid, g in zip(np.asarray(k["rids"]).tolist(), np.asarray(k["gens"]).tolist()):
+            if g > 0:
+                ctx["recomputed"].setdefault(rid, g)
+        arm = cont and ctx["arm_prefill"]
+        if arm:
+            ctx.update(label="re-prefill of a recompute continuation (R)", first={},
+                       arm_prefill=False)
+        try:
+            return saved["paged_prefill"](*a, **k)
+        finally:
+            if arm:
+                ctx["label"] = None
+
+    def decode(*a, **k):
+        arm = ctx["arm_decode"] and ctx["restored_pages"]
+        if arm:
+            ctx.update(label="first decode after a restore (S)", first={},
+                       arm_decode=False)
+            ctx["fresh_in_table"] = set(ctx["restored_pages"]) <= set(
+                np.asarray(a[10]).ravel().tolist())
+        try:
+            return saved["ragged_decode"](*a, **k)
+        finally:
+            if arm:
+                ctx["label"] = None
+
+    serve_lib.page_fetch, serve_lib.page_restore = timed("page_fetch"), timed("page_restore")
+    serve_lib.paged_prefill, serve_lib.ragged_decode = prefill, decode
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(serve_lib, n, f)
+
+
+def starved_steps(sched, trace, ctx, late=None, profile_step=None, cfg=None):
+    """Submit `trace` (and `late` (prompt, budget) with ttl LATE_TTL after
+    LATE_AT steps), step to the end, synchronized.  Each scheduler step
+    audits itself.  Returns (streams in trace order, late rid or None, per
+    step dicts: wall, restores, spills, re-prefilled rows, launches); step
+    `profile_step` runs under torch.profiler and launch_shapes, kept in
+    ctx["profile"]."""
+    rids = [sched.submit(p, b) for p, b in trace]
+    late_rid, steps, res = None, [], {}
+    while sched.queue or any(r is not None for r in sched.slot_req):
+        if late is not None and len(steps) == LATE_AT:
+            late_rid = sched.submit(*late, ttl_steps=LATE_TTL)
+        before = (sched.n_restores, sched.n_spills, ctx["reprefilled"],
+                  len(ctx["page_fetch"]))
+        torch.cuda.synchronize()
+        prof = len(steps) + 1 == profile_step
+        _build.LAUNCHES.clear()
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+              if prof else contextlib.nullcontext()) as p, \
+                (launch_shapes(cfg) if prof else contextlib.nullcontext()) as shapes:
+            t0 = time.perf_counter()
+            em = sched.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if prof:
+            ctx["profile"] = (p, wall, dict(_build.LAUNCHES), shapes)
+        steps.append(dict(wall=wall, restores=sched.n_restores - before[0],
+                          spills=sched.n_spills - before[1],
+                          reprefilled=ctx["reprefilled"] - before[2],
+                          launches=dict(_build.LAUNCHES)))
+        for rid, toks in em.items():
+            res.setdefault(rid, []).extend(toks)
+    return [res.get(r, []) for r in rids], late_rid, steps
+
+
+def starved_scheduler(model, params, cfg, entries, compare, smi) -> dict:
+    """Phase 12: the starved trace served five ways, checked and timed."""
+    cfg = dataclasses.replace(cfg, decode_block_k=PAGE)
+    model = build_model(cfg, model.device)
+    V = cfg.vocab_size
+    trace, late = starved_trace(V)
+    n_tok = sum(b for _, b in trace)
+    page_bytes = PAGE * serve_lib.kv_bytes_per_token(cfg)
+    print(f"starved scheduler: {len(trace)} requests, prompts {[len(p) for p, _ in trace]}, "
+          f"budgets {[b for _, b in trace]} ({n_tok} tokens), {STARVE_KW}, "
+          f"decode_block_k {PAGE}; pool {STARVED_POOL} pages of {page_bytes} bytes "
+          f"({(STARVED_POOL - 1) * page_bytes / 2**20:.1f} MiB) against 513 unstarved; "
+          f"victim pool {VICTIM} pages ({VICTIM * page_bytes / 2**20:.1f} MiB of host "
+          f"memory), C's cap {VICTIM_CAP}; F: {FAULTS}, a late request after "
+          f"{LATE_AT} steps with ttl_steps {LATE_TTL}", flush=True)
+    starved = dict(num_pages=STARVED_POOL)
+    runs = {"U": {}, "R": starved, "S": dict(starved, victim_pool_pages=VICTIM),
+            "C": dict(starved, victim_pool_pages=VICTIM_CAP),
+            "F": dict(starved, victim_pool_pages=VICTIM,
+                      fault_plan=serve_lib.FaultPlan(**FAULTS))}
+    what = {"U": "unstarved", "R": "starved, recompute", "S": "starved, spill",
+            "C": f"starved, spill capped at {VICTIM_CAP} pages", "F": "S under faults"}
+    out, streams, kept, ctxs = {}, {}, {}, {}
+    profile_step = None
+    for key, extra in runs.items():
+        sched = serve_lib.Scheduler(model, params, **STARVE_KW, **extra)
+        ctx = dict(label=None, first={}, page_fetch=[], page_restore=[],
+                   restored_pages=None, reprefilled=0, recomputed={},
+                   arm_decode=key == "S",
+                   arm_prefill=key == "R", fresh_in_table=None)
+        ctxs[key] = ctx
+        dropped = []
+        if key == "F":
+            drop = sched._drop_victim
+
+            def dropping(rid, drop=drop, sched=sched):
+                if rid in sched._victim:
+                    dropped.append(rid)
+                drop(rid)
+            sched._drop_victim = dropping
+
+        def pick(name, i, ctx=ctx):
+            if ctx["label"] is None:
+                return None
+            first = ctx["first"].setdefault(name, i)
+            return (f"{ctx['label']}, layer {REC_LAYER} ({name})"
+                    if i - first == REC_LAYER else None)
+
+        torch.cuda.synchronize()
+        with recorded(pick) as rec, plain_calls() as n_plain, overload_watch(ctx):
+            t0 = time.perf_counter()
+            got, late_rid, steps = starved_steps(
+                sched, trace, ctx, late if key == "F" else None,
+                profile_step if key == "C" else None, cfg)
+            wall = time.perf_counter() - t0
+        kept.update(rec)
+        streams[key] = got
+        st = sched.stats
+        check(not n_plain, f"{key}: no plain-version call ({n_plain})")
+        sched.clear_prefix_cache()
+        check(len(sched.free_pages) == sched.num_pages - 1 and int(sched.page_ref.sum()) == 0
+              and not sched._victim and sched._victim_used == 0,
+              f"{key}: every page back after clear_prefix_cache(), the victim pool empty")
+        info = dict(wall_s=wall, tokens_per_s=n_tok / wall, steps=st["steps"],
+                    model_steps=st["model_steps"], peak_pages_in_use=sched.peak_pages_in_use,
+                    **{k: st[k] for k in ("evictions", "spills", "restores", "spilled_pages",
+                                          "spill_bytes", "recompute_fallbacks",
+                                          "deadline_misses", "poisoned",
+                                          "refcount_corruptions_detected")},
+                    reprefilled_rows=ctx["reprefilled"],
+                    spill_calls=ctx["page_fetch"], restore_calls=ctx["page_restore"],
+                    step_walls_ms=[round(x["wall"] * 1e3, 3) for x in steps],
+                    status=[sched.requests[r].status for r in sorted(sched.requests)],
+                    records_dropped=len(dropped))
+        if sched._faults is not None:
+            info["fired"] = dict(sched._faults.fired)
+        if late_rid is not None:
+            info["late"] = dict(status=sched.requests[late_rid].status,
+                                tokens=len(sched.requests[late_rid].tokens))
+        restore_steps = [x for x in steps if x["restores"]]
+        reprefill_steps = [x for x in steps if x["reprefilled"]]
+        info["longest_step_ms"] = max(x["wall"] for x in steps) * 1e3
+        info["longest_restore_step_ms"] = (max(x["wall"] for x in restore_steps) * 1e3
+                                           if restore_steps else None)
+        info["longest_reprefill_step_ms"] = (max(x["wall"] for x in reprefill_steps) * 1e3
+                                             if reprefill_steps else None)
+        if key == "S":
+            # C's profiled step: S's first step that restores, one with an
+            # admission prefill beside it if there is one (C runs S's
+            # schedule until its first refused spill)
+            both = [i for i, x in enumerate(steps) if x["restores"]
+                    and x["launches"].get("pim_attention")]
+            first = [i for i, x in enumerate(steps) if x["restores"]]
+            profile_step = (both or first or [None])[0]
+            profile_step = None if profile_step is None else profile_step + 1
+            info["profile_step"] = profile_step
+            info["profile_step_wall_ms"] = (steps[profile_step - 1]["wall"] * 1e3
+                                            if profile_step else None)
+        out[key] = info
+        print(f"  {key} ({what[key]}): {wall:.2f} s, {n_tok / wall:.1f} tokens/s, "
+              f"{st['steps']} steps, {st['model_steps']} forwards, evictions "
+              f"{st['evictions']}, spills {st['spills']} ({st['spilled_pages']} pages), "
+              f"restores {st['restores']}, recompute fallbacks {st['recompute_fallbacks']}, "
+              f"re-prefilled rows {ctx['reprefilled']}, peak pages {sched.peak_pages_in_use}, "
+              f"longest step {info['longest_step_ms']:.1f} ms [{smi}]", flush=True)
+
+    u = streams["U"]
+    check(all(len(x) == b for x, (_, b) in zip(u, trace)) and all(0 <= t < V for x in u for t in x),
+          "U: every request got its budget of in-vocabulary tokens")
+    parted = {k: first_diff(f"{k} vs U", streams[k], u) for k in ("S", "C", "R")}
+    out["parted"] = parted
+    check(parted["S"] == 0 and not ctxs["S"]["recomputed"],
+          f"S == U token for token ({parted['S']} requests part), no re-prefill")
+    # a recompute continuation re-prefills its generated tokens through
+    # kernel 1, which the decode steps had run through kernel 2: the online
+    # LUT steps round otherwise, so it may part from U after its re-prefill,
+    # as the reference's own continuations do (ROADMAP.md §3).  Every other
+    # request of R and C (C's spilled continuations included) equals U.
+    for key in ("R", "C"):
+        rc = ctxs[key]["recomputed"]     # rid (= trace index) -> tokens then
+        ok = all(x == y if i not in rc else x[:rc[i]] == y[:rc[i]]
+                 for i, (x, y) in enumerate(zip(streams[key], u)))
+        where = [(i, next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), None),
+                  rc.get(i)) for i, (x, y) in enumerate(zip(streams[key], u)) if x != y]
+        out[f"{key}_parts"] = where
+        print(f"  {key} against U: {len(rc)} recompute continuations (request: tokens "
+              f"at its re-prefill) {rc}; requests parting (index, first differing "
+              f"token, tokens at its re-prefill) {where}", flush=True)
+        check(bool(rc) and ok, f"{key} == U but where a recompute continuation parts "
+              f"after its re-prefill ({len(where)} of {len(rc)} part)")
+    s, c = out["S"], out["C"]
+    check(s["evictions"] >= 3 and s["spills"] == s["evictions"] and s["restores"] == s["spills"]
+          and s["recompute_fallbacks"] == 0,
+          f"S: {s['spills']} spills of {s['evictions']} evictions >= 3, every one restored")
+    check(s["spill_bytes"] == s["spilled_pages"] * page_bytes,
+          f"S: spill bytes {s['spill_bytes']} == {s['spilled_pages']} pages x {page_bytes}")
+    check(c["recompute_fallbacks"] >= 1 and c["spills"] >= 1,
+          f"C: {c['spills']} spills and {c['recompute_fallbacks']} recompute fallbacks mix")
+    check(out["R"]["reprefilled_rows"] >= out["R"]["evictions"] >= 3
+          and out["S"]["reprefilled_rows"] == 0,
+          f"R re-prefilled {out['R']['reprefilled_rows']} continuations, S none")
+
+    f = out["F"]
+    plan = serve_lib.FaultPlan(**FAULTS)
+    fs = streams["F"]
+    poisoned = [i for i, st in enumerate(f["status"][:16]) if st == "poisoned"]
+    check(len(poisoned) == 1 and f["poisoned"] == 1, f"F: one request poisoned ({poisoned})")
+    p_i = poisoned[0]
+    check(all(fs[i] == u[i] for i in range(16) if i != p_i)
+          and fs[p_i] == u[p_i][:len(fs[p_i])] and f["status"].count("done") == 15,
+          "F: every other request equals U, the poisoned one's tokens are a prefix of U's")
+    check(f["late"]["status"] == "deadline_missed" and f["deadline_misses"] == 1,
+          f"F: the late request shed ({f['late']})")
+    fired = f["fired"]
+    check(fired["evict"] == len(plan.evict_steps) and fired["nan"] == 1
+          and fired["corrupt"] == len(plan.corrupt_refcount_steps)
+          and f["refcount_corruptions_detected"] == len(plan.corrupt_refcount_steps)
+          and fired["alloc_fail"] >= 1 and fired["restore_delay"] >= 1,
+          f"F: faults fired as planned ({fired}), every corruption detected "
+          f"({f['refcount_corruptions_detected']})")
+    check(f["restores"] + f["records_dropped"] == f["spills"] >= len(plan.evict_steps),
+          f"F: restores {f['restores']} + shed records {f['records_dropped']} == spills "
+          f"{f['spills']}")
+    out["spills_total"] = sum(out[k]["spills"] for k in runs)
+
+    # kernels 1 and 2 replayed on the launches of a re-prefill and a restore
+    replay_served("starved", kept, compare)
+    check(ctxs["S"]["fresh_in_table"] is True,
+          "the replayed decode after a restore reads the restored slot's fresh pages")
+
+    # a spill and a restore on the device
+    for key in ("spill", "restore"):
+        calls = out["S"][f"{key}_calls"]
+        pages = sum(x["pages"] for x in calls)
+        ms = sum(x["device_ms"] for x in calls)
+        out[key] = dict(calls=len(calls), pages=pages, device_ms=ms,
+                        ms_per_page=ms / max(pages, 1),
+                        gb_per_s=pages * page_bytes / max(ms, 1e-9) / 1e6)
+        print(f"  {key}: {len(calls)} calls of {[x['pages'] for x in calls]} pages "
+              f"(widths {[x['width'] for x in calls]}), device "
+              f"{[round(x['device_ms'], 3) for x in calls]} ms, host "
+              f"{[round(x['host_ms'], 3) for x in calls]} ms: {ms / max(pages, 1):.4f} ms "
+              f"a page, {out[key]['gb_per_s']:.2f} GB/s of real pages [{smi}]", flush=True)
+    # warm: a spill and a restore of 16 and 32 pages on a pool of the
+    # starved size, 5 each timed by CUDA events
+    cache = model.init_cache(STARVE_KW["max_batch_slots"], STARVE_KW["max_len"],
+                             page_size=PAGE, num_pages=STARVED_POOL)
+    out["warm"] = {}
+    for n in (16, 32):
+        pages = list(range(1, n + 1))
+        held = serve_lib.page_fetch(model, cache, pages)
+        fetch = cuda_ms(lambda: serve_lib.page_fetch(model, cache, pages), 5)
+        restore = cuda_ms(lambda: serve_lib.page_restore(model, cache, pages, held), 5)
+        out["warm"][n] = dict(spill_ms=fetch, restore_ms=restore,
+                              spill_gb_per_s=n * page_bytes / fetch / 1e6,
+                              restore_gb_per_s=n * page_bytes / restore / 1e6)
+        print(f"  warm, {n} pages ({n * page_bytes / 2**20:.1f} MiB): spill {fetch:.3f} ms "
+              f"({fetch / n:.4f} a page, {n * page_bytes / fetch / 1e6:.2f} GB/s), restore "
+              f"{restore:.3f} ms ({restore / n:.4f} a page, "
+              f"{n * page_bytes / restore / 1e6:.2f} GB/s) [{smi}]", flush=True)
+    del cache, held
+    print(f"  longest step: R {out['R']['longest_step_ms']:.1f} ms (longest with a "
+          f"re-prefill {out['R']['longest_reprefill_step_ms']}), S "
+          f"{out['S']['longest_step_ms']:.1f} ms (longest with a restore "
+          f"{out['S']['longest_restore_step_ms']}) [{smi}]", flush=True)
+
+    # the profiled step of C: S's profile_step, under the same schedule
+    check(ctxs["C"].get("profile") is not None, f"C profiled its step {profile_step}")
+    prof, prof_s, launches, shapes = ctxs["C"]["profile"]
+    names = tuple(k for k in ATTENTION_KERNELS if launches.get(k[1]))
+    out["profile"] = profile_report(prof, out["S"]["profile_step_wall_ms"] / 1e3, prof_s,
+                                    f"step {profile_step} of C (restores a spilled "
+                                    f"slot; S's wall of that step as the unprofiled one)",
+                                    launches, names)
+    out["served"] = served_attention(entries, "starved step with a restore",
+                                     out["profile"], shapes, cfg)
     return out
 
 
@@ -2218,7 +2584,7 @@ def main(argv=None) -> int:
         adc_kernels(dev, cfg, gen, entries)
     if 4 in phases:
         small_model(dev, 5 in phases)
-    if phases & {6, 7, 9, 10, 11}:
+    if phases & {6, 7, 9, 10, 11, 12}:
         serve_phases(dev, cfg, phases, entries, compare, results)
     stamp(f"phases {sorted(phases)} done: every check passed")
     for name in max_err:
@@ -2277,7 +2643,7 @@ def small_model(dev, scheduler: bool) -> None:
 
 
 def serve_phases(dev, cfg, phases, entries, compare, results) -> None:
-    """Phases 6, 7, 9, 10 and 11 at full width and depth, on the phase 6
+    """Phases 6, 7, 9, 10, 11 and 12 at full width and depth, on the phase 6
     weights."""
     stamp("phase 6: model and weights")
     Dh = cfg.resolved_head_dim
@@ -2299,7 +2665,7 @@ def serve_phases(dev, cfg, phases, entries, compare, results) -> None:
     if 9 in phases:
         stamp("phase 9")
         results["paper_fidelity"] = paper_fidelity(cfg, params, entries)
-    if phases & {10, 11}:
+    if phases & {10, 11, 12}:
         results["row_probe"] = row_probe(model, params, cfg)
         check_row_probe(results["row_probe"])
     if 10 in phases:
@@ -2310,6 +2676,10 @@ def serve_phases(dev, cfg, phases, entries, compare, results) -> None:
         stamp("phase 11")
         results["spec"] = spec_scheduler(model, params, cfg, entries, compare,
                                          results["card"])
+    if 12 in phases:
+        stamp("phase 12")
+        results["starved"] = starved_scheduler(model, params, cfg, entries, compare,
+                                               results["card"])
 
 
 def serve_classic(model, params, cfg, entries, results) -> None:

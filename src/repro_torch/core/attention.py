@@ -3,8 +3,8 @@ the behavioral (paper-faithful) PIM attention and the fp baseline.
 
 Counterpart of the JAX package's `core/attention.py`: the dense cache
 (classic scalar fill or ragged per-slot lengths) and the paged pool with
-its trash page and page copies.  Ring caches belong to a later slice of
-the port.
+its trash page, page copies, and the page fetches and restores of a
+spill.  Ring caches belong to a later slice of the port.
 
 Score: int8 QK^T, requantized to 8-bit score codes.  Softmax: LUT exp and a
 two-phase normalization, in the shifted mode through the LUT softmax kernel
@@ -205,6 +205,32 @@ def copy_pages(pool: PagedKVCache, src: torch.Tensor, dst: torch.Tensor,
     dst = torch.as_tensor(dst, device=pool.k_q.device).long()
     for plane in (pool.k_q, pool.v_q, pool.k_scale, pool.v_scale):
         plane.index_copy_(page_axis, dst, plane.index_select(page_axis, src))
+    return pool
+
+
+def fetch_pages(pool: PagedKVCache, pages: torch.Tensor,
+                page_axis: int = 0) -> PagedKVCache:
+    """Gather whole pages out of the pool: page i of the result is a
+    bit-exact copy of pool page `pages[i]` (K, V and both scale planes), in
+    new storage, so nothing of it aliases the pool.  The device half of a
+    spill: the scheduler copies a victim slot's private pages to host
+    memory instead of recomputing them later.  `page_axis` is 1 for
+    layer-stacked pools; entries may repeat (`TRASH_PAGE` padding)."""
+    pages = torch.as_tensor(pages, device=pool.k_q.device).long()
+    return PagedKVCache(*[p.index_select(page_axis, pages) for p in
+                          (pool.k_q, pool.v_q, pool.k_scale, pool.v_scale)])
+
+
+def restore_pages(pool: PagedKVCache, pages: torch.Tensor,
+                  data: PagedKVCache, page_axis: int = 0) -> PagedKVCache:
+    """Scatter fetched pages back, in place: pool page `pages[i]` becomes a
+    bit-exact copy of `data` page i, the inverse of `fetch_pages`.  The
+    destinations are fresh pages, plus `TRASH_PAGE` padding lanes whose
+    writes land in the sink.  `data` is moved to the pool's device."""
+    pages = torch.as_tensor(pages, device=pool.k_q.device).long()
+    for plane, d in zip((pool.k_q, pool.v_q, pool.k_scale, pool.v_scale),
+                        (data.k_q, data.v_q, data.k_scale, data.v_scale)):
+        plane.index_copy_(page_axis, pages, d.to(plane.device))
     return pool
 
 

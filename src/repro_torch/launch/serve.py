@@ -13,7 +13,10 @@ and copy-on-write, the directory capped at `--prefix-cache-pages`);
 `--prefill-chunk-budget` tokens a step beside the decoding slots, in one
 forward (`--mixed-dispatch fused`) or as a chunk wave paired with the
 decode chunk (`paired`, paged only); `--speculate` verifies up to
-`--draft-len` n-gram drafts a slot and step (`--draft-mode ngram`):
+`--draft-len` n-gram drafts a slot and step (`--draft-mode ngram`);
+`--victim-pool-pages` spills evicted slots' pages to host memory (paged
+only), `--max-queue` bounds the admission queue and `--deadline-ms` sheds
+requests older than that:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
       --attn-impl kernel --continuous-batching --page-size 16 --batch 8 \
@@ -100,6 +103,17 @@ def parse_args(argv=None):
                     help="one (B, L) forward per mixed step ('fused') or a "
                          "chunk wave of the prefilling rows paired with the "
                          "decode chunk ('paired'; requires --page-size)")
+    ap.add_argument("--victim-pool-pages", type=int, default=0,
+                    help="host-memory victim pool (pages): an eviction "
+                         "spills its private KV pages to host memory and "
+                         "re-admission restores them instead of recomputing "
+                         "the prompt (requires --page-size; 0 = recompute)")
+    ap.add_argument("--deadline-ms", type=float, default=0,
+                    help="per-request deadline: requests older than this are "
+                         "shed as deadline misses (0 = none)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded admission queue: submits past this depth "
+                         "are refused with back-pressure (0 = unbounded)")
     ap.add_argument("--speculate", action="store_true",
                     help="speculative decoding: n-gram drafts verified in "
                          "one multi-token decode launch a step (requires "
@@ -125,6 +139,16 @@ def parse_args(argv=None):
         ap.error("--prefill-chunk-budget requires --mixed-steps")
     if args.mixed_dispatch == "paired" and not args.page_size:
         ap.error("--mixed-dispatch paired requires --page-size")
+    if args.victim_pool_pages and not args.page_size:
+        ap.error("--victim-pool-pages requires --page-size")
+    if args.victim_pool_pages < 0:
+        ap.error("--victim-pool-pages must be >= 0")
+    if args.deadline_ms < 0:
+        ap.error("--deadline-ms must be >= 0")
+    if args.max_queue < 0:
+        ap.error("--max-queue must be >= 0")
+    if (args.deadline_ms or args.max_queue) and not args.continuous_batching:
+        ap.error("--deadline-ms/--max-queue require --continuous-batching")
     if args.speculate and not args.continuous_batching:
         ap.error("--speculate requires --continuous-batching")
     return args
@@ -161,7 +185,9 @@ def main(argv=None):
         mixed_steps=args.mixed_steps,
         prefill_chunk_budget=args.prefill_chunk_budget,
         mixed_dispatch=args.mixed_dispatch, speculate=args.speculate,
-        draft_len=args.draft_len, draft_mode=args.draft_mode)
+        draft_len=args.draft_len, draft_mode=args.draft_mode,
+        victim_pool_pages=args.victim_pool_pages, max_queue=args.max_queue,
+        deadline_ms=args.deadline_ms or None)
     out = out.cpu()
     dt = time.perf_counter() - t0
     toks = args.batch * args.new_tokens
@@ -173,7 +199,9 @@ def main(argv=None):
                 + (f", mixed {args.mixed_dispatch}" if args.mixed_steps
                    else "")
                 + (f", speculate k={args.draft_len}" if args.speculate
-                   else "") + ")")
+                   else "")
+                + (f", spill {args.victim_pool_pages} pages"
+                   if args.victim_pool_pages else "") + ")")
     print(f"[serve] arch={cfg.name} attn={cfg.attn_impl} device={model.device} "
           f"{mode} kv{cfg.kv_bits} temp={args.temperature} top_k={args.top_k} "
           f"top_p={args.top_p} generated {tuple(out.shape)} in {dt:.2f}s "

@@ -157,6 +157,38 @@ def cache_copy_pages(cache, src, dst):
     return cache
 
 
+def cache_fetch_pages(cache, pages):
+    """Gather pages `pages[i]` out of every layer's paged pool: a tree of
+    the cache's structure whose pools are replaced by the gathered pages
+    (page axis 1 under "blocks", 0 under "tail") and whose other leaves
+    are None.  One fetch covers the stack, since a slot's table row names
+    the same pages in every layer."""
+    def visit(node, axis):
+        if isinstance(node, A.PagedKVCache):
+            return A.fetch_pages(node, pages, page_axis=axis)
+        if isinstance(node, (tuple, list)):
+            return type(node)(visit(v, axis) for v in node)
+        return None
+
+    return {k: visit(v, 1 if k == "blocks" else 0) for k, v in cache.items()}
+
+
+def cache_restore_pages(cache, pages, data):
+    """Scatter a `cache_fetch_pages` tree back into every layer's pool, in
+    place: pool page `pages[i]` := `data` page i (None leaves of `data`
+    leave the cache leaf as it is)."""
+    def visit(node, d, axis):
+        if isinstance(node, A.PagedKVCache) and d is not None:
+            A.restore_pages(node, pages, d, page_axis=axis)
+        elif isinstance(node, (tuple, list)):
+            for v, dv in zip(node, d):
+                visit(v, dv, axis)
+
+    for k, v in cache.items():
+        visit(v, data[k], 1 if k == "blocks" else 0)
+    return cache
+
+
 def _index(tree, r: int):
     if isinstance(tree, dict):
         return {k: _index(v, r) for k, v in tree.items()}

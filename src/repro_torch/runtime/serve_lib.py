@@ -28,22 +28,30 @@ the reference.  Each forward gets its host inputs (tokens, offsets,
 lengths, page table, request ids and token indices) in one asynchronous
 copy, a decode chunk keeps its evolving lengths on the device, and the
 host reads the device once per prefill wave, mixed or speculative step and
-chunk.  Its other features (spill, snapshots, ...) raise
-NotImplementedError naming their ROADMAP.md item.
+chunk.  Under overload it spills an evicted slot's pages to host memory
+and restores them on re-admission, bounds its queue, sheds requests past
+their deadline, and takes a deterministic fault plan
+(`runtime/fault.py`) whose NaN poison quarantines one request.  Its other
+features (4-bit KV, snapshots, ...) raise NotImplementedError naming their
+ROADMAP.md item.
 """
 from __future__ import annotations
 
 import collections
+import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import attention as A
 from repro_torch.core.attention import TRASH_PAGE
 from repro_torch.models import transformer as T
 from repro_torch.models.model_zoo import Model
 from repro_torch.runtime import prng
+from repro_torch.runtime.fault import FaultPlan
 
 
 def kv_bytes_per_token(cfg: ModelConfig) -> int:
@@ -73,8 +81,15 @@ class PromptTooLong(SubmitError):
     pool owns; at the queue head it would wedge FCFS admission forever."""
 
 
+class Overloaded(RuntimeError):
+    """Back-pressure: the bounded admission queue (`max_queue`) is full.
+    The caller sheds load or retries; `stats["rejections"]` counts it."""
+
+
 class AuditError(AssertionError):
-    """`Scheduler.audit()` found a broken invariant of the page accounting."""
+    """`Scheduler.audit()` found a broken invariant of the page accounting
+    (slot rows, directory entries and victim records against the
+    refcounts and the free list)."""
 
 
 SCAN_BLOCK = 16
@@ -202,9 +217,6 @@ class Sampling:
 # Scheduler options of the reference that later slices port: the value
 # each takes when it is off, and its ROADMAP.md §1 item.
 _NOT_PORTED = {
-    "victim_pool_pages": (0, "5 (e)"), "max_queue": (0, "5 (e)"),
-    "deadline_ms": (None, "5 (e)"), "ttl_steps": (None, "5 (e)"),
-    "fault_plan": (None, "5 (e)"), "audit_every_step": (None, "5 (e)"),
     "kv_bits": (0, "5 (g)"),
     "integrity": ("off", "5 (h)"), "tbt_target_ms": (0.0, "5 (h)"),
     "queue_depth_target": (0, "5 (h)"), "ladder_cooldown_steps": (8, "5 (h)"),
@@ -252,12 +264,22 @@ def to_device(arrays, device) -> Tuple[torch.Tensor, ...]:
     return tuple(out)
 
 
-def _first_tokens(logits: torch.Tensor, sampling: Sampling, rids, gens):
+def _poisoned(logits: torch.Tensor, poison) -> torch.Tensor:
+    """NaN in the rows of `logits` that the (n,) device `poison` names (the
+    fault plan's seam; elementwise, so every other row keeps its bits)."""
+    if poison is None:
+        return logits
+    mask = poison.bool().view(-1, *([1] * (logits.dim() - 1)))
+    return torch.where(mask, float("nan"), logits)
+
+
+def _first_tokens(logits: torch.Tensor, sampling: Sampling, rids, gens,
+                  poison=None):
     """The tokens of a prefill's (n, V) logits (`sampling`, with the rows'
-    device rids / gens), -1 where a row's logits are not all finite; one
-    device-to-host copy.  Returns host (tok0, fin).  The reference's
-    `poison` operand injects faults (ROADMAP.md §1 item 5 (e)); the port
-    passes none and keeps only the finiteness check."""
+    device rids / gens), -1 where a row's logits are not all finite, after
+    NaN went into the rows that the device `poison` names; one
+    device-to-host copy.  Returns host (tok0, fin)."""
+    logits = _poisoned(logits, poison)
     fin = torch.isfinite(logits).all(dim=-1)
     tok = torch.where(fin, sampling.rows(logits, rids, gens), -1)
     out = torch.stack([tok, fin.long()]).cpu().numpy()
@@ -266,40 +288,46 @@ def _first_tokens(logits: torch.Tensor, sampling: Sampling, rids, gens):
 
 def ragged_prefill(model: Model, params, toks: np.ndarray, lens: np.ndarray,
                    big_cache, slots: np.ndarray, *, rids: np.ndarray,
-                   gens: np.ndarray, sampling: Sampling):
+                   gens: np.ndarray, sampling: Sampling,
+                   poison: Optional[np.ndarray] = None):
     """Admission prefill into dense slots: n left-aligned prompts padded to
     L ((n, L) tokens, (n,) valid lengths) run through one forward over an
     L-token sub-batch ragged cache (padding K/V is written but never
     advertised), whose rows are then copied into the first L positions of
     the big cache's `slots`.  Each row's first token is sampled from its
-    last valid position with the key of its (rids, gens) entry.  Returns
-    the host (first tokens, finite rows)."""
+    last valid position with the key of its (rids, gens) entry; `poison`
+    (n,) puts NaN into the named rows' logits.  Returns the host (first
+    tokens, finite rows)."""
     n, L = toks.shape
-    toks_d, lens_d, offs_d, slots_d, rids_d, gens_d = to_device(
-        (toks, lens, np.zeros(n), slots, rids, gens), model.device)
+    toks_d, lens_d, offs_d, slots_d, rids_d, gens_d, *pois = to_device(
+        (toks, lens, np.zeros(n), slots, rids, gens)
+        + (() if poison is None else (poison,)), model.device)
     sub = model.init_cache(n, L, ragged=True)
     logits, sub = model.forward_serve(params, {"tokens": toks_d}, sub,
                                       offs_d, seq_lens=lens_d)
     T.cache_scatter(big_cache, sub, slots_d.long())
-    return _first_tokens(logits, sampling, rids_d, gens_d)
+    return _first_tokens(logits, sampling, rids_d, gens_d, *pois)
 
 
 def paged_prefill(model: Model, params, toks: np.ndarray, lens: np.ndarray,
                   pool, pages: np.ndarray, offs: np.ndarray, *,
-                  rids: np.ndarray, gens: np.ndarray, sampling: Sampling):
+                  rids: np.ndarray, gens: np.ndarray, sampling: Sampling,
+                  poison: Optional[np.ndarray] = None):
     """Admission prefill into the paged pool: the prompts write straight
     into their slots' pages (the (n, max_pages) rows of the page table), no
     sub-batch cache and no copy.  `offs` is each row's absolute position of
     its first token (0 without a prefix hit): after a hit a row's leading table
     entries already hold the shared prefix, and only its tail runs here,
     attending over the prefix through the table.  A chunk wave of mixed
-    steps is the same call at the chunks' starts.  Sampling as in
-    `ragged_prefill`.  Returns the host (first tokens, finite rows)."""
-    toks_d, lens_d, offs_d, pages_d, rids_d, gens_d = to_device(
-        (toks, lens, offs, pages, rids, gens), model.device)
+    steps is the same call at the chunks' starts.  Sampling and `poison`
+    as in `ragged_prefill`.  Returns the host (first tokens, finite
+    rows)."""
+    toks_d, lens_d, offs_d, pages_d, rids_d, gens_d, *pois = to_device(
+        (toks, lens, offs, pages, rids, gens)
+        + (() if poison is None else (poison,)), model.device)
     logits, _ = model.forward_serve(params, {"tokens": toks_d}, pool, offs_d,
                                     seq_lens=lens_d, pages=pages_d)
-    return _first_tokens(logits, sampling, rids_d, gens_d)
+    return _first_tokens(logits, sampling, rids_d, gens_d, *pois)
 
 
 def page_copy(model: Model, cache, pairs: Sequence[Tuple[int, int]]):
@@ -311,32 +339,73 @@ def page_copy(model: Model, cache, pairs: Sequence[Tuple[int, int]]):
     return T.cache_copy_pages(cache, src, dst)
 
 
+def _planes(tree) -> List[torch.Tensor]:
+    """The planes of a `cache_fetch_pages` tree, in a fixed order."""
+    return [x for k in sorted(tree) for pool in tree[k] if pool is not None
+            for x in (pool.k_q, pool.v_q, pool.k_scale, pool.v_scale)]
+
+
+def _moved(tree, device):
+    """A copy of a page tree on `device`, in one transfer: the bytes of its
+    planes packed into one buffer, each plane then a view of its stretch
+    of the moved buffer.  The copy is synchronous and the host side
+    pageable: a pinned buffer of a new size costs more to allocate (tens
+    of ms on the card's host) than the copy itself."""
+    planes = _planes(tree)
+    flat = torch.cat([p.reshape(-1).view(torch.uint8) for p in planes])
+    parts = flat.to(device).split([p.numel() * p.element_size() for p in planes])
+    moved = iter([c.view(p.dtype).view(p.shape) for p, c in zip(planes, parts)])
+    return {k: tuple(None if pool is None else A.PagedKVCache(
+        *(next(moved) for _ in range(4))) for pool in tree[k])
+        for k in sorted(tree)}
+
+
+def page_fetch(model: Model, cache, pages: Sequence[int]):
+    """Spill device step: gather `pages` out of every layer's pool and
+    copy them to host memory in one transfer, which waits for the device.
+    Returns the host tree (`cache_fetch_pages` structure); the gathered
+    pages are new storage, so nothing of the pool survives in it."""
+    pages_d, = to_device((np.asarray(pages),), model.device)
+    return _moved(T.cache_fetch_pages(cache, pages_d.long()), "cpu")
+
+
+def page_restore(model: Model, cache, pages: Sequence[int], data):
+    """Restore device step: the host tree `data` to the device in one
+    transfer, scattered into pool pages `pages` of every layer in place
+    (stream-ordered before the next forward)."""
+    pages_d, = to_device((np.asarray(pages),), model.device)
+    return T.cache_restore_pages(cache, pages_d.long(),
+                                 _moved(data, model.device))
+
+
 def mixed_step(model: Model, params, toks: np.ndarray, cache,
                offs: np.ndarray, seq_lens: np.ndarray,
                decode_rows: np.ndarray, pages: Optional[np.ndarray], *,
-               rids: np.ndarray, gens: np.ndarray, sampling: Sampling):
+               rids: np.ndarray, gens: np.ndarray, sampling: Sampling,
+               poison: np.ndarray):
     """One mixed scheduler forward over a (B, L) rectangle: row b carries
     one decode token (`decode_rows[b]`, seq_lens 1 at its fill), a prefill
     chunk (seq_lens[b] prompt tokens at offset offs[b]) or nothing
     (seq_lens 0: no kernel work).  Attention sends each class through its
-    separate dispatch's kernel (`blocks._mixed_attend`).  Returns the host
-    (token of every row at its last valid position, sampled with its
-    (rids, gens) key, and finite rows); the caller keeps the decode rows'
-    tokens and those of chunks that complete a prompt."""
-    arrays = (toks, offs, seq_lens, decode_rows, rids, gens) + (
+    separate dispatch's kernel (`blocks._mixed_attend`).  `poison` (B,)
+    puts NaN into the named rows' logits.  Returns the host (token of
+    every row at its last valid position, sampled with its (rids, gens)
+    key, and finite rows); the caller keeps the decode rows' tokens and
+    those of chunks that complete a prompt."""
+    arrays = (toks, offs, seq_lens, decode_rows, rids, gens, poison) + (
         () if pages is None else (pages,))
-    toks_d, offs_d, seq_d, dec_d, rids_d, gens_d, *pt = to_device(
+    toks_d, offs_d, seq_d, dec_d, rids_d, gens_d, pois_d, *pt = to_device(
         arrays, model.device)
     logits, _ = model.forward_serve(
         params, {"tokens": toks_d}, cache, offs_d, seq_lens=seq_d,
         pages=pt[0] if pt else None, decode_rows=dec_d.bool())
-    return _first_tokens(logits, sampling, rids_d, gens_d)
+    return _first_tokens(logits, sampling, rids_d, gens_d, pois_d)
 
 
 def ragged_decode(model: Model, params, cache, tok, lengths, active,
                   remaining, chunk: int, eos_id: Optional[int], max_len: int,
                   pages: Optional[np.ndarray], *, rids: np.ndarray,
-                  gens: np.ndarray, sampling: Sampling):
+                  gens: np.ndarray, sampling: Sampling, poison: np.ndarray):
     """`chunk` decode steps for all slots, from host (B,) arrays.
 
     Every step writes each active slot's token at its own position, attends
@@ -344,8 +413,9 @@ def ragged_decode(model: Model, params, cache, tok, lengths, active,
     row with the key of its (rids, gens) entry, gens advancing on the
     device while the row stays active, and retires rows that hit EOS,
     their budget or the cache capacity: a retired row's length drops to 0
-    for the rest of the chunk.  A row whose logits are not all finite
-    emits nothing, stops and is reported.  The lengths stay on the device
+    for the rest of the chunk.  `poison` (B,) puts NaN into the named
+    rows' logits at the chunk's first step; a row whose logits are not all
+    finite emits nothing, stops and is reported.  The lengths stay on the device
     between steps; the host reads the chunk once at its end.  Paged
     callers pass the (B, max_pages) page table, which must cover lengths +
     chunk tokens of every active slot.
@@ -353,19 +423,21 @@ def ragged_decode(model: Model, params, cache, tok, lengths, active,
     Returns host arrays (tok, lengths, active, remaining, toks (chunk, B),
     emitted (chunk, B) bool, poisoned (B,) bool)."""
     eos = -2 if eos_id is None else int(eos_id)      # -2 matches no token
-    arrays = (tok, lengths, active, remaining, rids, gens) + (
+    arrays = (tok, lengths, active, remaining, rids, gens, poison) + (
         () if pages is None else (pages,))
-    tok, lengths, active, remaining, rids, gens, *pt = to_device(
+    tok, lengths, active, remaining, rids, gens, poison, *pt = to_device(
         arrays, model.device)
     pt = pt[0] if pt else None
     active = active.bool()
     pois = torch.zeros_like(active)
     toks, emitted = [], []
-    for _ in range(chunk):
+    for t in range(chunk):
         act = active.int()
         logits, cache = model.forward_serve(
             params, {"tokens": torch.clamp(tok, min=0)[:, None]}, cache,
             lengths, seq_lens=act, pages=pt)
+        if t == 0:
+            logits = _poisoned(logits, poison)
         fin = torch.isfinite(logits).all(dim=-1)
         live = active & fin
         nxt = torch.where(live, sampling.rows(logits, rids, gens).int(), -1)
@@ -434,7 +506,8 @@ def spec_accept(logits: torch.Tensor, toks: torch.Tensor, seq_lens, dec,
 def spec_step(model: Model, params, toks: np.ndarray, cache,
               offs: np.ndarray, seq_lens: np.ndarray, decode_rows: np.ndarray,
               verify_len: int, pages: Optional[np.ndarray], *,
-              rids: np.ndarray, gens: np.ndarray, sampling: Sampling):
+              rids: np.ndarray, gens: np.ndarray, sampling: Sampling,
+              poison: np.ndarray):
     """One speculative scheduler forward (the reference's
     `make_spec_step_fn`): decode rows carry their current token and up to
     `verify_len` - 1 drafted tokens (seq_lens 1 + k), chunk rows their
@@ -443,14 +516,15 @@ def spec_step(model: Model, params, toks: np.ndarray, cache,
     scored as the single-token step it replaces, and the forward returns
     logits at all P = verify_len columns (`logit_positions`), which
     `spec_accept` turns into tokens.  KV of rejected drafts is written but
-    never advertised.  No poison operand (ROADMAP.md §1 item 5 (e)).
+    never advertised.  `poison` (n,) puts NaN into every column of the
+    named rows' logits.
 
     Returns host (out (n, P), n_emit (n,), fin (n,) bool): row b emits
     out[b, :n_emit[b]]."""
     n, P = toks.shape[0], int(verify_len)
-    arrays = (toks, offs, seq_lens, decode_rows, rids, gens) + (
+    arrays = (toks, offs, seq_lens, decode_rows, rids, gens, poison) + (
         () if pages is None else (pages,))
-    toks_d, offs_d, sl, dec_d, rids_d, gens_d, *pt = to_device(
+    toks_d, offs_d, sl, dec_d, rids_d, gens_d, pois_d, *pt = to_device(
         arrays, model.device)
     dec = dec_d.bool()
     col = torch.arange(P, device=sl.device, dtype=sl.dtype)
@@ -461,6 +535,7 @@ def spec_step(model: Model, params, toks: np.ndarray, cache,
         params, {"tokens": toks_d}, cache, offs_d, seq_lens=sl,
         pages=pt[0] if pt else None, decode_rows=dec, logit_positions=pos,
         verify_len=P)                                    # (n, P, V)
+    logits = _poisoned(logits, pois_d)
     fin = torch.isfinite(logits).flatten(1).all(dim=-1)
     out, acc = spec_accept(logits, toks_d, sl, dec, rids_d, gens_d, sampling)
     res = torch.cat([out.int(), (acc + 1).int()[:, None],
@@ -535,23 +610,54 @@ prefix-directory entries (distinct from None, the pool is full)."""
 
 
 class Request:
-    """One generation request tracked by the Scheduler.  `status` is
-    "queued" -> "done" | "poisoned"."""
+    """One generation request tracked by the Scheduler.  `deadline_ms` /
+    `ttl_steps` bound its lifetime from submit, in milliseconds of the
+    scheduler's clock or in scheduler steps: a request past either is shed
+    from the queue, or retired from its slot with the tokens it has.
+    `status` is "queued" -> "done" | "deadline_missed" | "poisoned"."""
 
     __slots__ = ("rid", "prompt", "max_new_tokens", "tokens", "done",
+                 "deadline_ms", "ttl_steps", "submit_step", "submit_time",
                  "status", "spec_k")
 
-    def __init__(self, rid: int, prompt: Sequence[int], max_new_tokens: int):
+    def __init__(self, rid: int, prompt: Sequence[int], max_new_tokens: int,
+                 deadline_ms: Optional[float] = None,
+                 ttl_steps: Optional[int] = None):
         self.rid = rid
         self.prompt = list(int(t) for t in prompt)
         self.max_new_tokens = int(max_new_tokens)
         self.tokens: List[int] = []
         self.done = False
+        self.deadline_ms = None if deadline_ms is None else float(deadline_ms)
+        self.ttl_steps = None if ttl_steps is None else int(ttl_steps)
+        self.submit_step = 0
+        self.submit_time = 0.0
         self.status = "queued"
         # adaptive draft length of speculation: on the request, so that it
         # survives eviction and re-admission; None until the first
         # speculative step seeds it with draft_len
         self.spec_k: Optional[int] = None
+
+
+class _SpillRecord:
+    """Victim-pool entry of one evicted slot: what rebuilds its page-table
+    row bit for bit.  `logical` lists the slot's pages in logical order,
+    each ("host", i), a private page whose bytes are page i of `data` (the
+    device page was freed), or ("ref", p), a shared page left resident,
+    on which the record keeps one refcount until the restore.  `data` is
+    the host copy of a `page_fetch` of `width` pages (a power of two, the
+    padding lanes `TRASH_PAGE`), `n_host` of them real.  `covered` and
+    `cur_tok` are the slot's kv fill and next decode input."""
+
+    __slots__ = ("logical", "n_host", "width", "data", "covered", "cur_tok")
+
+    def __init__(self, logical, n_host, width, data, covered, cur_tok):
+        self.logical = logical
+        self.n_host = int(n_host)
+        self.width = int(width)
+        self.data = data
+        self.covered = int(covered)
+        self.cur_tok = int(cur_tok)
 
 
 class Scheduler:
@@ -579,7 +685,10 @@ class Scheduler:
     for the chunk (state untouched, no kernel compute); if no slot can run,
     the most recently admitted one is evicted, its pages freed and its
     request re-queued as a continuation (prompt + tokens so far), which
-    under greedy decoding resumes the same stream.
+    under greedy decoding resumes the same stream on the behavioral path;
+    on the kernel path the re-prefill runs the prefill kernel over tokens
+    that the decode kernel produced, and the stream may part after it, as
+    the reference's does (ROADMAP.md §3).
 
     **Prefix sharing** (`prefix_sharing=True`, paged only): every page has
     a refcount (slot table rows + directory entries hold it), and a prefix
@@ -623,6 +732,21 @@ class Scheduler:
     advertised.  Paged allocation asks for each row's 1 + k writes
     without evicting, drops a starved row's drafts, and only then evicts.
 
+    **Overload control.**  With `victim_pool_pages > 0` (paged only) an
+    eviction spills the slot's private pages to host memory (one gather
+    and one copy off the device) and keeps its shared pages resident under
+    a refcount of its record; re-admission at the queue head restores the
+    pages into fresh ones and resumes decoding, an O(pages) copy in place
+    of the O(prompt + tokens) re-prefill, with the same stream.  A spill
+    the pool's cap cannot take falls back to a recompute continuation.
+    `max_queue` bounds the queue (`submit` raises `Overloaded`), and a
+    request's `deadline_ms` (on `clock`) or `ttl_steps` sheds it from the
+    queue or its slot.  `fault_plan` (`runtime/fault.py`) forces
+    evictions, failed allocations, delayed restores, refcount corruptions
+    that `audit()` must detect, and NaN logits that quarantine one request
+    (`status="poisoned"`); `audit_every_step` (default: the `REPRO_AUDIT`
+    environment variable) audits after every step.
+
     The reference's other options raise NotImplementedError naming their
     ROADMAP.md item."""
 
@@ -636,8 +760,17 @@ class Scheduler:
                  mixed_steps: bool = False, prefill_chunk_budget: int = 0,
                  mixed_dispatch: str = "fused", speculate: bool = False,
                  draft_len: int = 4, draft_mode: str = "ngram",
+                 victim_pool_pages: int = 0, max_queue: int = 0,
+                 fault_plan: Optional[FaultPlan] = None,
+                 audit_every_step: Optional[bool] = None,
+                 clock: Callable[[], float] = time.monotonic,
                  **not_ported):
         _refuse_unported(not_ported)
+        if fault_plan is not None and (fault_plan.crash_at_step
+                                       or fault_plan.bitflip_spilled_page_steps):
+            raise NotImplementedError(
+                "fault plans with crash_at_step or bitflip_spilled_page_steps: "
+                "not ported yet (ROADMAP.md §1 item 5 (h))")
         if not scheduler_supported(model.cfg):
             raise NotImplementedError(
                 f"arch {model.cfg.name!r} is not supported by the slot "
@@ -735,13 +868,38 @@ class Scheduler:
         self.spec_proposed = 0       # draft tokens sent to verification
         self.spec_accepted = 0
         self.spec_rejected = 0
+        # overload control: victim pool, bounded queue, deadlines, faults
+        self.victim_pool_pages = int(victim_pool_pages)
+        if self.victim_pool_pages and not self.paged:
+            raise ValueError("victim_pool_pages requires page_size > 0 "
+                             "(only paged KV can spill page-granularly)")
+        self.max_queue = int(max_queue)
+        self._clock = clock
+        self._faults = fault_plan.start() if fault_plan is not None else None
+        if audit_every_step is None:
+            audit_every_step = bool(int(os.environ.get("REPRO_AUDIT", "0")))
+        self._audit_every = bool(audit_every_step)
+        # rid -> record of a spilled continuation (queued like any other)
+        self._victim: Dict[int, _SpillRecord] = {}
+        self._victim_used = 0                 # host pages the records hold
+        self._page_bytes = (self.page_size * kv_bytes_per_token(model.cfg)
+                            if self.paged else 0)
+        self._poison_mask = np.zeros(self.B, bool)
+        self.n_spills = 0                     # evictions spilled to host
+        self.n_restores = 0                   # spilled slots re-admitted
+        self.spilled_pages = 0                # pages copied off the device
+        self.spill_bytes = 0                  # their bytes (_page_bytes each)
+        self.n_recompute_fallbacks = 0        # spills the cap refused
+        self.n_deadline_misses = 0
+        self.n_rejections = 0                 # submits refused (Overloaded)
+        self.refcount_corruptions_detected = 0
 
     # -- request intake -----------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int,
-               **not_ported) -> int:
+               deadline_ms: Optional[float] = None,
+               ttl_steps: Optional[int] = None) -> int:
         """Queue a request; raises a `SubmitError` for one that can never
-        be served."""
-        _refuse_unported(not_ported)
+        be served, and `Overloaded` when the bounded queue is full."""
         prompt = list(prompt)
         if not prompt:
             raise EmptyPrompt("empty prompt: nothing to condition on")
@@ -756,11 +914,50 @@ class Scheduler:
             raise PromptTooLong(
                 f"prompt needs {self._pages_for(len(prompt) + 1)} pages; the "
                 f"pool only has {self.num_pages - 1}")
-        r = Request(self._next_rid, prompt, max_new_tokens)
+        if self.max_queue and len(self.queue) >= self.max_queue:
+            self.n_rejections += 1
+            raise Overloaded(
+                f"admission queue full ({self.max_queue} requests)")
+        r = Request(self._next_rid, prompt, max_new_tokens,
+                    deadline_ms=deadline_ms, ttl_steps=ttl_steps)
+        r.submit_step = self._step_idx
+        r.submit_time = self._clock()
         self._next_rid += 1
         self.requests[r.rid] = r
         self.queue.append(r)
         return r.rid
+
+    def _is_stale(self, r: Request) -> bool:
+        if (r.ttl_steps is not None
+                and self._step_idx - r.submit_step > r.ttl_steps):
+            return True
+        return (r.deadline_ms is not None
+                and (self._clock() - r.submit_time) * 1e3 > r.deadline_ms)
+
+    def _shed_stale(self):
+        """Drop queued requests past their deadline or ttl; a shed spilled
+        continuation releases its victim record."""
+        kept: "collections.deque[Request]" = collections.deque()
+        while self.queue:
+            r = self.queue.popleft()
+            if self._is_stale(r):
+                r.done = True
+                r.status = "deadline_missed"
+                self.n_deadline_misses += 1
+                self._drop_victim(r.rid)
+            else:
+                kept.append(r)
+        self.queue = kept
+
+    def _shed_admitted(self):
+        """Retire admitted (decoding or prefilling) requests past their
+        deadline or ttl, with the tokens they have; their pages are freed
+        and nothing is registered."""
+        for b in range(self.B):
+            r = self.slot_req[b]
+            if r is not None and self._is_stale(r):
+                self.n_deadline_misses += 1
+                self._retire(b, status="deadline_missed", register=False)
 
     def _bucket(self, n: int) -> int:
         b = self.prefill_bucket
@@ -782,6 +979,9 @@ class Scheduler:
         have = int((row >= 0).sum())
         if need <= have:
             return True
+        # a planned failure is asked only when pages would really be taken
+        if self._faults is not None and self._faults.fail_alloc(self._step_idx):
+            return False
         if need - have > len(self.free_pages):
             self._reclaim(need - have)
             if need - have > len(self.free_pages):
@@ -956,22 +1156,121 @@ class Scheduler:
 
     def _evict(self, slot: int):
         """Free a starved slot and re-queue its request at the head as a
-        continuation: re-admission prefills prompt + tokens so far.  Pages
-        that other slots or the directory hold only lose this slot's
-        hold."""
+        continuation.  With a victim pool the slot's KV is spilled first
+        and re-admission restores it, bit for bit; otherwise (or when the
+        pool's cap refuses it) re-admission prefills prompt + tokens so
+        far.  Sampling keys are per (request, token index), so neither
+        changes a draw's key.  Pages that other slots or the directory
+        hold only lose this slot's hold."""
         r = self.slot_req[slot]
+        spilled = False
+        if (r is not None and self.victim_pool_pages
+                and not self.prefilling[slot] and self.lengths[slot] > 0):
+            spilled = self._spill(slot, r)
         self.slot_req[slot] = None
         self.active[slot] = False
         self.lengths[slot] = 0
         self.cur_tok[slot] = -1
         self.prefilling[slot] = False
         self._pend[slot] = None
+        self._poison_mask[slot] = False
         self._inflight_keys.pop(slot, None)
-        if self.paged:
+        if self.paged and not spilled:
             self._free_slot_pages(slot)
         self.n_evictions += 1
         if r is not None:
             self.queue.appendleft(r)
+
+    def _spill(self, slot: int, r: Request) -> bool:
+        """Move `slot`'s KV into the victim pool: its private pages (this
+        slot their only holder) are fetched in one power-of-two-padded
+        gather, copied to host memory and freed; its shared pages stay
+        resident, the record taking over the slot's hold.  False (a
+        recompute continuation) when the cap cannot take the private
+        pages."""
+        row = self.page_table[slot]
+        alloc = [int(p) for p in row[row >= 0]]
+        private = [p for p in alloc if self.page_ref[p] == 1]
+        n = len(private)
+        if self._victim_used + n > self.victim_pool_pages:
+            self.n_recompute_fallbacks += 1
+            return False
+        width = 1
+        while width < max(n, 1):
+            width *= 2
+        data = None
+        if n:
+            data = page_fetch(self.model, self.cache,
+                              private + [TRASH_PAGE] * (width - n))
+        host_idx = {p: i for i, p in enumerate(private)}
+        logical: List[Tuple[str, int]] = []
+        for p in alloc:
+            if self.page_ref[p] == 1:
+                logical.append(("host", host_idx[p]))
+                self.page_ref[p] = 0
+                self.free_pages.append(p)
+            else:
+                # the record replaces the slot as a holder: net refcount
+                # unchanged
+                logical.append(("ref", p))
+        row[:] = -1
+        self._victim[r.rid] = _SpillRecord(
+            logical, n, width, data, int(self.lengths[slot]),
+            int(self.cur_tok[slot]))
+        self._victim_used += n
+        self.n_spills += 1
+        self.spilled_pages += n
+        self.spill_bytes += n * self._page_bytes
+        return True
+
+    def _restore(self, slot: int, r: Request, rec: _SpillRecord) -> bool:
+        """Re-admit a spilled continuation into `slot`: its host pages go
+        into fresh pages (one transfer and one scatter, padded as the
+        fetch was), its shared entries are mapped again (the record's hold
+        passes back to the slot), and the slot resumes decoding where the
+        eviction stopped, with no prefill.  False when the pool cannot
+        supply the fresh pages yet (the request stays at the head)."""
+        n = rec.n_host
+        if n > len(self.free_pages):
+            self._reclaim(n)
+            if n > len(self.free_pages):
+                return False
+        fresh = [self.free_pages.pop() for _ in range(n)]
+        for p in fresh:
+            self.page_ref[p] = 1
+        row = self.page_table[slot]
+        for j, (kind, val) in enumerate(rec.logical):
+            row[j] = fresh[val] if kind == "host" else val
+        if n:
+            page_restore(self.model, self.cache,
+                         fresh + [TRASH_PAGE] * (rec.width - n), rec.data)
+        del self._victim[r.rid]
+        self._victim_used -= n
+        self.slot_req[slot] = r
+        self.lengths[slot] = rec.covered
+        self.cur_tok[slot] = rec.cur_tok
+        self.remaining[slot] = r.max_new_tokens - len(r.tokens)
+        self.active[slot] = True
+        self.prefilling[slot] = False
+        self._admit_counter += 1
+        self._admit_seq[slot] = self._admit_counter
+        self.n_restores += 1
+        self._note_peak()
+        return True
+
+    def _drop_victim(self, rid: int):
+        """Release a victim record without restoring it (its request was
+        shed): the host pages are forgotten and its holds on resident
+        shared pages dropped."""
+        rec = self._victim.pop(rid, None)
+        if rec is None:
+            return
+        self._victim_used -= rec.n_host
+        for kind, p in rec.logical:
+            if kind == "ref":
+                self.page_ref[p] -= 1
+                if self.page_ref[p] == 0:
+                    self.free_pages.append(p)
 
     def _retire(self, slot: int, status: str = "done",
                 register: bool = True):
@@ -988,6 +1287,7 @@ class Scheduler:
         self.lengths[slot] = 0
         self.prefilling[slot] = False
         self._pend[slot] = None
+        self._poison_mask[slot] = False
         self._inflight_keys.pop(slot, None)
         if self.paged:
             if self.prefix_sharing and r is not None and register:
@@ -1050,6 +1350,18 @@ class Scheduler:
                              if self._inflight_keys else set())
         deferred = False
         while free and self.queue:
+            rec = self._victim.get(self.queue[0].rid)
+            if rec is not None:
+                # a spilled continuation at the head is restored, not
+                # prefilled: it decodes at once, outside the wave
+                if (self._faults is not None
+                        and self._faults.delay_restore(self._step_idx)):
+                    break
+                if not self._restore(free[0], self.queue[0], rec):
+                    break                       # FCFS: wait for pages
+                free.pop(0)
+                self.queue.popleft()
+                continue
             if self.paged:
                 t = self._try_admit_paged(free[0], self.queue[0],
                                           pending_keys, cow_pairs)
@@ -1097,7 +1409,7 @@ class Scheduler:
         slots = np.array([s for s, _ in wave], np.int32)
         ids = dict(rids=np.array([r.rid for _, r in wave], np.int32),
                    gens=np.array([len(r.tokens) for _, r in wave], np.int32),
-                   sampling=self.sampling)
+                   sampling=self.sampling, poison=self._poison_mask[slots])
         self.prefill_tokens_computed += int(lens.sum())
         self.model_steps += 1
         if self.paged:
@@ -1199,7 +1511,8 @@ class Scheduler:
             self.model, self.params, self.cache, self.cur_tok,
             self.lengths * run, run, self.remaining, self.decode_chunk,
             self.eos_id, self.max_len,
-            self.page_table if self.paged else None, **self._slot_ids())
+            self.page_table if self.paged else None, **self._slot_ids(),
+            poison=self._poison_mask & run)
         stalled = self.active & ~run
         self.cur_tok = np.where(run, tok, self.cur_tok).astype(np.int32)
         self.lengths = np.where(run, lengths, self.lengths).astype(np.int32)
@@ -1345,7 +1658,8 @@ class Scheduler:
         self.model_steps += 1
         tok, fin = mixed_step(self.model, self.params, toks, self.cache, offs,
                               seq, dec, self.page_table if self.paged else None,
-                              **self._slot_ids())
+                              **self._slot_ids(),
+                              poison=self._poison_mask & (seq > 0))
         self._chunks_done(chunks, tok, fin, [b for b, _, _ in chunks], emitted)
         for b in np.flatnonzero(dec):
             if fin[b]:
@@ -1429,7 +1743,8 @@ class Scheduler:
         self.n_spec_steps += 1
         out, n_emit, fin = spec_step(
             self.model, self.params, toks, self.cache, offs, seq, dec, P,
-            self.page_table if self.paged else None, **self._slot_ids())
+            self.page_table if self.paged else None, **self._slot_ids(),
+            poison=self._poison_mask & (seq > 0))
         self._chunks_done(chunks, out[:, 0], fin, [b for b, _, _ in chunks],
                           emitted)
         for b in np.flatnonzero(dec):
@@ -1458,15 +1773,31 @@ class Scheduler:
     # -- driving --------------------------------------------------------------
     @torch.inference_mode()
     def step(self) -> Dict[int, List[int]]:
-        """One scheduling round: admit, then one speculative step (with
-        this step's prefill chunks, or after a paired chunk wave), or one
-        mixed step while a prompt is being prefilled in chunks, else one
-        decode chunk; returns the tokens generated this round by request
-        id."""
+        """One scheduling round: shed stale requests, admit (restoring
+        spilled continuations), then one speculative step (with this
+        step's prefill chunks, or after a paired chunk wave), or one mixed
+        step while a prompt is being prefilled in chunks, else one decode
+        chunk; returns the tokens generated this round by request id.  The
+        fault plan's hooks and the per-step audit run here, in the
+        reference's order."""
         emitted: Dict[int, List[int]] = {}
         self._step_idx += 1
+        self._shed_stale()
+        self._shed_admitted()
         self._queue_depths.append(len(self.queue))
         self._admit(emitted)
+        if (self._faults is not None and self.active.any()
+                and self._faults.force_evict(self._step_idx)):
+            self._evict(self._eviction_victim())
+        occupied = self.active | self.prefilling
+        if (self._faults is not None and occupied.any()
+                and self._faults.poison_nan(self._step_idx)):
+            # the occupied slot with the lowest rid; the mark stays until
+            # the slot is vacated, so a victim that samples nothing this
+            # step retires at its next sampled logits
+            victim = min((int(b) for b in np.flatnonzero(occupied)),
+                         key=lambda b: self.slot_req[b].rid)
+            self._poison_mask[victim] = True
         filling = self.mixed_steps and self.prefilling.any()
         if self.speculate:
             if filling and self.mixed_dispatch == "paired":
@@ -1479,6 +1810,11 @@ class Scheduler:
         else:
             self._decode(emitted)
         self._note_peak()
+        if (self._faults is not None and self.paged
+                and self._faults.corrupt_refcount(self._step_idx)):
+            self._corrupt_and_detect()
+        if self._audit_every:
+            self.audit()
         return emitted
 
     def run(self, on_tokens: Optional[Callable[[int, List[int]], None]] = None
@@ -1511,12 +1847,40 @@ class Scheduler:
             "spec_accept_rate": (self.spec_accepted
                                  / max(self.spec_proposed, 1)),
             "evictions": self.n_evictions,
-            "poisoned": self.n_poisoned,
-            "reclaim_stalls": self.n_reclaim_stalls,
+            "spills": self.n_spills,
+            "restores": self.n_restores,
+            "spilled_pages": self.spilled_pages,
+            "spill_bytes": self.spill_bytes,
             "kv_bytes_per_token": kv_bytes_per_token(self.model.cfg),
+            "recompute_fallbacks": self.n_recompute_fallbacks,
+            "deadline_misses": self.n_deadline_misses,
+            "rejections": self.n_rejections,
+            "reclaim_stalls": self.n_reclaim_stalls,
+            "refcount_corruptions_detected":
+                self.refcount_corruptions_detected,
+            "victim_pool_pages_used": self._victim_used,
             "queue_depth_p50": float(np.percentile(depths, 50)),
             "queue_depth_p95": float(np.percentile(depths, 95)),
+            "poisoned": self.n_poisoned,
         }
+
+    def _corrupt_and_detect(self):
+        """Fault hook: add one to the refcount of the lowest held page,
+        require `audit()` to detect it, then roll it back."""
+        held = np.flatnonzero(self.page_ref > 0)
+        if held.size == 0:
+            return
+        p = int(held[0])
+        self.page_ref[p] += 1
+        try:
+            self.audit()
+        except AuditError:
+            self.refcount_corruptions_detected += 1
+        else:
+            raise AssertionError(
+                f"audit() missed an injected refcount corruption on page {p}")
+        finally:
+            self.page_ref[p] -= 1
 
     def audit(self):
         """Check the slot and page-accounting invariants; raises
@@ -1526,7 +1890,9 @@ class Scheduler:
         holders (table entries + directory entries), refcount 0 iff on the
         free list, no page twice on the free list, the trash page never
         handed out, table rows contiguous and covering their slot's fill,
-        and the directory's per-page holds in sync with its entries."""
+        the directory's per-page holds in sync with its entries, and the
+        victim pool's records holding their shared pages (each a holder)
+        and as many host pages as its counter says, within its cap."""
         errs: List[str] = []
         for b in range(self.B):
             occupied = self.slot_req[b] is not None
@@ -1562,7 +1928,7 @@ class Scheduler:
                         expected[p] += 1
                 if self.slot_req[b] is None and k:
                     errs.append(f"slot {b}: empty slot still maps {k} pages")
-                if (self.slot_req[b] is not None
+                if (self.slot_req[b] is not None and self.lengths[b] > 0
                         and k < self._pages_for(int(self.lengths[b]))):
                     errs.append(f"slot {b}: kv fill {int(self.lengths[b])} "
                                 f"not covered by its {k} pages")
@@ -1577,6 +1943,23 @@ class Scheduler:
             if dir_ref != self._dir_ref:
                 errs.append("directory page holds (_dir_ref) out of sync "
                             "with the directory's entries")
+            used = 0
+            for rid, rec in self._victim.items():
+                used += rec.n_host
+                for kind, p in rec.logical:
+                    if kind != "ref":
+                        continue
+                    if 0 < p < P:
+                        expected[p] += 1
+                    else:
+                        errs.append(f"victim record {rid} holds invalid "
+                                    f"page {p}")
+            if used != self._victim_used:
+                errs.append(f"victim pool accounting: records hold {used} "
+                            f"host pages, counter says {self._victim_used}")
+            if self.victim_pool_pages and used > self.victim_pool_pages:
+                errs.append(f"victim pool over capacity: {used} > "
+                            f"{self.victim_pool_pages}")
             for p in range(1, P):
                 ref = int(self.page_ref[p])
                 if ref != int(expected[p]):
@@ -1605,7 +1988,11 @@ def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
              prefix_cache_pages: int = 0, mixed_steps: bool = False,
              prefill_chunk_budget: int = 0, mixed_dispatch: str = "fused",
              speculate: bool = False, draft_len: int = 4,
-             draft_mode: str = "ngram", **not_ported) -> torch.Tensor:
+             draft_mode: str = "ngram", victim_pool_pages: int = 0,
+             max_queue: int = 0, deadline_ms: Optional[float] = None,
+             ttl_steps: Optional[int] = None,
+             fault_plan: Optional[FaultPlan] = None,
+             **not_ported) -> torch.Tensor:
     """Batched generation; returns (B, max_new_tokens) token ids.
 
     Default: equal-length prefill, then one decode step per further token;
@@ -1618,9 +2005,11 @@ def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
     slots on the paged pool of `num_pages` pages, `prefix_sharing` shares
     prompt prefixes there (`prefix_cache_pages` caps the directory),
     `mixed_steps` prefills prompts in chunks of `prefill_chunk_budget`
-    tokens beside the decoding slots, and `speculate` verifies up to
-    `draft_len` drafted tokens a slot and step (`draft_mode`; see
-    `Scheduler`)."""
+    tokens beside the decoding slots, `speculate` verifies up to
+    `draft_len` drafted tokens a slot and step (`draft_mode`),
+    `victim_pool_pages` spills evicted slots to host memory, `max_queue`,
+    `deadline_ms` and `ttl_steps` bound admission (a refused or shed row
+    stays padding), and `fault_plan` injects faults (see `Scheduler`)."""
     _refuse_unported(not_ported)
     tokens = torch.as_tensor(prompt_batch["tokens"])
     B, S = tokens.shape
@@ -1641,13 +2030,24 @@ def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
                           mixed_steps=mixed_steps,
                           prefill_chunk_budget=prefill_chunk_budget,
                           mixed_dispatch=mixed_dispatch, speculate=speculate,
-                          draft_len=draft_len, draft_mode=draft_mode)
+                          draft_len=draft_len, draft_mode=draft_mode,
+                          victim_pool_pages=victim_pool_pages,
+                          max_queue=max_queue, fault_plan=fault_plan)
         rows = tokens.cpu().numpy()
-        rids = [sched.submit(rows[b].tolist(), max_new_tokens) for b in range(B)]
+        rids: List[Optional[int]] = []
+        for b in range(B):
+            try:
+                rids.append(sched.submit(rows[b].tolist(), max_new_tokens,
+                                         deadline_ms=deadline_ms,
+                                         ttl_steps=ttl_steps))
+            except Overloaded:
+                rids.append(None)       # back-pressure: the row stays padding
         results = sched.run()
         out = np.full((B, max_new_tokens), 0 if eos_id is None else int(eos_id),
                       np.int64)
         for b, rid in enumerate(rids):
+            if rid is None:
+                continue
             got = results.get(rid, [])[:max_new_tokens]
             out[b, :len(got)] = got
         return torch.from_numpy(out).to(model.device)

@@ -201,9 +201,10 @@ def test_unported_features_raise():
         build_model(dataclasses.replace(cfg, block_pattern=("attn", "mlstm")), "cpu")
     m = build_model(cfg, "cpu")
     # continuous batching is ported (tests/test_torch_sched.py), with prefix
-    # sharing and mixed steps; its later features are not
+    # sharing, mixed steps, speculation and overload control; its later
+    # features are not
     with pytest.raises(NotImplementedError):
         TS.generate(m, m.init(), {"tokens": torch.zeros(1, 4, dtype=torch.long)},
-                    2, 8, continuous_batching=True, victim_pool_pages=4)
+                    2, 8, continuous_batching=True, kv_bits=4)
     with pytest.raises(KeyError):
         get_config("gemma-7b")

@@ -9,8 +9,8 @@ classic generation, mixed lengths with slot reuse, EOS mid-chunk, a
 starved pool that stalls and evicts, and the `generate` entry point.
 Also: the page accounting (`audit()`), typed rejections, the sharing and
 mixed-step options refusing what the reference refuses, `prefill_bucket`,
-and every reference option that is not ported yet raising
-NotImplementedError.
+and every reference option that is not ported yet (4-bit KV, snapshots,
+integrity, the SLA ladder, recovery faults) raising NotImplementedError.
 """
 import dataclasses
 
@@ -27,6 +27,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import pipeline as TD
 from repro_torch.launch import serve as tserve
 from repro_torch.models.model_zoo import build_model, from_jax_params
+from repro_torch.runtime import fault as TF
 from repro_torch.runtime import serve_lib as TS
 
 ARCH = "internlm2-1.8b"
@@ -190,7 +191,8 @@ def test_prefill_bucket_gives_jax_admission_widths(models, page_size):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("victim_pool_pages", 4), ("max_queue", 2), ("fault_plan", object()),
+    ("queue_depth_target", 4), ("ladder_cooldown_steps", 2),
+    ("snapshot_dir", "snapshots"),
     ("integrity", "checksum"), ("tbt_target_ms", 5.0), ("snapshot_every", 2),
     ("kv_bits", 4)])
 def test_unported_scheduler_options_raise(models, option, value):
@@ -202,8 +204,12 @@ def test_unported_scheduler_options_raise(models, option, value):
 def test_unported_submit_and_generate_options_raise(models):
     _, _, tm, tp = models
     sched = TS.Scheduler(tm, tp, max_batch_slots=2, max_len=32)
+    with pytest.raises(TypeError):
+        sched.submit([1, 2], 3, integrity="checksum")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sched.submit([1, 2], 3, deadline_ms=10.0)
+        TS.generate(tm, tp, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, 2,
+                    8, continuous_batching=True,
+                    fault_plan=TF.FaultPlan(crash_at_step=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TS.generate(tm, tp, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, 2,
                     8, continuous_batching=True, restore_from="snapshots")
