@@ -27,11 +27,12 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    decode call runs one device kernel and nothing else.
 3. Holds the paged mode of both kernels against their plain versions at
    the same widths, over random permuted page tables of 16-token pages
-   (slot lengths 0, 15, 16, 17, 1000, 2048): decode, verify rows (Sq 4),
-   4-bit KV and a ragged prefill chunk (Sq 128, per-row offsets), with
-   iteration maps equal, and paged == dense bit for bit at block_k == page
-   size.  Times the paged mode at the shapes timed in phase 2 (one
-   pim_decode_kernel per decode call).
+   (slot lengths 0, 15, 16, 17, 1000, 2048): decode, verify rows (Sq 4)
+   and a ragged prefill chunk (Sq 128, per-row offsets), each at int8 and
+   4-bit KV, with iteration maps equal, and paged == dense bit for bit at
+   block_k == page size.  Times the paged mode at the shapes timed in
+   phase 2 (one pim_decode_kernel per decode call), at int8 and over 4-bit
+   pages.
 4. Checks the kernel path of a small model against the plain path on the CPU.
 5. Runs the continuous-batching Scheduler on the card at that small width
    (float32, kernel path): dense slots, the paged pool and classic greedy
@@ -88,7 +89,8 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    broadcast mask with no other device kernel around it, and a profile as
    in phases 6 and 7, with kernels 3 and 4's bounds at their served
    operands and the device kernels per forward.
-10. Serves, with the phase 6 weights at decode_block_k 16, a 16-request
+10. Serves, with the phase 6 weights cut to their first 6 layers
+   (CUT_DEPTH) at decode_block_k 16, a 16-request
    trace through 8 slots of 1,536 tokens: 12 prompts open with one
    256-token system prompt (two pairs of them equal and page-aligned), 3
    share nothing, and a 1,024-token prompt arrives after 3 steps.  Six
@@ -121,7 +123,8 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    tokens/s, forwards, tokens per forward and accept rate; profiles one
    sampled speculative step (busy share, kernels 1 and 2's us per launch
    beside their bounds) and times the sampler alone on its logits.
-12. Serves, with the phase 6 weights at decode_block_k 16, a 16-request
+12. Serves, with the phase 6 weights cut to their first 6 layers
+   (CUT_DEPTH) at decode_block_k 16, a 16-request
    trace (prompts of 64-384 tokens, budgets 48-128, seed 12) through 8
    slots of 1,024 tokens on 16-token pages, five ways: (U) the unstarved
    pool of 513 pages, (R) a starved pool of 112 pages + the trash page
@@ -143,6 +146,27 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    device time of each spill and restore (per page, GB/s), R's and S's
    longest steps, and a profile of a step that restores (kernels 1 and
    2's us per launch beside their bounds).
+13. Serves, with the phase 6 weights at decode_block_k 16 and kv_bits=4
+   (the Scheduler rebuilds the model: 16-token pages of 417,792 bytes
+   against 811,008 at int8), the first 8 requests of phase 12's trace
+   through 8 slots of 1,024 tokens: (P4) the default pool, counting
+   kernel launches over 4-bit pages and replaying an admission wave's
+   kernel 1 and a decode's kernel 2 against the plain versions, with one
+   profiled step (the admission wave and a decode chunk: kernels 1 and 2's
+   us per launch beside bounds that count 4-bit bytes); (D4) dense slots
+   against the pool on the prompts cut to one page, where both run the
+   same tiles; (S4) phase 12's starved pool spilling to a host victim
+   pool with page checksums, the spill and restore timed; (B4) S4 with
+   one byte of a spilled page flipped on the host; (C4) S4 with a
+   snapshot every 2 steps, crashed at the step after a snapshot that
+   holds a victim record and restored by a fresh scheduler (bytes on
+   disk, write and restore times); (L4) P4 with fused mixed steps
+   (chunk budget 256) under the SLA ladder at a 50 ms target on the real
+   clock, then idle steps.  Checks D4 == P4, S4 == P4, C4 == S4 and
+   L4 == P4 token for token, B4's flip detected and its request
+   recomputed (equal to P4 up to its re-prefill, the others equal), the
+   ladder climbing every rung under load and releasing each once idle,
+   `audit()` after every step and no plain-version call.
 Phases 10-12 first run a row probe: RMSNorm, the bf16 unembed, the
 top-k / top-p truncation, its softmax and the Gumbel arg-max must give a
 row the same bits alone and among other rows (up to 40 = 8 slots x 5
@@ -159,8 +183,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -198,7 +224,7 @@ F32_OPS = 67e12
 REL_TOL = 1e-5
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
 # what a phase needs run first: kernel entries (2, 8) or the small model (4)
 NEEDS = {3: {2}, 5: {4}, 6: {2}, 7: {2}, 9: {8}}
 
@@ -265,6 +291,34 @@ def device_us(events) -> dict:
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
 
 
+def raw_device_us(prof) -> tuple:
+    """(`device_us`, cudaLaunchKernel calls) of a profile read from its raw
+    events: `key_averages()` builds a tree of every host event first, which
+    took 40-50 s over a served step of 70,000 launches."""
+    times, host = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if not e.is_user_annotation():
+                us, n = times.get(e.name(), (0.0, 0))
+                times[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+        elif e.name() == "cudaLaunchKernel":
+            host += 1
+    return times, host
+
+
+def check_raw_reader(prof) -> None:
+    """`raw_device_us` of a short profile against its `key_averages()`:
+    the same kernels, launches and (to float rounding) device time."""
+    raw, host = raw_device_us(prof)
+    events = prof.key_averages()
+    avg = device_us(events)
+    ok = (raw.keys() == avg.keys() and all(raw[k][1] == avg[k][1] for k in raw)
+          and all(abs(raw[k][0] - avg[k][0]) <= 1e-3 * max(avg[k][0], 1.0) for k in raw)
+          and host == sum(e.count for e in events if e.key == "cudaLaunchKernel"))
+    check(ok, f"the raw profile reader equals key_averages() ({len(raw)} device "
+          f"kernels, {sum(n for _, n in raw.values())} launches, {host} cudaLaunchKernel)")
+
+
 def kernel_us(times: dict, kernel: str):
     """(device us, launches) of the device kernel named `kernel` (any
     template instance)."""
@@ -272,15 +326,18 @@ def kernel_us(times: dict, kernel: str):
     return sum(us for us, _ in hits), sum(n for _, n in hits)
 
 
-def profiled(fn, iters: int) -> dict:
-    """`device_us` of `iters` calls of `fn`, after one warm-up call."""
+def profiled(fn, iters: int, check_reader: bool = False) -> dict:
+    """`device_us` of `iters` calls of `fn`, after one warm-up call (with
+    `check_reader`, the raw reader held against `key_averages()`)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return device_us(prof.key_averages())
+    if check_reader:
+        check_raw_reader(prof)
+    return raw_device_us(prof)[0]
 
 
 def others(times: dict, kernel: str) -> dict:
@@ -309,21 +366,19 @@ def profile_report(prof, wall_s: float, prof_s: float, label: str,
                    last: bool = True) -> dict:
     """Print where a profiled run's device time went: busy share of the
     unprofiled wall `wall_s` of the same run, each (device kernel, wrapper)
-    of `kernel_names`' device time per launch and the top device operators.
+    of `kernel_names`' device time per launch and the top device kernels.
     `launches` are the wrapper counts of the profiled run: the profiler must
     see one device kernel per wrapper call.  Where it saw fewer (it can drop
     a few events of a long run), raises EventsDropped unless `last`."""
     stamp(f"profile of the {label} taken")
-    events = prof.key_averages()
-    times = device_us(events)
-    stamp("key_averages done")
+    times, host_launches = raw_device_us(prof)
+    stamp("profile read")
     for kernel, wrapper in kernel_names:
         n, made = kernel_us(times, kernel)[1], launches.get(wrapper, 0)
         if n < made and not last:
             raise EventsDropped(f"the profiler saw {n} of {made} {kernel} launches")
     busy_ms = sum(us for us, _ in times.values()) / 1e3
     n_dev = sum(n for _, n in times.values())
-    host_launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     print(f"  profiled {label}: device busy {busy_ms:.2f} ms = "
           f"{busy_ms / (wall_s * 1e3):.1%} of the unprofiled wall "
           f"{wall_s * 1e3:.1f} ms ({busy_ms / (prof_s * 1e3):.1%} of the "
@@ -342,8 +397,9 @@ def profile_report(prof, wall_s: float, prof_s: float, label: str,
         for key, (u, c) in times.items():
             if f"{kernel}(" in key or f"{kernel}<" in key:
                 print(f"    {key[:64]}: {c} launches, {u / c:.2f} us each")
-    print(events.table(sort_by="self_cuda_time_total", row_limit=12,
-                       max_name_column_width=48))
+    print("  top device kernels and copies (ms, launches, us each):")
+    for key, (u, c) in sorted(times.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"    {key[:64]}: {u / 1e3:.3f} ms, {c}, {u / c:.2f}")
     return dict(profiled_wall_ms=prof_s * 1e3, device_busy_ms=busy_ms,
                 busy_share=busy_ms / (wall_s * 1e3), device_events=n_dev,
                 host_launches=host_launches, kernels=kernels)
@@ -393,13 +449,21 @@ def attention_bound(nbytes: int, pairs: int, Dh: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def kv_token_bytes(cfg) -> int:
+    """Bytes of one cached token and KV head as the cache stores it: K and
+    V codes at `cfg.kv_bits` (two 4-bit codes a byte) and two f32 scales;
+    2 Dh + 8 at int8, Dh + 8 at 4-bit."""
+    return 2 * cfg.resolved_head_dim * cfg.kv_bits // 8 + 8
+
+
 def decode_bound(kv_lens, q_lens, Sq: int, cfg):
-    """(ms, limit) of one pim_decode call at a served shape: the int8 K/V
-    rows and f32 scales that each slot with a query attends to, read once,
-    q, its scales and the f32 output, against the pairs it scores."""
+    """(ms, limit) of one pim_decode call at a served shape: the K/V codes
+    (at the cache's precision) and f32 scales of the rows that each slot
+    with a query attends to, read once, q, its scales and the f32 output,
+    against the pairs it scores."""
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     live = [(kv, ql) for kv, ql in zip(kv_lens, q_lens) if ql > 0]
-    nbytes = (sum(kv for kv, _ in live) * Hkv * (2 * Dh + 8)
+    nbytes = (sum(kv for kv, _ in live) * Hkv * kv_token_bytes(cfg)
               + len(kv_lens) * H * Sq * (Dh + 4 + 4 * Dh))
     return attention_bound(nbytes, sum(H * ql * kv for kv, ql in live), Dh)
 
@@ -411,7 +475,7 @@ def prefill_bound(offs, kv_lens, q_lens, Sq: int, cfg):
     keys)."""
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     live = [(o, kv, min(ql, Sq)) for o, kv, ql in zip(offs, kv_lens, q_lens) if ql > 0]
-    nbytes = (sum(kv for _, kv, _ in live) * Hkv * (2 * Dh + 8)
+    nbytes = (sum(kv for _, kv, _ in live) * Hkv * kv_token_bytes(cfg)
               + len(kv_lens) * H * Sq * (Dh + 4 + 4 * Dh))
     pairs = sum(int(np.minimum(kv, o + np.arange(ql) + 1).sum()) for o, kv, ql in live)
     return attention_bound(nbytes, H * pairs, Dh)
@@ -533,7 +597,9 @@ def paged_kernels(dev, cfg, gen, compare, bound, entries) -> None:
                 ("decode", 1, 8, pim_decode, pim_decode_plain),
                 ("decode verify rows", 4, 8, pim_decode, pim_decode_plain),
                 ("decode", 1, 4, pim_decode, pim_decode_plain),
-                ("prefill ragged chunk", 128, 8, pim_attention, pim_attention_plain)):
+                ("decode verify rows", 4, 4, pim_decode, pim_decode_plain),
+                ("prefill ragged chunk", 128, 8, pim_attention, pim_attention_plain),
+                ("prefill ragged chunk", 128, 4, pim_attention, pim_attention_plain)):
             paged, pt, dense, lens_d = operands(lens, Sq, 2048, kv_bits, seed)
             offs = torch.clamp(lens_d - Sq, min=0)
             ql = torch.clamp(lens_d, max=Sq)
@@ -598,6 +664,24 @@ def paged_kernels(dev, cfg, gen, compare, bound, entries) -> None:
     entries["pim_decode"].update(paged_ms=us / 50 / 1e3, paged_bound_ms=b_ms)
     print(f"  paged decode kv{kv}, device ms per call: kernel {us / 50 / 1e3:.4f} "
           f"(dense {entries['pim_decode']['ms']:.4f}), bound {b_ms:.4f}")
+
+    # the same two shapes over 4-bit pages, beside the int8 times above
+    for what, wrapper, kern, plain, Sq, S, iters, pairs, seed in (
+            ("prefill paged timed shape Sq512 kv4", "pim_attention", pim_attention,
+             pim_attention_plain, 512, 512, 20, B * H * 512 * 513 // 2, 2),
+            ("decode paged timed shape kv_len 4096 kv4", "pim_decode", pim_decode,
+             pim_decode_plain, 1, kv, 50, B * H * kv, 3)):
+        paged, pt, _, lens_d = operands([S] * B, Sq, S, kv_bits=4, seed=seed)
+        offs = lens_d - Sq
+        compare(what, kern(*paged, offs, lens_d, page_table=pt, **kw),
+                plain(*paged, offs, lens_d, page_table=pt, **kw))
+        us, n = kernel_us(profiled(lambda: kern(*paged, offs, lens_d, pim_cfg, lut_cfg,
+                                                page_table=pt), iters), wrapper + "_kernel")
+        check(n == iters, f"{what}: the profiler saw its {iters} launches ({n})")
+        b_ms, _ = bound(paged_bytes(paged, pt), pairs)
+        entries[wrapper].update(paged_kv4_ms=us / iters / 1e3, paged_kv4_bound_ms=b_ms)
+        print(f"  {what}, device ms per call: kernel {us / iters / 1e3:.4f} (int8 "
+              f"{entries[wrapper]['paged_ms']:.4f}), bound {b_ms:.4f}")
 
 
 # ---- 5. the Scheduler at small width on the card ----------------------------
@@ -723,13 +807,14 @@ def recorded(pick, targets=None, by_sq=None):
             setattr(mod, attr, wrapped[name])
 
 
-def replay_served(storage: str, kept: dict, compare) -> None:
+def replay_served(storage: str, kept: dict, compare,
+                  need=("pim_attention", "pim_decode")) -> None:
     """Hold each recorded launch of the `storage` scheduler run against the
     kernel's plain version on the same operands (REL_TOL, iteration maps
-    equal)."""
+    equal); launches of each kernel of `need` must have been recorded."""
     plain = {"pim_attention": (pim_attention, pim_attention_plain),
              "pim_decode": (pim_decode, pim_decode_plain)}
-    for name in plain:
+    for name in need:
         check(any(n == name for n, _, _ in kept.values()),
               f"{storage}: recorded served launches of {name}")
     for label, (name, args, kw) in kept.items():
@@ -1555,39 +1640,71 @@ def overload_watch(ctx):
             setattr(serve_lib, n, f)
 
 
-def starved_steps(sched, trace, ctx, late=None, profile_step=None, cfg=None):
+def overload_ctx(**extra):
+    """(ctx, pick): a fresh ctx for `overload_watch` and `starved_steps`
+    updated with `extra`, and the `recorded` pick that keeps layer
+    REC_LAYER of the launches after each arming (ctx["label"])."""
+    ctx = dict(label=None, first={}, page_fetch=[], page_restore=[],
+               restored_pages=None, reprefilled=0, recomputed={},
+               arm_decode=False, arm_prefill=False, fresh_in_table=None)
+    ctx.update(extra)
+
+    def pick(name, i):
+        if ctx["label"] is None:
+            return None
+        first = ctx["first"].setdefault(name, i)
+        return (f"{ctx['label']}, layer {REC_LAYER} ({name})"
+                if i - first == REC_LAYER else None)
+    return ctx, pick
+
+
+def starved_steps(sched, trace, ctx=None, late=None, profile_step=None, cfg=None):
     """Submit `trace` (and `late` (prompt, budget) with ttl LATE_TTL after
     LATE_AT steps), step to the end, synchronized.  Each scheduler step
     audits itself.  Returns (streams in trace order, late rid or None, per
-    step dicts: wall, restores, spills, re-prefilled rows, launches); step
-    `profile_step` runs under torch.profiler and launch_shapes, kept in
-    ctx["profile"]."""
+    step dicts: wall, restores, spills, re-prefilled rows, victim records
+    held at its end, launches); step `profile_step` runs under
+    torch.profiler and launch_shapes, kept in ctx["profile"]; a
+    `CrashInjected` ends the run and is kept in ctx["crash"]."""
+    ctx = overload_ctx()[0] if ctx is None else ctx
     rids = [sched.submit(p, b) for p, b in trace]
     late_rid, steps, res = None, [], {}
     while sched.queue or any(r is not None for r in sched.slot_req):
         if late is not None and len(steps) == LATE_AT:
             late_rid = sched.submit(*late, ttl_steps=LATE_TTL)
-        before = (sched.n_restores, sched.n_spills, ctx["reprefilled"],
-                  len(ctx["page_fetch"]))
+        before = (sched.n_restores, sched.n_spills, ctx["reprefilled"])
         torch.cuda.synchronize()
-        prof = len(steps) + 1 == profile_step
         _build.LAUNCHES.clear()
-        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-              if prof else contextlib.nullcontext()) as p, \
-                (launch_shapes(cfg) if prof else contextlib.nullcontext()) as shapes:
-            t0 = time.perf_counter()
-            em = sched.step()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        prof = len(steps) + 1 == profile_step
+        try:
+            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                  if prof else contextlib.nullcontext()) as p, \
+                    (launch_shapes(cfg) if prof else contextlib.nullcontext()) as shapes:
+                t0 = time.perf_counter()
+                em = sched.step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        except serve_lib.CrashInjected as e:
+            ctx["crash"] = (sched._step_idx, str(e))
+            break
         if prof:
             ctx["profile"] = (p, wall, dict(_build.LAUNCHES), shapes)
         steps.append(dict(wall=wall, restores=sched.n_restores - before[0],
                           spills=sched.n_spills - before[1],
                           reprefilled=ctx["reprefilled"] - before[2],
-                          launches=dict(_build.LAUNCHES)))
+                          records=len(sched._victim), launches=dict(_build.LAUNCHES)))
         for rid, toks in em.items():
             res.setdefault(rid, []).extend(toks)
     return [res.get(r, []) for r in rids], late_rid, steps
+
+
+def run_launches(steps) -> dict:
+    """{wrapper: launches} of a run, summed over `starved_steps`' steps."""
+    total = {}
+    for x in steps:
+        for name, n in x["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return total
 
 
 def starved_scheduler(model, params, cfg, entries, compare, smi) -> dict:
@@ -1616,10 +1733,7 @@ def starved_scheduler(model, params, cfg, entries, compare, smi) -> dict:
     profile_step = None
     for key, extra in runs.items():
         sched = serve_lib.Scheduler(model, params, **STARVE_KW, **extra)
-        ctx = dict(label=None, first={}, page_fetch=[], page_restore=[],
-                   restored_pages=None, reprefilled=0, recomputed={},
-                   arm_decode=key == "S",
-                   arm_prefill=key == "R", fresh_in_table=None)
+        ctx, pick = overload_ctx(arm_decode=key == "S", arm_prefill=key == "R")
         ctxs[key] = ctx
         dropped = []
         if key == "F":
@@ -1630,13 +1744,6 @@ def starved_scheduler(model, params, cfg, entries, compare, smi) -> dict:
                     dropped.append(rid)
                 drop(rid)
             sched._drop_victim = dropping
-
-        def pick(name, i, ctx=ctx):
-            if ctx["label"] is None:
-                return None
-            first = ctx["first"].setdefault(name, i)
-            return (f"{ctx['label']}, layer {REC_LAYER} ({name})"
-                    if i - first == REC_LAYER else None)
 
         torch.cuda.synchronize()
         with recorded(pick) as rec, plain_calls() as n_plain, overload_watch(ctx):
@@ -1806,6 +1913,292 @@ def starved_scheduler(model, params, cfg, entries, compare, smi) -> dict:
                                     launches, names)
     out["served"] = served_attention(entries, "starved step with a restore",
                                      out["profile"], shapes, cfg)
+    return out
+
+
+# ---- 13. 4-bit KV pools, page integrity, the SLA ladder, crash restore -----
+KV4_REQUESTS = 8     # the first requests of phase 12's trace
+KV4_CHUNK = 256      # L4's prefill chunk budget
+KV4_TBT_MS = 50.0    # L4's time-between-tokens target: below every full-width step
+SNAP_EVERY = 2       # C4's snapshot period (steps)
+IDLE_STEPS = 64      # most idle steps L4 takes to release its ladder
+
+
+def recovery_scheduler(model, params, cfg, entries, compare, smi) -> dict:
+    """Phase 13: 4-bit KV pools through kernels 1 and 2 on the served path,
+    with page checksums, a bit flip, a crash and restore, and the ladder."""
+    cfg = dataclasses.replace(cfg, decode_block_k=PAGE)
+    model = build_model(cfg, model.device)
+    cfg4 = dataclasses.replace(cfg, kv_bits=4)
+    V, L = cfg.vocab_size, cfg.num_layers
+    trace = starved_trace(V)[0][:KV4_REQUESTS]
+    n_tok = sum(b for _, b in trace)
+    page4 = PAGE * serve_lib.kv_bytes_per_token(cfg4)
+    page8 = PAGE * serve_lib.kv_bytes_per_token(dataclasses.replace(cfg, kv_bits=8))
+    print(f"4-bit scheduler: {len(trace)} requests, prompts {[len(p) for p, _ in trace]}, "
+          f"budgets {[b for _, b in trace]} ({n_tok} tokens), {STARVE_KW}, kv_bits 4, "
+          f"decode_block_k {PAGE}; a page holds {page4} bytes at 4-bit against "
+          f"{page8} at int8 (kv_bytes_per_token x {PAGE})", flush=True)
+    check(page4 == PAGE * L * cfg.num_kv_heads * kv_token_bytes(cfg4) < page8,
+          f"page bytes follow the stored precision: {page4} at 4-bit, {page8} at int8 "
+          "(the bounds' bytes a token and head, x heads x layers x page)")
+    out = dict(page_bytes_kv4=page4, page_bytes_kv8=page8)
+
+    def pool_kw(**extra):
+        return dict(STARVE_KW, kv_bits=4, **extra)
+
+    def info_of(sched, wall, steps):
+        st = sched.stats
+        return dict(wall_s=wall, tokens_per_s=n_tok / wall, steps=st["steps"],
+                    model_steps=st["model_steps"],
+                    **{k: st[k] for k in ("evictions", "spills", "restores", "spilled_pages",
+                                          "spill_bytes", "recompute_fallbacks",
+                                          "corruptions_detected", "bitflips_injected",
+                                          "snapshots", "ladder_escalations",
+                                          "ladder_deescalations", "ladder_paused_steps",
+                                          "ladder_transitions", "tbt_p95_ms")},
+                    longest_step_ms=max([x["wall"] for x in steps] or [0.0]) * 1e3)
+
+    def report(key, what, info):
+        print(f"  {key} ({what}): {info['wall_s']:.2f} s, {info['tokens_per_s']:.1f} "
+              f"tokens/s, {info['steps']} steps, {info['model_steps']} forwards, evictions "
+              f"{info['evictions']}, spills {info['spills']} ({info['spilled_pages']} pages, "
+              f"{info['spill_bytes']} bytes), restores {info['restores']}, recompute "
+              f"fallbacks {info['recompute_fallbacks']}, corruptions detected "
+              f"{info['corruptions_detected']}, longest step {info['longest_step_ms']:.1f} ms "
+              f"[{smi}]", flush=True)
+
+    layer = REC_LAYER % L
+
+    def pick(name, i):
+        if name == "pim_attention" and i == layer:
+            return f"4-bit admission wave, layer {layer}"
+        if name == "pim_decode" and i == 2 * L + layer:
+            return f"4-bit decode forward 3, layer {layer}"
+        return None
+
+    # P4: the default pool, kernels counted and served launches replayed
+    sched = serve_lib.Scheduler(model, params, **pool_kw())
+    check(sched.model.cfg.kv_bits == 4 and sched.model.device == model.device
+          and sched.cache["blocks"][0].k_q.shape[-1] == cfg.resolved_head_dim // 2,
+          "kv_bits=4 rebuilds the model at 4-bit on the caller's card: pool codes Dh/2 wide")
+    torch.cuda.synchronize()
+    with recorded(pick) as kept, plain_calls() as n_plain:
+        t0 = time.perf_counter()
+        p4, _, steps = starved_steps(sched, trace)
+        wall = time.perf_counter() - t0
+    launches = run_launches(steps)
+    check(not n_plain, f"P4: no plain-version call on the path ({n_plain})")
+    for name in ("pim_attention", "pim_decode"):
+        check(launches.get(name, 0) > 0, f"P4 launched {name} over 4-bit pages")
+        if name in entries:
+            entries[name]["kv4_launches"] = launches[name]
+    check(all(len(x) == b for x, (_, b) in zip(p4, trace))
+          and all(0 <= t < V for x in p4 for t in x),
+          "P4: every request got its budget of in-vocabulary tokens")
+    check(all(args[2].shape[-1] == cfg.resolved_head_dim // 2 for _, args, _ in kept.values()),
+          "P4: the recorded launches read 4-bit codes (Dh/2 wide) in place in the pool")
+    replay_served("4-bit paged", kept, compare)
+    out["P4"] = dict(info_of(sched, wall, steps), launches=launches)
+    report("P4", "4-bit pool", out["P4"])
+
+    # one profiled step: the admission wave and a decode chunk
+    def submitted():
+        s = serve_lib.Scheduler(model, params, **pool_kw())
+        for p, b in trace:
+            s.submit(p, b)
+        return s
+
+    shapes, wall = unprofiled_wall(submitted, lambda s: s.step(), lambda: launch_shapes(cfg4))
+    out["profile"] = profiled_report(submitted, lambda s: s.step(),
+                                     "first step of P4 (4-bit pool)", wall)
+    out["served"] = served_attention(entries, "4-bit pool, first step", out["profile"],
+                                     shapes, cfg4)
+
+    # D4 against P4 where the tiles match: prompts of one page (a dense
+    # prefill runs 256-row KV tiles, a paged one 16-row pages), budgets cut
+    # to four decode chunks
+    short = [(p[:PAGE], min(b, 4 * STARVE_KW["decode_chunk"])) for p, b in trace]
+    got = {}
+    for key, kw in (("P4 one-page prompts", pool_kw()),
+                    ("D4", dict(max_batch_slots=8, max_len=1024, decode_chunk=8,
+                                audit_every_step=True, kv_bits=4))):
+        s = serve_lib.Scheduler(model, params, **kw)
+        with plain_calls() as n_plain:
+            t0 = time.perf_counter()
+            got[key], _, steps = starved_steps(s, short)
+            wall = time.perf_counter() - t0
+        check(not n_plain and all(run_launches(steps).get(n, 0) > 0
+                                  for n in ("pim_attention", "pim_decode")),
+              f"{key}: kernels 1 and 2 launched, no plain-version call")
+        out[key] = dict(info_of(s, wall, steps),
+                        tokens_per_s=sum(b for _, b in short) / wall)
+        report(key, "prompts cut to one page, budgets to 32", out[key])
+    check(first_diff("D4 vs P4 (one-page prompts)", got["D4"], got["P4 one-page prompts"]) == 0,
+          "D4 == P4 token for token on one-page prompts (block_k == page size)")
+
+    # S4: the starved pool spilling to the host, page checksums on
+    starved = dict(num_pages=STARVED_POOL, victim_pool_pages=VICTIM, integrity="checksum")
+    ctxs = {}
+
+    def overload_run(key, extra, **ctx_extra):
+        s = serve_lib.Scheduler(model, params, **pool_kw(**starved, **extra))
+        ctx, pick_ctx = overload_ctx(**ctx_extra)
+        ctxs[key] = ctx
+        torch.cuda.synchronize()
+        with recorded(pick_ctx) as rec, plain_calls() as n_plain, overload_watch(ctx):
+            t0 = time.perf_counter()
+            streams, _, steps = starved_steps(s, trace, ctx)
+            wall = time.perf_counter() - t0
+        check(not n_plain, f"{key}: no plain-version call ({n_plain})")
+        return s, streams, steps, rec, wall
+
+    s4, s4_streams, s4_steps, rec, wall = overload_run("S4", {}, arm_decode=True)
+    out["S4"] = info_of(s4, wall, s4_steps)
+    report("S4", f"starved pool of {STARVED_POOL} pages, spill, checksums", out["S4"])
+    s = out["S4"]
+    check(first_diff("S4 vs P4", s4_streams, p4) == 0, "S4 == P4 token for token")
+    check(s["spills"] >= 1 and s["restores"] == s["spills"] and s["recompute_fallbacks"] == 0
+          and s["corruptions_detected"] == 0,
+          f"S4: {s['spills']} spills, each restored from its checksummed host copy")
+    check(s["spill_bytes"] == s["spilled_pages"] * page4,
+          f"S4: spilled bytes {s['spill_bytes']} == {s['spilled_pages']} pages x {page4}")
+    replay_served("4-bit starved", rec, compare, need=("pim_decode",))
+    check(ctxs["S4"]["fresh_in_table"] is True,
+          "the replayed decode after a 4-bit restore reads the restored slot's fresh pages")
+    for kind in ("spill", "restore"):
+        calls = ctxs["S4"][f"page_{'fetch' if kind == 'spill' else 'restore'}"]
+        pages = sum(x["pages"] for x in calls)
+        ms = sum(x["device_ms"] for x in calls)
+        out[f"S4_{kind}"] = dict(calls=calls, pages=pages, device_ms=ms,
+                                 ms_per_page=ms / max(pages, 1),
+                                 gb_per_s=pages * page4 / max(ms, 1e-9) / 1e6)
+        print(f"  S4 {kind}: {len(calls)} calls of {[x['pages'] for x in calls]} 4-bit pages, "
+              f"device {[round(x['device_ms'], 3) for x in calls]} ms, host "
+              f"{[round(x['host_ms'], 3) for x in calls]} ms: {ms / max(pages, 1):.4f} ms a "
+              f"page, {out[f'S4_{kind}']['gb_per_s']:.2f} GB/s [{smi}]", flush=True)
+
+    # B4: S4 with one byte of a spilled page flipped in host memory
+    flip = serve_lib.FaultPlan(bitflip_spilled_page_steps=tuple(range(1, 4097)), max_faults=1)
+    b4, b4_streams, b4_steps, _, wall = overload_run("B4", dict(fault_plan=flip))
+    out["B4"] = dict(info_of(b4, wall, b4_steps), fired=dict(b4._faults.fired),
+                     recomputed=dict(ctxs["B4"]["recomputed"]))
+    report("B4", "S4 + a bit flip of a spilled page", out["B4"])
+    b = out["B4"]
+    rc = ctxs["B4"]["recomputed"]         # rid (= trace index) -> tokens then
+    check(b["bitflips_injected"] == 1 and b["corruptions_detected"] >= 1
+          and b["recompute_fallbacks"] == 1 and len(rc) == 1,
+          f"B4: the flip detected ({b['corruptions_detected']} pages) and its request "
+          f"recomputed from its prompt ({rc})")
+    parts = [(i, next((j for j, (x, y) in enumerate(zip(g, w)) if x != y), None))
+             for i, (g, w) in enumerate(zip(b4_streams, p4)) if g != w]
+    out["B4"]["parts"] = parts
+    print(f"  B4 against P4: requests parting (index, first differing token) {parts}; "
+          f"the recomputed one re-prefilled at {rc}", flush=True)
+    check(all(g == w if i not in rc else g[:rc[i]] == w[:rc[i]]
+              for i, (g, w) in enumerate(zip(b4_streams, p4))),
+          "B4: every other request == P4, the recomputed one up to its re-prefill")
+
+    # C4: S4 with snapshots, crashed after a spill, restored by a fresh scheduler
+    held = [i + 1 for i, x in enumerate(s4_steps) if x["records"] and (i + 1) % SNAP_EVERY == 0]
+    check(bool(held), f"S4 holds a victim record at the end of a step of {SNAP_EVERY}k")
+    crash_at = held[0] + 1
+    snap_dir = tempfile.mkdtemp(prefix="chip_smoke_snap_")
+    try:
+        plan = serve_lib.FaultPlan(crash_at_step=crash_at)
+        snap = dict(fault_plan=plan, snapshot_dir=snap_dir, snapshot_every=SNAP_EVERY)
+        writes = []
+        crash_sched = serve_lib.Scheduler(model, params, **pool_kw(**starved, **snap))
+        save = crash_sched.snapshot
+
+        def timed_snapshot(*a, **k):
+            t0 = time.perf_counter()
+            path = save(*a, **k)
+            writes.append(dict(step=crash_sched._step_idx, s=time.perf_counter() - t0,
+                               bytes=sum(os.path.getsize(os.path.join(path, f))
+                                         for f in os.listdir(path))))
+            return path
+        crash_sched.snapshot = timed_snapshot
+        ctx = overload_ctx()[0]
+        t0 = time.perf_counter()
+        starved_steps(crash_sched, trace, ctx)
+        crash_wall = time.perf_counter() - t0
+        check(ctx.get("crash", (None,))[0] == crash_at,
+              f"C4: CrashInjected at step {crash_at} ({ctx.get('crash')})")
+        restored = serve_lib.Scheduler(model, params, **pool_kw(**starved, **snap))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = restored.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(step == crash_at - 1 and bool(restored._victim),
+              f"C4: restored the snapshot of step {step}, a victim record inside it "
+              f"({len(restored._victim)})")
+        t0 = time.perf_counter()
+        with plain_calls() as n_plain:
+            while restored.queue or any(r is not None for r in restored.slot_req):
+                restored.step()
+            torch.cuda.synchronize()
+        rest_wall = time.perf_counter() - t0
+        check(not n_plain, f"C4: no plain-version call ({n_plain})")
+        restored.audit()
+        res = restored.results()
+        c4 = [res[i] for i in range(len(trace))]
+        check(first_diff("C4 vs S4", c4, s4_streams) == 0 and restored._faults.fired["crash"] == 1,
+              "C4: the restored run == S4 token for token, the crash never fired again")
+        out["C4"] = dict(crash_at=crash_at, restored_step=step, snapshots=writes,
+                         snapshot_bytes=writes[-1]["bytes"] if writes else None,
+                         snapshot_write_s=[w["s"] for w in writes], restore_s=restore_s,
+                         crash_run_s=crash_wall, restored_run_s=rest_wall,
+                         restores=restored.n_restores, spills=restored.n_spills)
+        print(f"  C4: crashed at step {crash_at} after {len(writes)} snapshots of "
+              f"{[w['bytes'] for w in writes]} bytes on disk, written (fsync'd) in "
+              f"{[round(w['s'], 3) for w in writes]} s; restore {restore_s:.3f} s; the "
+              f"restored run {rest_wall:.2f} s to its end [{smi}]", flush=True)
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+
+    # L4: P4 with mixed steps under the SLA ladder on the real clock
+    lad = serve_lib.Scheduler(model, params, **pool_kw(
+        mixed_steps=True, prefill_chunk_budget=KV4_CHUNK, tbt_target_ms=KV4_TBT_MS,
+        ladder_cooldown_steps=1))
+    levels = []
+    budgets = set()
+    step = lad.step
+
+    def watched():
+        em = step()
+        levels.append(lad.ladder_level)
+        budgets.add(lad._effective_chunk_budget())
+        return em
+    lad.step = watched
+    t0 = time.perf_counter()
+    with plain_calls() as n_plain:
+        l4, _, l4_steps = starved_steps(lad, trace)
+        wall = time.perf_counter() - t0
+        served_levels = list(levels)
+        served_info = info_of(lad, wall, l4_steps)
+        tbt_served = lad.stats["tbt_p95_ms"]
+        # the load is gone: idle steps sample short times between steps
+        for _ in range(IDLE_STEPS):
+            if lad.ladder_level == 0:
+                break
+            lad.step()
+    check(not n_plain, f"L4: no plain-version call ({n_plain})")
+    out["L4"] = dict(served_info, levels=served_levels, released=lad.ladder_deescalations,
+                     chunk_budgets=sorted(budgets), idle_steps=len(levels) - len(served_levels),
+                     tbt_p95_ms_served=tbt_served)
+    report("L4", f"mixed steps, tbt target {KV4_TBT_MS} ms", out["L4"])
+    print(f"  L4 ladder: levels per served step {served_levels}, chunk budgets "
+          f"{sorted(budgets)}, transitions {lad.stats['ladder_transitions']}, escalations "
+          f"{lad.ladder_escalations}, releases {lad.ladder_deescalations} (after "
+          f"{out['L4']['idle_steps']} idle steps), paused steps {lad.ladder_paused_steps}, "
+          f"p95 time between steps {tbt_served:.1f} ms at the trace's end, "
+          f"{lad.stats['tbt_p95_ms']:.1f} ms after the idle steps [{smi}]", flush=True)
+    check(max(served_levels) == len(serve_lib.LADDER_RUNGS) and lad.ladder_level == 0
+          and lad.ladder_deescalations == lad.ladder_escalations >= 3,
+          "L4: the ladder climbed every rung under load and released every one after it")
+    check(first_diff("L4 vs P4", l4, p4) == 0, "L4 == P4 token for token")
     return out
 
 
@@ -2327,6 +2720,7 @@ def paper_fidelity(cfg, params, entries) -> dict:
     entries["pim_matmul"]["paged_launches"] = launches.get("pim_matmul", 0)
     entries["lut_softmax"]["paged_launches"] = launches.get("lut_softmax", 0)
     peak_pages = sched.peak_pages_in_use
+
     def submitted():
         sched = serve_lib.Scheduler(model, params, page_size=PAGE, **SCHED_KW)
         for p, b in trace:
@@ -2375,7 +2769,8 @@ def dense_kernels(dev, cfg, gen, operands, compare, bound, entries) -> None:
     us, n = kernel_us(profiled(kern, 20), "pim_attention_kernel")
     check(n == 20, f"profiler saw the 20 prefill launches ({n})")
     ms = us / 20 / 1e3
-    plain_ms, lib_ms = per_call_ms(profiled(plain, 3), 3), per_call_ms(profiled(lib, 20), 20)
+    plain_ms = per_call_ms(profiled(plain, 3, check_reader=True), 3)
+    lib_ms = per_call_ms(profiled(lib, 20), 20)
     walls = dict(wrapper_ms=cuda_ms(kern, 20), plain_wall_ms=cuda_ms(plain, 3),
                  library_wall_ms=cuda_ms(lib, 20))
     nbytes = sum(t.numel() * t.element_size() for t in opnd) + B * H * Sq * Dh * 4
@@ -2584,7 +2979,7 @@ def main(argv=None) -> int:
         adc_kernels(dev, cfg, gen, entries)
     if 4 in phases:
         small_model(dev, 5 in phases)
-    if phases & {6, 7, 9, 10, 11, 12}:
+    if phases & {6, 7, 9, 10, 11, 12, 13}:
         serve_phases(dev, cfg, phases, entries, compare, results)
     stamp(f"phases {sorted(phases)} done: every check passed")
     for name in max_err:
@@ -2600,6 +2995,7 @@ def main(argv=None) -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("wrapper_ms", "cold_ms", "served_us", "served_bound_us", "paged_ms", "paged_bound_ms",
              "paged_launches", "dense_sched_launches", "mixed_launches", "verify_launches",
+             "kv4_launches", "paged_kv4_ms", "paged_kv4_bound_ms",
              "ideal_ms", "int_mm_ms")
     print(json.dumps({"kernels": [{**{k: e.get(k) for k in keys},
                                    **{k: e[k] for k in extra if k in e}}
@@ -2642,9 +3038,25 @@ def small_model(dev, scheduler: bool) -> None:
         smoke_scheduler(dev, small, p_gpu)
 
 
+CUT_DEPTH = 6   # layers of phases 10 and 12: their checks are identities
+
+
+def cut_depth(cfg, params, layers: int):
+    """(config, parameters) of the model's first `layers` layers: the
+    phase 6 weights, each stacked leaf cut on its layer axis."""
+    def first(node):
+        if isinstance(node, dict):
+            return {k: first(v) for k, v in node.items()}
+        return node[:layers]
+
+    return (dataclasses.replace(cfg, num_layers=layers),
+            dict(params, blocks=tuple(first(b) for b in params["blocks"])))
+
+
 def serve_phases(dev, cfg, phases, entries, compare, results) -> None:
-    """Phases 6, 7, 9, 10, 11 and 12 at full width and depth, on the phase 6
-    weights."""
+    """Phases 6, 7, 9, 10, 11, 12 and 13 at full width, on the phase 6
+    weights: at full depth but for phases 10 and 12, which run the first
+    CUT_DEPTH layers to leave the time limit room for phase 13."""
     stamp("phase 6: model and weights")
     Dh = cfg.resolved_head_dim
     cfg = dataclasses.replace(cfg, attn_impl="kernel")
@@ -2668,18 +3080,24 @@ def serve_phases(dev, cfg, phases, entries, compare, results) -> None:
     if phases & {10, 11, 12}:
         results["row_probe"] = row_probe(model, params, cfg)
         check_row_probe(results["row_probe"])
+    cut_cfg, cut_params = cut_depth(cfg, params, CUT_DEPTH)
+    cut_model = build_model(cut_cfg, model.device)
     if 10 in phases:
         stamp("phase 10")
-        results["mixed"] = mixed_scheduler(model, params, cfg, entries, compare,
-                                           results["card"])
+        results["mixed"] = mixed_scheduler(cut_model, cut_params, cut_cfg, entries,
+                                           compare, results["card"])
     if 11 in phases:
         stamp("phase 11")
         results["spec"] = spec_scheduler(model, params, cfg, entries, compare,
                                          results["card"])
     if 12 in phases:
         stamp("phase 12")
-        results["starved"] = starved_scheduler(model, params, cfg, entries, compare,
-                                               results["card"])
+        results["starved"] = starved_scheduler(cut_model, cut_params, cut_cfg, entries,
+                                               compare, results["card"])
+    if 13 in phases:
+        stamp("phase 13")
+        results["kv4_recovery"] = recovery_scheduler(model, params, cfg, entries, compare,
+                                                     results["card"])
 
 
 def serve_classic(model, params, cfg, entries, results) -> None:

@@ -3,8 +3,8 @@ the behavioral (paper-faithful) PIM attention and the fp baseline.
 
 Counterpart of the JAX package's `core/attention.py`: the dense cache
 (classic scalar fill or ragged per-slot lengths) and the paged pool with
-its trash page, page copies, and the page fetches and restores of a
-spill.  Ring caches belong to a later slice of the port.
+its trash page, page copies, the page fetches and restores of a spill,
+and page checksums.  Ring caches belong to a later slice of the port.
 
 Score: int8 QK^T, requantized to 8-bit score codes.  Softmax: LUT exp and a
 two-phase normalization, in the shifted mode through the LUT softmax kernel
@@ -19,8 +19,10 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import zlib
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import LUTSoftmaxConfig, PIMConfig
@@ -232,6 +234,27 @@ def restore_pages(pool: PagedKVCache, pages: torch.Tensor,
                         (data.k_q, data.v_q, data.k_scale, data.v_scale)):
         plane.index_copy_(page_axis, pages, d.to(plane.device))
     return pool
+
+
+def page_checksums(pool: PagedKVCache, pages, page_axis: int = 0,
+                   seeds=None) -> np.ndarray:
+    """Host crc32 of each listed page's stored bytes (C order), chained
+    across the four pool fields in field order, as the reference computes
+    them: on the live pool `pages` are page ids, on a fetched host tree
+    positions.  The codes are stored at their width, so the crc covers
+    4-bit pages as stored.  `seeds` chains onto earlier per-page crcs, so
+    a cache of many pools folds every layer into one crc a page.  Returns
+    uint32[len(pages)]."""
+    pages = np.asarray(pages, dtype=np.int64)
+    crcs = (np.zeros(pages.shape[0], dtype=np.uint32) if seeds is None
+            else np.asarray(seeds, dtype=np.uint32).copy())
+    for plane in (pool.k_q, pool.v_q, pool.k_scale, pool.v_scale):
+        taken = plane.index_select(
+            page_axis, torch.from_numpy(pages).to(plane.device)).cpu().numpy()
+        for i in range(pages.shape[0]):
+            page = np.ascontiguousarray(np.take(taken, i, axis=page_axis))
+            crcs[i] = zlib.crc32(page.tobytes(), int(crcs[i])) & 0xFFFFFFFF
+    return crcs
 
 
 def quantize_kv(k: torch.Tensor, v: torch.Tensor, cfg: PIMConfig,

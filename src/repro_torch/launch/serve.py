@@ -16,7 +16,12 @@ decode chunk (`paired`, paged only); `--speculate` verifies up to
 `--draft-len` n-gram drafts a slot and step (`--draft-mode ngram`);
 `--victim-pool-pages` spills evicted slots' pages to host memory (paged
 only), `--max-queue` bounds the admission queue and `--deadline-ms` sheds
-requests older than that:
+requests older than that; `--kv-bits 4` stores the KV cache as packed
+4-bit codes on either path; `--integrity checksum|paranoid` checksums KV
+pages (paged only; a corrupt spill is recomputed, never served),
+`--tbt-target-ms` turns on the SLA degradation ladder, and
+`--snapshot-every N --snapshot-dir D` / `--restore-from D` snapshot the
+scheduler and resume from the newest intact snapshot:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
       --attn-impl kernel --continuous-batching --page-size 16 --batch 8 \
@@ -124,6 +129,28 @@ def parse_args(argv=None):
                          "adapts between 1 and this cap)")
     ap.add_argument("--draft-mode", default="ngram", choices=["ngram"],
                     help="draft proposer: 'ngram' = prompt lookup")
+    ap.add_argument("--integrity", default="off",
+                    choices=["off", "checksum", "paranoid"],
+                    help="KV-page integrity: 'checksum' records each page's "
+                         "crc32 when the prefix directory first holds it and "
+                         "at spill, and verifies a spill at its restore (a "
+                         "mismatch recomputes, never serves); 'paranoid' "
+                         "also verifies every prefix hit and directory "
+                         "eviction (requires --page-size)")
+    ap.add_argument("--tbt-target-ms", type=float, default=0.0,
+                    help="p95 time-between-tokens target: turns on the "
+                         "degradation ladder (speculation off -> prefill "
+                         "chunks halved -> admission paused, released in "
+                         "reverse as the pressure clears; 0 = off)")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="snapshot the scheduler every N steps (requires "
+                         "--snapshot-dir; 0 = off)")
+    ap.add_argument("--snapshot-dir", default="",
+                    help="directory of the scheduler's snapshot generations "
+                         "(atomic, checksummed; the newest intact one wins)")
+    ap.add_argument("--restore-from", default="",
+                    help="resume from the newest intact snapshot in this "
+                         "directory before serving (same configuration)")
     args = ap.parse_args(argv)
     if args.page_size and not args.continuous_batching:
         ap.error("--page-size requires --continuous-batching")
@@ -151,6 +178,21 @@ def parse_args(argv=None):
         ap.error("--deadline-ms/--max-queue require --continuous-batching")
     if args.speculate and not args.continuous_batching:
         ap.error("--speculate requires --continuous-batching")
+    if args.integrity != "off" and not args.page_size:
+        ap.error("--integrity requires --page-size (checksums are "
+                 "page-granular)")
+    if args.tbt_target_ms < 0:
+        ap.error("--tbt-target-ms must be >= 0")
+    if args.tbt_target_ms and not args.continuous_batching:
+        ap.error("--tbt-target-ms requires --continuous-batching")
+    if args.snapshot_every < 0:
+        ap.error("--snapshot-every must be >= 0")
+    if args.snapshot_every and not args.snapshot_dir:
+        ap.error("--snapshot-every requires --snapshot-dir")
+    if ((args.snapshot_every or args.restore_from)
+            and not args.continuous_batching):
+        ap.error("--snapshot-every/--restore-from require "
+                 "--continuous-batching")
     return args
 
 
@@ -187,7 +229,11 @@ def main(argv=None):
         mixed_dispatch=args.mixed_dispatch, speculate=args.speculate,
         draft_len=args.draft_len, draft_mode=args.draft_mode,
         victim_pool_pages=args.victim_pool_pages, max_queue=args.max_queue,
-        deadline_ms=args.deadline_ms or None)
+        deadline_ms=args.deadline_ms or None, integrity=args.integrity,
+        tbt_target_ms=args.tbt_target_ms,
+        snapshot_every=args.snapshot_every,
+        snapshot_dir=args.snapshot_dir or None,
+        restore_from=args.restore_from or None)
     out = out.cpu()
     dt = time.perf_counter() - t0
     toks = args.batch * args.new_tokens
@@ -201,7 +247,15 @@ def main(argv=None):
                 + (f", speculate k={args.draft_len}" if args.speculate
                    else "")
                 + (f", spill {args.victim_pool_pages} pages"
-                   if args.victim_pool_pages else "") + ")")
+                   if args.victim_pool_pages else "")
+                + (f", integrity {args.integrity}"
+                   if args.integrity != "off" else "")
+                + (f", tbt target {args.tbt_target_ms} ms"
+                   if args.tbt_target_ms else "")
+                + (f", snapshot every {args.snapshot_every}"
+                   if args.snapshot_every else "")
+                + (f", restored from {args.restore_from}"
+                   if args.restore_from else "") + ")")
     print(f"[serve] arch={cfg.name} attn={cfg.attn_impl} device={model.device} "
           f"{mode} kv{cfg.kv_bits} temp={args.temperature} top_k={args.top_k} "
           f"top_p={args.top_p} generated {tuple(out.shape)} in {dt:.2f}s "

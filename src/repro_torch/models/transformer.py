@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -171,6 +172,31 @@ def cache_fetch_pages(cache, pages):
         return None
 
     return {k: visit(v, 1 if k == "blocks" else 0) for k, v in cache.items()}
+
+
+def cache_page_checksums(cache, pages):
+    """Per-page crc32 over every layer's paged pool, chained in the
+    reference's visit order (dict keys sorted, tuples in order; a stacked
+    pool's page covers all its layers at once), so page i's crc covers the
+    whole stack's bytes of that page.  Takes the live cache (page ids) or
+    a `cache_fetch_pages` host tree (positions; its None leaves are
+    skipped).  Returns uint32[len(pages)]."""
+    crcs = np.zeros(len(pages), dtype=np.uint32)
+
+    def visit(node, axis):
+        nonlocal crcs
+        if isinstance(node, A.PagedKVCache):
+            crcs = A.page_checksums(node, pages, page_axis=axis, seeds=crcs)
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                visit(node[k], axis)
+        elif isinstance(node, (tuple, list)):
+            for v in node:
+                visit(v, axis)
+
+    for k in sorted(cache):
+        visit(cache[k], 1 if k == "blocks" else 0)
+    return crcs
 
 
 def cache_restore_pages(cache, pages, data):

@@ -4,11 +4,10 @@ Counterpart of the JAX package's `runtime/fault.py` (`FaultPlan`,
 `CrashInjected`, `FaultState`): a plan fires from the same
 `numpy.random.RandomState(seed)` stream, in the same query order and under
 the same `max_faults` cap, so one plan fires at the same scheduler queries
-in both packages.  The Scheduler refuses the two faults whose recovery
-paths (snapshots, page checksums) are not ported yet: `crash_at_step` and
-`bitflip_spilled_page_steps` (ROADMAP.md §1 item 5 (h)).  Neither draws
-from the stream, so refusing them cannot shift it.  The watchdog, elastic
-meshes and restartable training are item 9.
+in both packages.  Neither `crash_at_step` nor `bitflip_spilled_page_steps`
+draws from the stream, so a plan with or without them fires its rate
+faults at the same queries.  The watchdog, elastic meshes and restartable
+training are ROADMAP.md §1 item 9.
 """
 from __future__ import annotations
 
@@ -32,8 +31,12 @@ class FaultPlan:
         detect it, roll it back;
       * nan-logits: poison one occupied slot's logits with NaN (only that
         request retires, `status="poisoned"`);
-      * bitflip-spilled-page and crash-at-step: item 5 (h), refused by the
-        port's Scheduler.
+      * bitflip-spilled-page: flip one byte of a spilled page in host
+        memory (the restore's checksum must catch it and recompute the
+        request from its prompt; needs `integrity` to be detected);
+      * crash-at-step: raise `CrashInjected` at the start of step s, after
+        the snapshot of step s - 1 (recovery through
+        `Scheduler.restore()`).
 
     `*_steps` fire at exact 1-based scheduler steps; `*_rate` also fire
     from the `RandomState(seed)` stream, drawn on every query.  `start()`

@@ -31,27 +31,31 @@ host reads the device once per prefill wave, mixed or speculative step and
 chunk.  Under overload it spills an evicted slot's pages to host memory
 and restores them on re-admission, bounds its queue, sheds requests past
 their deadline, and takes a deterministic fault plan
-(`runtime/fault.py`) whose NaN poison quarantines one request.  Its other
-features (4-bit KV, snapshots, ...) raise NotImplementedError naming their
-ROADMAP.md item.
+(`runtime/fault.py`) whose NaN poison quarantines one request.  It serves
+4-bit KV pools (`kv_bits=4`), checksums KV pages (`integrity`), degrades
+under SLA pressure (`tbt_target_ms`), and snapshots and restores its whole
+state through the checkpoint format (`checkpoint/checkpoint.py`).
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import os
+import pickle
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as A
 from repro_torch.core.attention import TRASH_PAGE
 from repro_torch.models import transformer as T
-from repro_torch.models.model_zoo import Model
+from repro_torch.models.model_zoo import Model, build_model
 from repro_torch.runtime import prng
-from repro_torch.runtime.fault import FaultPlan
+from repro_torch.runtime.fault import CrashInjected, FaultPlan
 
 
 def kv_bytes_per_token(cfg: ModelConfig) -> int:
@@ -61,6 +65,16 @@ def kv_bytes_per_token(cfg: ModelConfig) -> int:
     hkv = cfg.num_kv_heads
     value_bytes = 2 * hkv * (cfg.resolved_head_dim * cfg.kv_bits // 8)
     return cfg.num_layers * (value_bytes + 2 * 4 * hkv)
+
+
+def with_kv_bits(model: Model, kv_bits: int) -> Model:
+    """`model` with its KV cache stored at `kv_bits` (0: as it is), rebuilt
+    on its own device: the cache layout follows the config, and the
+    parameters do not depend on it."""
+    if not kv_bits or kv_bits == model.cfg.kv_bits:
+        return model
+    return build_model(dataclasses.replace(model.cfg, kv_bits=int(kv_bits)),
+                       model.device)
 
 
 class SubmitError(ValueError):
@@ -212,28 +226,6 @@ class Sampling:
         return sample_logits_per_row(
             logits, _row_keys(self.key, rids.long(), gens.long()),
             self.temperature, self.top_k, self.top_p)
-
-
-# Scheduler options of the reference that later slices port: the value
-# each takes when it is off, and its ROADMAP.md §1 item.
-_NOT_PORTED = {
-    "kv_bits": (0, "5 (g)"),
-    "integrity": ("off", "5 (h)"), "tbt_target_ms": (0.0, "5 (h)"),
-    "queue_depth_target": (0, "5 (h)"), "ladder_cooldown_steps": (8, "5 (h)"),
-    "snapshot_every": (0, "5 (h)"), "snapshot_dir": (None, "5 (h)"),
-    "restore_from": (None, "5 (h)"),
-}
-
-
-def _refuse_unported(options: Dict[str, Any]) -> None:
-    """Raise for any reference option set to something the port lacks."""
-    for name, value in options.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"unexpected argument {name!r}")
-        off, item = _NOT_PORTED[name]
-        if value != off:
-            raise NotImplementedError(
-                f"{name}={value!r}: not ported yet (ROADMAP.md §1 item {item})")
 
 
 def scheduler_supported(cfg: ModelConfig) -> bool:
@@ -647,17 +639,30 @@ class _SpillRecord:
     on which the record keeps one refcount until the restore.  `data` is
     the host copy of a `page_fetch` of `width` pages (a power of two, the
     padding lanes `TRASH_PAGE`), `n_host` of them real.  `covered` and
-    `cur_tok` are the slot's kv fill and next decode input."""
+    `cur_tok` are the slot's kv fill and next decode input.  `crcs` are
+    the host pages' spill-time checksums (`integrity != "off"`, else
+    None), verified before a restore serves the bytes."""
 
-    __slots__ = ("logical", "n_host", "width", "data", "covered", "cur_tok")
+    __slots__ = ("logical", "n_host", "width", "data", "covered", "cur_tok",
+                 "crcs")
 
-    def __init__(self, logical, n_host, width, data, covered, cur_tok):
+    def __init__(self, logical, n_host, width, data, covered, cur_tok,
+                 crcs=None):
         self.logical = logical
         self.n_host = int(n_host)
         self.width = int(width)
         self.data = data
         self.covered = int(covered)
         self.cur_tok = int(cur_tok)
+        self.crcs = crcs
+
+
+LADDER_RUNGS = ("disable_speculation", "shrink_prefill_chunk",
+                "pause_admission")
+"""The SLA degradation ladder, mildest rung first: under pressure (queue
+depth p95 or p95 time between tokens over target) it sheds speculative,
+then prefill, then admission load, and releases the rungs in reverse as
+the pressure clears.  Rungs change scheduling only, never a stream."""
 
 
 class Scheduler:
@@ -747,8 +752,34 @@ class Scheduler:
     (`status="poisoned"`); `audit_every_step` (default: the `REPRO_AUDIT`
     environment variable) audits after every step.
 
-    The reference's other options raise NotImplementedError naming their
-    ROADMAP.md item."""
+    **4-bit KV** (`kv_bits=4`): the model is rebuilt around the precision
+    (codes packed two a byte, f32 scales), so both attention kernels read
+    4-bit pages and page, spill and restore bytes follow the stored width.
+
+    **Integrity** (`integrity="checksum"`, paged only): a page's crc32 is
+    recorded when the prefix directory first holds it (from then on
+    copy-on-write keeps it immutable) and dropped with the last hold; a
+    spill records its host pages' crcs, and a restore whose bytes no
+    longer match falls back to recompute-from-prompt, so corrupt bytes are
+    never served.  `"paranoid"` also verifies a prefix hit's pages before
+    mapping them and an entry's pages at eviction, quarantining a corrupt
+    prefix for good, and extends `audit()` to the victim pool's bytes.
+
+    **SLA ladder** (`tbt_target_ms > 0`): when the p95 queue depth of the
+    last 32 steps passes `queue_depth_target` (0: 2 * slots) or the p95
+    time between steps on `clock` passes the target, it climbs one rung
+    of `LADDER_RUNGS` per `ladder_cooldown_steps`: speculation off, the
+    prefill chunk budget halved, admission paused (never while every slot
+    is empty), and steps down as the pressure clears.
+
+    **Snapshots** (`snapshot_dir`, every `snapshot_every` steps at the end
+    of a step, or `snapshot()`): the pool's bytes, the sampling key and
+    one pickled blob of every host structure (requests, queue, slots,
+    pages, directory, crcs, victim records with their host bytes, ladder,
+    fault state, counters) as a checkpoint generation.  `restore()` on a
+    scheduler of the same configuration resumes every stream bit for bit;
+    a fault plan's `crash_at_step` raises `CrashInjected` at the start of
+    its step and never again after a restore."""
 
     def __init__(self, model: Model, params, *, max_batch_slots: int = 8,
                  max_len: int = 2048, eos_id: Optional[int] = None,
@@ -763,14 +794,12 @@ class Scheduler:
                  victim_pool_pages: int = 0, max_queue: int = 0,
                  fault_plan: Optional[FaultPlan] = None,
                  audit_every_step: Optional[bool] = None,
-                 clock: Callable[[], float] = time.monotonic,
-                 **not_ported):
-        _refuse_unported(not_ported)
-        if fault_plan is not None and (fault_plan.crash_at_step
-                                       or fault_plan.bitflip_spilled_page_steps):
-            raise NotImplementedError(
-                "fault plans with crash_at_step or bitflip_spilled_page_steps: "
-                "not ported yet (ROADMAP.md §1 item 5 (h))")
+                 kv_bits: int = 0, integrity: str = "off",
+                 tbt_target_ms: float = 0.0, queue_depth_target: int = 0,
+                 ladder_cooldown_steps: int = 8, snapshot_every: int = 0,
+                 snapshot_dir: Optional[str] = None,
+                 clock: Callable[[], float] = time.monotonic):
+        model = with_kv_bits(model, kv_bits)
         if not scheduler_supported(model.cfg):
             raise NotImplementedError(
                 f"arch {model.cfg.name!r} is not supported by the slot "
@@ -893,6 +922,39 @@ class Scheduler:
         self.n_deadline_misses = 0
         self.n_rejections = 0                 # submits refused (Overloaded)
         self.refcount_corruptions_detected = 0
+        # integrity: write- and spill-time page checksums, quarantine
+        if integrity not in ("off", "checksum", "paranoid"):
+            raise ValueError(f"unknown integrity mode {integrity!r} "
+                             "(off | checksum | paranoid)")
+        if integrity != "off" and not self.paged:
+            raise ValueError("integrity checksums are page-granular: they "
+                             "require page_size > 0")
+        self.integrity = str(integrity)
+        # page -> crc32 when the directory first held it; its keys are
+        # always directory-held pages (slot-private pages are mutable)
+        self.page_crc: Dict[int, int] = {}
+        self.quarantined: set = set()         # prefix keys barred for good
+        self.corruptions_detected = 0
+        self.bitflips_injected = 0
+        # the SLA degradation ladder
+        self.tbt_target_ms = float(tbt_target_ms)
+        self.queue_depth_target = int(queue_depth_target) or 2 * self.B
+        self.ladder_cooldown_steps = max(1, int(ladder_cooldown_steps))
+        self.ladder_level = 0
+        self.ladder_escalations = 0
+        self.ladder_deescalations = 0
+        self.ladder_paused_steps = 0
+        self.ladder_transitions = {r: 0 for r in LADDER_RUNGS}
+        self._ladder_last_change = 0
+        self._tbt_samples: "collections.deque[float]" = \
+            collections.deque(maxlen=32)
+        self._last_step_time: Optional[float] = None
+        # snapshots
+        self.snapshot_every = int(snapshot_every)
+        self.snapshot_dir = snapshot_dir
+        if self.snapshot_every and not self.snapshot_dir:
+            raise ValueError("snapshot_every requires snapshot_dir")
+        self.n_snapshots = 0
 
     # -- request intake -----------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int,
@@ -1023,9 +1085,15 @@ class Scheduler:
         return len(self._dir_ref)
 
     def _dir_put(self, key: bytes, pages: Sequence[int], covered: int):
+        if key in self.quarantined:
+            # a corrupt prefix never re-enters: later prompts recompute it
+            return
         if key in self.prefix_dir:
             self.prefix_dir.move_to_end(key)
             return
+        # the pages are immutable from now on (copy-on-write): their crcs
+        # now are what every later verification compares against
+        self._record_page_crcs(pages)
         for p in pages:
             self.page_ref[p] += 1
             self._dir_ref[p] = self._dir_ref.get(p, 0) + 1
@@ -1035,19 +1103,75 @@ class Scheduler:
                    and self.prefix_dir):
                 self._dir_evict_one()
 
-    def _dir_evict_one(self, key: Optional[bytes] = None):
+    def _dir_evict_one(self, key: Optional[bytes] = None,
+                       verify: bool = True):
         if key is None:
             key, (pages, _) = self.prefix_dir.popitem(last=False)   # LRU
         else:
             pages, _ = self.prefix_dir.pop(key)
+        if verify and self.integrity == "paranoid":
+            bad = self._verify_pages(pages)
+            if bad:
+                self.corruptions_detected += bad
+                self.quarantined.add(key)
         for p in pages:
             self.page_ref[p] -= 1
             self._dir_ref[p] -= 1
             if self._dir_ref[p] == 0:
                 del self._dir_ref[p]
+                self.page_crc.pop(p, None)
             if self.page_ref[p] == 0:
                 self.free_pages.append(p)
         self.prefix_evictions += 1
+
+    def _quarantine_entry(self, key: bytes):
+        """Bar `key` from the directory for good, evicting its entry: later
+        prompts with this prefix recompute their KV."""
+        self.quarantined.add(key)
+        if key in self.prefix_dir:
+            self._dir_evict_one(key, verify=False)
+
+    # -- page checksums (integrity != "off"; crc32 on the host) -------------
+    def _compute_page_crcs(self, pages: Sequence[int]) -> List[int]:
+        """The crc32 of each listed page's bytes in every layer now."""
+        return [int(c) for c in T.cache_page_checksums(self.cache, list(pages))]
+
+    def _record_page_crcs(self, pages: Sequence[int]):
+        if self.integrity == "off":
+            return
+        new = [int(p) for p in pages if int(p) not in self.page_crc]
+        if new:
+            self.page_crc.update(zip(new, self._compute_page_crcs(new)))
+
+    def _verify_pages(self, pages: Sequence[int]) -> int:
+        """How many listed pages no longer match their recorded crc (pages
+        without one, never directory-held, are skipped)."""
+        if self.integrity == "off":
+            return 0
+        known = [int(p) for p in pages if int(p) in self.page_crc]
+        if not known:
+            return 0
+        return sum(1 for p, c in zip(known, self._compute_page_crcs(known))
+                   if c != self.page_crc[p])
+
+    @staticmethod
+    def _victim_mismatches(rec: _SpillRecord) -> int:
+        """How many of a spill record's host pages no longer match their
+        spill-time crcs (0 for a record without crcs)."""
+        if rec.crcs is None or not rec.n_host:
+            return 0
+        crcs = T.cache_page_checksums(rec.data, list(range(rec.n_host)))
+        return sum(1 for a, b in zip(crcs, rec.crcs) if int(a) != int(b))
+
+    def _verify_victim(self, rec: _SpillRecord) -> bool:
+        """Checksum a spill record's host pages, counting mismatches; False
+        means the bytes must not be restored (the request recomputes from
+        its prompt)."""
+        if self.integrity == "off":
+            return True
+        bad = self._victim_mismatches(rec)
+        self.corruptions_detected += bad
+        return bad == 0
 
     def _reclaim(self, need: int):
         """Evict directory entries, LRU first, until `need` pages are free.
@@ -1076,19 +1200,33 @@ class Scheduler:
         """The longest directory match of `prompt`: the exact prompt first
         (a retired request's entry covers its partial last page too), then
         page-aligned prefixes, longest first.  Returns (pages, covered) or
-        (None, 0); a match moves to the MRU end."""
+        (None, 0); a match moves to the MRU end.  Under paranoid integrity
+        a hit's pages are checksummed before they are mapped."""
         buf = self._prefix_key(prompt)
         hit = self.prefix_dir.get(buf)
-        if hit is not None and hit[1] == len(prompt):
+        if (hit is not None and hit[1] == len(prompt)
+                and not self._paranoid_hit_bad(buf, hit)):
             self.prefix_dir.move_to_end(buf)
             return hit
         for k in range(len(prompt) // self.page_size, 0, -1):
             key = buf[: 4 * k * self.page_size]
             hit = self.prefix_dir.get(key)
-            if hit is not None and hit[1] == k * self.page_size:
+            if (hit is not None and hit[1] == k * self.page_size
+                    and not self._paranoid_hit_bad(key, hit)):
                 self.prefix_dir.move_to_end(key)
                 return hit
         return None, 0
+
+    def _paranoid_hit_bad(self, key: bytes, hit) -> bool:
+        """Paranoid integrity: a hit whose pages fail their crcs is
+        quarantined and never served (the walk tries shorter prefixes)."""
+        if self.integrity != "paranoid":
+            return False
+        bad = self._verify_pages(hit[0])
+        if bad:
+            self.corruptions_detected += bad
+            self._quarantine_entry(key)
+        return bad > 0
 
     def _registration_keys(self, prompt: Sequence[int], exact: bool):
         """[(key, pages, tokens covered)] that `_register_prefixes` inserts
@@ -1198,10 +1336,14 @@ class Scheduler:
         width = 1
         while width < max(n, 1):
             width *= 2
-        data = None
+        data = crcs = None
         if n:
             data = page_fetch(self.model, self.cache,
                               private + [TRASH_PAGE] * (width - n))
+            if self.integrity != "off":
+                # checksums of the host copy, verified before a restore
+                crcs = tuple(int(c) for c in T.cache_page_checksums(
+                    data, list(range(n))))
         host_idx = {p: i for i, p in enumerate(private)}
         logical: List[Tuple[str, int]] = []
         for p in alloc:
@@ -1216,7 +1358,7 @@ class Scheduler:
         row[:] = -1
         self._victim[r.rid] = _SpillRecord(
             logical, n, width, data, int(self.lengths[slot]),
-            int(self.cur_tok[slot]))
+            int(self.cur_tok[slot]), crcs)
         self._victim_used += n
         self.n_spills += 1
         self.spilled_pages += n
@@ -1351,6 +1493,12 @@ class Scheduler:
         deferred = False
         while free and self.queue:
             rec = self._victim.get(self.queue[0].rid)
+            if rec is not None and not self._verify_victim(rec):
+                # the host bytes changed since the spill: drop the record
+                # and recompute from the prompt; they never reach the pool
+                self._drop_victim(self.queue[0].rid)
+                self.n_recompute_fallbacks += 1
+                rec = None
             if rec is not None:
                 # a spilled continuation at the head is restored, not
                 # prefilled: it decodes at once, outside the wave
@@ -1574,8 +1722,10 @@ class Scheduler:
             self.cur_tok[slot] = tok
 
     def _effective_chunk_budget(self) -> int:
-        """The per-step prefill token budget (the reference's degradation
-        ladder, which halves it, is not ported yet)."""
+        """The per-step prefill token budget, halved from ladder level 2
+        (prefill chunks are a step's widest work)."""
+        if self.ladder_level >= 2:
+            return max(1, self.prefill_chunk_budget // 2)
         return self.prefill_chunk_budget
 
     def _plan_chunks(self) -> List[Tuple[int, int, int]]:
@@ -1770,25 +1920,297 @@ class Scheduler:
                 if self.slot_req[b] is None:
                     break      # retired inside the prefix: the rest is dropped
 
+    # -- SLA degradation ladder ---------------------------------------------
+    def _under_pressure(self) -> bool:
+        """Either signal over its target: the p95 queue depth of the last
+        32 steps above `queue_depth_target`, or the p95 time between steps
+        (on the injectable clock) above `tbt_target_ms`."""
+        depths = self._queue_depths[-32:]
+        if depths and (float(np.percentile(np.asarray(depths), 95))
+                       > self.queue_depth_target):
+            return True
+        return bool(self._tbt_samples) and float(np.percentile(
+            np.asarray(self._tbt_samples), 95)) * 1e3 > self.tbt_target_ms
+
+    def _ladder_update(self):
+        """At most one rung per cooldown window: up while the pressure
+        holds, down (reverse order) once it clears.  The rungs act where
+        the level is read (speculation at >= 1, the chunk budget at >= 2,
+        admission at 3), so a restore resumes mid-ladder as it was."""
+        if self.tbt_target_ms <= 0:
+            return
+        if (self._step_idx - self._ladder_last_change
+                < self.ladder_cooldown_steps):
+            return
+        if self._under_pressure():
+            if self.ladder_level < len(LADDER_RUNGS):
+                self.ladder_transitions[LADDER_RUNGS[self.ladder_level]] += 1
+                self.ladder_level += 1
+                self.ladder_escalations += 1
+                self._ladder_last_change = self._step_idx
+        elif self.ladder_level > 0:
+            self.ladder_level -= 1
+            self.ladder_deescalations += 1
+            self._ladder_last_change = self._step_idx
+
+    def _sample_tbt(self):
+        if self.tbt_target_ms <= 0:
+            return
+        now = self._clock()
+        if self._last_step_time is not None:
+            self._tbt_samples.append(now - self._last_step_time)
+        self._last_step_time = now
+
+    # -- fault hooks with scheduler state -------------------------------------
+    def _bitflip_victim_page(self):
+        """Fault hook: flip one byte (XOR 0xFF) of the lowest-rid victim
+        record's host bytes, the first byte of the first leaf of its page
+        tree.  The spill-time crcs no longer match, so the restore must
+        detect it and recompute the request from its prompt."""
+        for rid in sorted(self._victim):
+            rec = self._victim[rid]
+            if rec.n_host and rec.data is not None:
+                leaves = ckpt.flatten(rec.data)
+                leaf = leaves[0].clone()
+                flat = leaf.view(-1).view(torch.uint8)
+                flat[0] = flat[0] ^ 0xFF
+                rec.data = ckpt.unflatten(rec.data, [leaf] + leaves[1:])
+                self.bitflips_injected += 1
+                return
+
+    # -- crash recovery: snapshot and restore ---------------------------------
+    def _config_fingerprint(self) -> Dict[str, Any]:
+        """The configuration a snapshot's continuation depends on, checked
+        at restore (another one would resume with other streams)."""
+        sp = self.sampling
+        return {
+            "arch": self.model.cfg.name, "kv_bits": self.model.cfg.kv_bits,
+            "B": self.B, "max_len": self.max_len, "eos_id": self.eos_id,
+            "temperature": sp.temperature, "top_k": sp.top_k,
+            "top_p": sp.top_p, "decode_chunk": self.decode_chunk,
+            "prefill_bucket": self.prefill_bucket,
+            "page_size": self.page_size if self.paged else 0,
+            "num_pages": self.num_pages if self.paged else 0,
+            "prefix_sharing": self.prefix_sharing,
+            "mixed_steps": self.mixed_steps,
+            "mixed_dispatch": self.mixed_dispatch,
+            "speculate": self.speculate, "draft_len": self.draft_len,
+            "draft_mode": self.draft_mode,
+        }
+
+    _COUNTERS = ("n_evictions", "n_spills", "n_restores", "spilled_pages",
+                 "spill_bytes", "n_recompute_fallbacks", "n_deadline_misses",
+                 "n_rejections", "n_reclaim_stalls",
+                 "refcount_corruptions_detected", "model_steps",
+                 "n_spec_steps", "spec_proposed", "spec_accepted",
+                 "spec_rejected", "prefix_hits", "prefix_hit_tokens",
+                 "prefill_tokens_computed", "n_cow_copies",
+                 "prefix_evictions", "corruptions_detected",
+                 "bitflips_injected", "n_poisoned", "n_snapshots")
+
+    @staticmethod
+    def _owned(rec: _SpillRecord) -> _SpillRecord:
+        """`rec` with host planes in storage of their own: a spill's planes
+        are views of one buffer, which pickling would write once a plane."""
+        data = None if rec.data is None else ckpt.unflatten(
+            rec.data, [t.clone() for t in ckpt.flatten(rec.data)])
+        return _SpillRecord(rec.logical, rec.n_host, rec.width, data,
+                            rec.covered, rec.cur_tok, rec.crcs)
+
+    @torch.inference_mode()
+    def snapshot(self, directory: Optional[str] = None) -> str:
+        """Write a checkpoint generation of the whole scheduler (default
+        directory: `snapshot_dir`) and return its path.  Three leaves: the
+        cache's planes (copied off the device), the sampling key, and one
+        pickled blob of the host state (requests, queue, slots, page
+        tables and refcounts, directory, quarantine, crcs, victim records
+        with their host bytes, ladder, fault state, counters).  Taken at
+        the end of a step, when nothing is in flight, so that `restore`
+        continues every stream bit for bit."""
+        directory = directory or self.snapshot_dir
+        if not directory:
+            raise ValueError("snapshot() needs a directory "
+                             "(snapshot_dir or an explicit argument)")
+        meta: Dict[str, Any] = {
+            "config": self._config_fingerprint(),
+            "step_idx": self._step_idx, "next_rid": self._next_rid,
+            "requests": self.requests,
+            "queue": [r.rid for r in self.queue],
+            "slot_req": [None if r is None else r.rid
+                         for r in self.slot_req],
+            "lengths": self.lengths, "active": self.active,
+            "remaining": self.remaining, "cur_tok": self.cur_tok,
+            "prefilling": self.prefilling, "pend": self._pend,
+            "inflight_keys": self._inflight_keys,
+            "admit_seq": self._admit_seq,
+            "admit_counter": self._admit_counter,
+            "victim": {rid: self._owned(rec)
+                       for rid, rec in self._victim.items()},
+            "victim_used": self._victim_used,
+            "queue_depths": self._queue_depths,
+            "counters": {k: getattr(self, k) for k in self._COUNTERS},
+            "ladder": {
+                "level": self.ladder_level,
+                "escalations": self.ladder_escalations,
+                "deescalations": self.ladder_deescalations,
+                "paused_steps": self.ladder_paused_steps,
+                "transitions": dict(self.ladder_transitions),
+                "last_change": self._ladder_last_change,
+            },
+            "integrity": {"page_crc": dict(self.page_crc),
+                          "quarantined": set(self.quarantined),
+                          "poison_mask": self._poison_mask.copy()},
+            "faults": (None if self._faults is None else
+                       (dict(self._faults.fired),
+                        self._faults._rng.get_state())),
+        }
+        if self.paged:
+            meta["paged"] = {
+                "page_table": self.page_table, "page_ref": self.page_ref,
+                "free_pages": list(self.free_pages),
+                "prefix_dir": self.prefix_dir,
+                "dir_ref": dict(self._dir_ref),
+                "peak_pages_in_use": self.peak_pages_in_use,
+            }
+        tree = {"cache": self.cache,
+                "meta": np.frombuffer(pickle.dumps(meta), np.uint8),
+                "rng": self.sampling.key}
+        path = ckpt.save(directory, self._step_idx, tree)
+        self.n_snapshots += 1
+        return path
+
+    @torch.inference_mode()
+    def restore(self, directory: Optional[str] = None) -> int:
+        """Load the newest intact snapshot generation (default directory:
+        `snapshot_dir`) into this scheduler, which must have the
+        snapshot's configuration (checked), and return its step; `run()`
+        then continues every stream bit for bit.  The pool's bytes are
+        copied into this scheduler's cache in place.  With integrity on,
+        directory-held pages are checksummed once the bytes are in: a
+        mismatch (corruption older than the snapshot) quarantines every
+        entry holding such a page.  Victim records are verified at their
+        re-admission."""
+        directory = directory or self.snapshot_dir
+        if not directory:
+            raise ValueError("restore() needs a directory "
+                             "(snapshot_dir or an explicit argument)")
+        like = {"cache": self.cache, "meta": np.zeros(0, np.uint8),
+                "rng": self.sampling.key}
+        tree, step = ckpt.restore_latest(directory, like)
+        if tree is None:
+            raise FileNotFoundError(
+                f"no restorable snapshot generation in {directory}")
+        meta = pickle.loads(tree["meta"].numpy().tobytes())
+        mine = self._config_fingerprint()
+        if meta["config"] != mine:
+            diff = {k: (meta["config"].get(k), mine.get(k))
+                    for k in set(meta["config"]) | set(mine)
+                    if meta["config"].get(k) != mine.get(k)}
+            raise ValueError(
+                f"snapshot config mismatch (snapshot vs this): {diff}")
+        for dst, src in zip(ckpt.flatten(self.cache),
+                            ckpt.flatten(tree["cache"])):
+            dst.copy_(src)
+        self.sampling.key = tree["rng"]
+        self._step_idx = int(meta["step_idx"])
+        self._next_rid = int(meta["next_rid"])
+        self.requests = meta["requests"]
+        self.queue = collections.deque(
+            self.requests[rid] for rid in meta["queue"])
+        self.slot_req = [None if rid is None else self.requests[rid]
+                         for rid in meta["slot_req"]]
+        self.lengths = np.asarray(meta["lengths"], np.int32).copy()
+        self.active = np.asarray(meta["active"], bool).copy()
+        self.remaining = np.asarray(meta["remaining"], np.int32).copy()
+        self.cur_tok = np.asarray(meta["cur_tok"], np.int32).copy()
+        self.prefilling = np.asarray(meta["prefilling"], bool).copy()
+        self._pend = list(meta["pend"])
+        self._inflight_keys = dict(meta["inflight_keys"])
+        self._admit_seq = np.asarray(meta["admit_seq"], np.int64).copy()
+        self._admit_counter = int(meta["admit_counter"])
+        self._victim = dict(meta["victim"])
+        self._victim_used = int(meta["victim_used"])
+        self._queue_depths = list(meta["queue_depths"])
+        for k, v in meta["counters"].items():
+            setattr(self, k, v)
+        lad = meta["ladder"]
+        self.ladder_level = int(lad["level"])
+        self.ladder_escalations = int(lad["escalations"])
+        self.ladder_deescalations = int(lad["deescalations"])
+        self.ladder_paused_steps = int(lad["paused_steps"])
+        self.ladder_transitions = dict(lad["transitions"])
+        self._ladder_last_change = int(lad["last_change"])
+        # times between steps on the clock do not carry across a crash
+        self._tbt_samples.clear()
+        self._last_step_time = None
+        self.page_crc = dict(meta["integrity"]["page_crc"])
+        self.quarantined = set(meta["integrity"]["quarantined"])
+        # a slot marked for poison but not yet retired still retires
+        self._poison_mask[:] = np.asarray(meta["integrity"]["poison_mask"],
+                                          bool)
+        if self.paged:
+            pg = meta["paged"]
+            self.page_table = np.asarray(pg["page_table"], np.int32).copy()
+            self.page_ref = np.asarray(pg["page_ref"], np.int32).copy()
+            self.free_pages = list(pg["free_pages"])
+            self.prefix_dir = collections.OrderedDict(pg["prefix_dir"])
+            self._dir_ref = dict(pg["dir_ref"])
+            self.peak_pages_in_use = int(pg["peak_pages_in_use"])
+        if self._faults is not None:
+            if meta["faults"] is not None:
+                fired, rng_state = meta["faults"]
+                self._faults.fired = dict(fired)
+                self._faults._rng.set_state(rng_state)
+            if self._faults.plan.crash_at_step:
+                # the crash has happened: a plan that still names it must
+                # not fire again
+                self._faults.fired["crash"] = max(
+                    1, self._faults.fired.get("crash", 0))
+        if self.integrity != "off" and self.page_crc:
+            pages = sorted(self.page_crc)
+            crcs = self._compute_page_crcs(pages)
+            bad = {p for p, c in zip(pages, crcs) if c != self.page_crc[p]}
+            if bad:
+                self.corruptions_detected += len(bad)
+                for key in [k for k, (pp, _) in self.prefix_dir.items()
+                            if bad & set(pp)]:
+                    self._quarantine_entry(key)
+        return int(step)
+
     # -- driving --------------------------------------------------------------
     @torch.inference_mode()
     def step(self) -> Dict[int, List[int]]:
-        """One scheduling round: shed stale requests, admit (restoring
-        spilled continuations), then one speculative step (with this
-        step's prefill chunks, or after a paired chunk wave), or one mixed
-        step while a prompt is being prefilled in chunks, else one decode
-        chunk; returns the tokens generated this round by request id.  The
-        fault plan's hooks and the per-step audit run here, in the
-        reference's order."""
+        """One scheduling round: shed stale requests, move the ladder,
+        admit (restoring spilled continuations) unless the ladder pauses
+        admission, then one speculative step (with this step's prefill
+        chunks, or after a paired chunk wave; not from ladder level 1), or
+        one mixed step while a prompt is being prefilled in chunks, else
+        one decode chunk; returns the tokens generated this round by
+        request id.  The fault plan's hooks, the per-step audit and the
+        periodic snapshot run here, in the reference's order."""
         emitted: Dict[int, List[int]] = {}
         self._step_idx += 1
+        if (self._faults is not None
+                and self._faults.should_crash(self._step_idx)):
+            # before any work: the newest snapshot is the durable state
+            raise CrashInjected(f"injected crash at step {self._step_idx}")
         self._shed_stale()
         self._shed_admitted()
         self._queue_depths.append(len(self.queue))
-        self._admit(emitted)
+        self._ladder_update()
+        if (self.ladder_level >= 3
+                and any(r is not None for r in self.slot_req)):
+            # the deepest rung pauses admission while residents drain, but
+            # never with every slot empty (nothing would drain the queue)
+            self.ladder_paused_steps += 1
+        else:
+            self._admit(emitted)
         if (self._faults is not None and self.active.any()
                 and self._faults.force_evict(self._step_idx)):
             self._evict(self._eviction_victim())
+        if (self._faults is not None and self._victim
+                and self._faults.bitflip_spilled_page(self._step_idx)):
+            self._bitflip_victim_page()
         occupied = self.active | self.prefilling
         if (self._faults is not None and occupied.any()
                 and self._faults.poison_nan(self._step_idx)):
@@ -1799,7 +2221,7 @@ class Scheduler:
                          key=lambda b: self.slot_req[b].rid)
             self._poison_mask[victim] = True
         filling = self.mixed_steps and self.prefilling.any()
-        if self.speculate:
+        if self.speculate and self.ladder_level < 1:
             if filling and self.mixed_dispatch == "paired":
                 self._chunk_prefill_wave(emitted)
                 self._spec_step(emitted)
@@ -1815,6 +2237,9 @@ class Scheduler:
             self._corrupt_and_detect()
         if self._audit_every:
             self.audit()
+        if self.snapshot_every and self._step_idx % self.snapshot_every == 0:
+            self.snapshot()
+        self._sample_tbt()
         return emitted
 
     def run(self, on_tokens: Optional[Callable[[int, List[int]], None]] = None
@@ -1861,7 +2286,19 @@ class Scheduler:
             "victim_pool_pages_used": self._victim_used,
             "queue_depth_p50": float(np.percentile(depths, 50)),
             "queue_depth_p95": float(np.percentile(depths, 95)),
+            "corruptions_detected": self.corruptions_detected,
+            "bitflips_injected": self.bitflips_injected,
             "poisoned": self.n_poisoned,
+            "quarantined_prefixes": len(self.quarantined),
+            "snapshots": self.n_snapshots,
+            "ladder_level": self.ladder_level,
+            "ladder_escalations": self.ladder_escalations,
+            "ladder_deescalations": self.ladder_deescalations,
+            "ladder_paused_steps": self.ladder_paused_steps,
+            "ladder_transitions": dict(self.ladder_transitions),
+            "tbt_p95_ms": (float(np.percentile(
+                np.asarray(self._tbt_samples), 95)) * 1e3
+                if self._tbt_samples else 0.0),
         }
 
     def _corrupt_and_detect(self):
@@ -1890,9 +2327,12 @@ class Scheduler:
         holders (table entries + directory entries), refcount 0 iff on the
         free list, no page twice on the free list, the trash page never
         handed out, table rows contiguous and covering their slot's fill,
-        the directory's per-page holds in sync with its entries, and the
+        the directory's per-page holds in sync with its entries, no
+        quarantined key in it, crcs only for directory-held pages, and the
         victim pool's records holding their shared pages (each a holder)
-        and as many host pages as its counter says, within its cap."""
+        and as many host pages as its counter says, within its cap; under
+        paranoid integrity also every record's host bytes against its
+        spill-time crcs."""
         errs: List[str] = []
         for b in range(self.B):
             occupied = self.slot_req[b] is not None
@@ -1943,6 +2383,23 @@ class Scheduler:
             if dir_ref != self._dir_ref:
                 errs.append("directory page holds (_dir_ref) out of sync "
                             "with the directory's entries")
+            # integrity: a quarantined prefix never re-enters, and crcs
+            # are kept only for directory-held (immutable) pages
+            for key in self.quarantined:
+                if key in self.prefix_dir:
+                    errs.append("quarantined prefix key re-entered the "
+                                "directory")
+            for p in self.page_crc:
+                if p not in self._dir_ref:
+                    errs.append(f"page {p}: write-time checksum recorded "
+                                "but page is not directory-held")
+            if self.integrity == "paranoid":
+                # the victim pool's host bytes against their spill crcs
+                for rid, rec in self._victim.items():
+                    if self._victim_mismatches(rec):
+                        errs.append(f"victim record {rid}: host page bytes "
+                                    "no longer match their spill-time "
+                                    "checksums")
             used = 0
             for rid, rec in self._victim.items():
                 used += rec.n_host
@@ -1991,8 +2448,10 @@ def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
              draft_mode: str = "ngram", victim_pool_pages: int = 0,
              max_queue: int = 0, deadline_ms: Optional[float] = None,
              ttl_steps: Optional[int] = None,
-             fault_plan: Optional[FaultPlan] = None,
-             **not_ported) -> torch.Tensor:
+             fault_plan: Optional[FaultPlan] = None, kv_bits: int = 0,
+             integrity: str = "off", tbt_target_ms: float = 0.0,
+             snapshot_every: int = 0, snapshot_dir: Optional[str] = None,
+             restore_from: Optional[str] = None) -> torch.Tensor:
     """Batched generation; returns (B, max_new_tokens) token ids.
 
     Default: equal-length prefill, then one decode step per further token;
@@ -2009,8 +2468,16 @@ def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
     `draft_len` drafted tokens a slot and step (`draft_mode`),
     `victim_pool_pages` spills evicted slots to host memory, `max_queue`,
     `deadline_ms` and `ttl_steps` bound admission (a refused or shed row
-    stays padding), and `fault_plan` injects faults (see `Scheduler`)."""
-    _refuse_unported(not_ported)
+    stays padding), and `fault_plan` injects faults (see `Scheduler`).
+
+    `kv_bits` (0: the model's) sets the KV cache's precision for the run,
+    on either path.  The Scheduler's recovery options need
+    `continuous_batching`: `integrity` ("checksum" | "paranoid") checksums
+    KV pages, `tbt_target_ms` turns the SLA ladder on,
+    `snapshot_every` / `snapshot_dir` snapshot the scheduler, and
+    `restore_from` resumes from the newest snapshot in that directory
+    before this batch is submitted."""
+    model = with_kv_bits(model, kv_bits)
     tokens = torch.as_tensor(prompt_batch["tokens"])
     B, S = tokens.shape
     rng = (prng.PRNGKey(0) if rng is None
@@ -2019,6 +2486,11 @@ def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
         raise ValueError("speculate requires continuous_batching=True "
                          "(drafts are verified by the scheduler's ragged "
                          "decode rows)")
+    if not continuous_batching and (integrity != "off" or tbt_target_ms > 0
+                                    or snapshot_every or restore_from):
+        raise ValueError("integrity / tbt_target_ms / snapshot_every / "
+                         "restore_from require continuous_batching=True "
+                         "(they are Scheduler features)")
     if continuous_batching:
         sched = Scheduler(model, params, max_batch_slots=max_batch_slots or B,
                           max_len=max_len, eos_id=eos_id,
@@ -2032,7 +2504,12 @@ def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
                           mixed_dispatch=mixed_dispatch, speculate=speculate,
                           draft_len=draft_len, draft_mode=draft_mode,
                           victim_pool_pages=victim_pool_pages,
-                          max_queue=max_queue, fault_plan=fault_plan)
+                          max_queue=max_queue, fault_plan=fault_plan,
+                          integrity=integrity, tbt_target_ms=tbt_target_ms,
+                          snapshot_every=snapshot_every,
+                          snapshot_dir=snapshot_dir)
+        if restore_from:
+            sched.restore(restore_from)
         rows = tokens.cpu().numpy()
         rids: List[Optional[int]] = []
         for b in range(B):

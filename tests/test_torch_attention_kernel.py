@@ -24,6 +24,16 @@ from repro_torch.kernels.pim_attention import (
     lut_online_step)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's small CPU ops run on one thread here: beside JAX's
+    thread pool more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # launch plan
 # ---------------------------------------------------------------------------

@@ -47,6 +47,16 @@ def _exact(j, t):
     np.testing.assert_array_equal(_np(j), _np(t))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's small CPU ops run on one thread here: beside JAX's
+    thread pool more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # quantization
 # ---------------------------------------------------------------------------

@@ -60,6 +60,16 @@ def _table(lens, n_tables, ps, seed, holes=True):
     return torch.from_numpy(pt)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's small CPU ops run on one thread here: beside JAX's
+    thread pool more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # launch plan
 # ---------------------------------------------------------------------------

@@ -13,8 +13,8 @@ Scheduler (a module-scoped fixture on one set of shapes) and once through
 the port's, audited after every step: streams, statuses, overload `stats`
 and `fired` must be equal, and the streams equal to the fault-free run's
 (the poisoned request's a prefix of it).  A seeded sweep of 25 chaos cases
-holds the port against its own fault-free baselines; plans the port does
-not serve yet (crash, bit flips of spilled pages) raise.
+holds the port against its own fault-free baselines; the crash and the
+bit flip of a spilled page fire as JAX's do.
 """
 import dataclasses
 
@@ -271,12 +271,36 @@ def test_scheduler_chaos_sweep(models):
 # what the port refuses, and the audit switch
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kw", [dict(crash_at_step=3),
-                                dict(bitflip_spilled_page_steps=(2,))])
-def test_recovery_faults_not_ported_raise(models, kw):
-    _, _, tm, tp = models
-    with pytest.raises(NotImplementedError, match=r"5 \(h\)"):
-        TS.Scheduler(tm, tp, **_options(victim=8),
-                     fault_plan=TF.FaultPlan(**kw))
+                                dict(evict_steps=(2,),
+                                     bitflip_spilled_page_steps=(2,))],
+                         ids=["crash", "bitflip"])
+def test_recovery_faults_fire_like_jax(models, kw):
+    """The recovery faults as JAX's Scheduler fires them: the crash at the
+    start of its step (one `CrashInjected`, no token of that step), a
+    spilled page's bit flip detected at the restore under integrity."""
+    jm, jp, tm, tp = models
+    opts = _options(victim=8, integrity="checksum")
+    got = []
+    for mod, model, params in ((TS, tm, tp), (JS, jm, jp)):
+        sched = mod.Scheduler(model, params, fault_plan=mod.FaultPlan(**kw),
+                              **opts)
+        for p, b in _trace(0):
+            sched.submit(p, b)
+        try:
+            sched.run()
+            crashed = None
+        except (TF.CrashInjected, JF.CrashInjected) as e:
+            crashed = str(e)
+        got.append((crashed, sched.results(), dict(sched._faults.fired),
+                    sched.stats["corruptions_detected"],
+                    sched.stats["bitflips_injected"]))
+    assert got[0] == got[1]
+    fired = got[0][2]
+    assert fired["crash"] + fired["bitflip"] == 1
+    if "crash_at_step" in kw:
+        assert got[0][0] == "injected crash at step 3"
+    else:
+        assert got[0][3] == got[0][4] == 1
 
 
 def test_audit_every_step_defaults_from_environment(models, monkeypatch):

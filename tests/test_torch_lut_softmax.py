@@ -43,6 +43,16 @@ def _oracle(s, mask):
     return np.asarray(ref).reshape(s.shape)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's small CPU ops run on one thread here: beside JAX's
+    thread pool more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # S of 1, 31 and 33 (around a warp's 32 lanes and a lane's 4 positions), and
 # the warp-per-row limit (1024) and one either side; one row, and row counts
 # that are not a multiple of 8 rows a CTA

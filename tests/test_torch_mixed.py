@@ -48,6 +48,16 @@ def _cfgs(impl):
             dataclasses.replace(get_config(ARCH, smoke=True), **kw))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's small CPU ops run on one thread here: beside JAX's
+    thread pool more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     """(jax model, jax params, port model, port params), behavioral."""

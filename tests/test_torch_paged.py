@@ -90,6 +90,16 @@ def _rel(t, j):
     return np.abs(t - j).max() / np.abs(j).max()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's small CPU ops run on one thread here: beside JAX's
+    thread pool more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # storage
 # ---------------------------------------------------------------------------

@@ -372,6 +372,16 @@ def test_quantized_behavioral_ragged_and_paged_match_jax():
 # ---------------------------------------------------------------------------
 # the SMOKE model at the paper's fidelity
 # ---------------------------------------------------------------------------
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's small CPU ops run on one thread here: beside JAX's
+    thread pool more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     """(jax model, jax params, port model, port params) of SMOKE

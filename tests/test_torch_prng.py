@@ -30,6 +30,16 @@ def _u32(t: torch.Tensor) -> np.ndarray:
     return t.numpy().astype(np.uint32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's small CPU ops run on one thread here: beside JAX's
+    thread pool more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_keys_fold_in_and_split_equal_jax(seed):
     jk, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)

@@ -45,6 +45,16 @@ SAMPLED = dict(temperature=0.8, top_k=20, top_p=0.9)
 SEED = 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's small CPU ops run on one thread here: beside JAX's
+    thread pool more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     """(jax model, jax params, port model, port params)."""

@@ -27,11 +27,20 @@ from repro_torch.configs import get_config
 from repro_torch.data import pipeline as TD
 from repro_torch.launch import serve as tserve
 from repro_torch.models.model_zoo import build_model, from_jax_params
-from repro_torch.runtime import fault as TF
 from repro_torch.runtime import serve_lib as TS
 
 ARCH = "internlm2-1.8b"
 MAX_LEN = 64
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's small CPU ops run on one thread here: beside JAX's
+    thread pool more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -190,31 +199,48 @@ def test_prefill_bucket_gives_jax_admission_widths(models, page_size):
     assert ts == js
 
 
-@pytest.mark.parametrize("option,value", [
-    ("queue_depth_target", 4), ("ladder_cooldown_steps", 2),
-    ("snapshot_dir", "snapshots"),
-    ("integrity", "checksum"), ("tbt_target_ms", 5.0), ("snapshot_every", 2),
-    ("kv_bits", 4)])
-def test_unported_scheduler_options_raise(models, option, value):
-    _, _, tm, tp = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.Scheduler(tm, tp, max_batch_slots=2, max_len=32, **{option: value})
+def _classic(tm, tp, **kw):
+    return TS.generate(tm, tp, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
+                       2, 8, **kw)
 
 
-def test_unported_submit_and_generate_options_raise(models):
+@pytest.mark.parametrize("case", [
+    "unknown_integrity", "integrity_dense", "snapshot_every_no_dir",
+    "snapshot_no_dir", "restore_no_dir", "classic_restore_from",
+    "classic_integrity", "unknown_option"])
+def test_recovery_option_validation(models, case):
+    """The reference's validations of the recovery options: an unknown
+    integrity mode, integrity on dense slots, snapshots without a
+    directory, the Scheduler's options on the classic path, and an option
+    the Scheduler does not have."""
     _, _, tm, tp = models
-    sched = TS.Scheduler(tm, tp, max_batch_slots=2, max_len=32)
-    with pytest.raises(TypeError):
-        sched.submit([1, 2], 3, integrity="checksum")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.generate(tm, tp, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, 2,
-                    8, continuous_batching=True,
-                    fault_plan=TF.FaultPlan(crash_at_step=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.generate(tm, tp, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, 2,
-                    8, continuous_batching=True, restore_from="snapshots")
-    with pytest.raises(TypeError):
-        TS.Scheduler(tm, tp, no_such_option=1)
+    kw = dict(max_batch_slots=2, max_len=32)
+    if case == "unknown_integrity":
+        with pytest.raises(ValueError, match="unknown integrity mode"):
+            TS.Scheduler(tm, tp, page_size=8, integrity="bogus", **kw)
+    elif case == "integrity_dense":
+        with pytest.raises(ValueError, match="page_size"):
+            TS.Scheduler(tm, tp, integrity="checksum", **kw)
+    elif case == "snapshot_every_no_dir":
+        with pytest.raises(ValueError, match="snapshot_every requires"):
+            TS.Scheduler(tm, tp, snapshot_every=2, **kw)
+    elif case in ("snapshot_no_dir", "restore_no_dir"):
+        sched = TS.Scheduler(tm, tp, **kw)
+        with pytest.raises(ValueError, match="needs a directory"):
+            getattr(sched, case.split("_")[0])()
+    elif case == "classic_restore_from":
+        with pytest.raises(ValueError, match="continuous_batching"):
+            _classic(tm, tp, restore_from="snapshots")
+    elif case == "classic_integrity":
+        with pytest.raises(ValueError, match="continuous_batching"):
+            _classic(tm, tp, integrity="checksum")
+        with pytest.raises(ValueError, match="continuous_batching"):
+            _classic(tm, tp, tbt_target_ms=5.0)
+    else:
+        with pytest.raises(TypeError):
+            TS.Scheduler(tm, tp, no_such_option=1)
+        with pytest.raises(TypeError):
+            TS.Scheduler(tm, tp, **kw).submit([1, 2], 3, integrity="checksum")
 
 
 def test_serve_cli_continuous_batching_on_cpu():
