@@ -167,6 +167,30 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    recomputed (equal to P4 up to its re-prefill, the others equal), the
    ladder climbing every rung under load and releasing each once idle,
    `audit()` after every step and no plain-version call.
+14. Mixture-of-Experts serving.  (a) Holds kernel 3's expert launch, one
+   launch for a stack of E products (E, M, K) x (E, K, N), against its
+   plain version and against E single launches, bit for bit, in both ADC
+   modes: deepseek-moe-16b's routed experts (E 64, M 1, 5, 60 and 240,
+   K 2048 -> N 1408 and K 1408 -> N 2048), its shared ones (E 2, M 4 and
+   512) and dbrx-132b's (E 16, M 160, K 6144 -> N 10752); times each beside
+   its bound and a loop of E `torch._int_mm` calls (a yardstick the port
+   never calls).  (b) Serves deepseek-moe-16b at its published widths and
+   full depth (28 layers: a dense prefix layer, 27 MoE layers of 64 routed
+   experts top-6 and 2 shared; random weights from seed 0, deployed one
+   expert at a time) on the classic request, counting launches (kernel
+   3's expert launch 6 times a MoE layer and forward), replaying served
+   launches of kernels 1-3 against their plain versions, profiling it
+   (busy share, kernels 1-3's us per launch beside their bounds) and
+   splitting a MoE layer's device time into router, dispatch, experts and
+   combine; dense == paged streams on the request's prompts cut to one
+   page, where both run the same tiles and the same batch (so the same
+   routing).  (c) Serves 8 requests of phase 7's trace through the
+   Scheduler on the paged pool with `audit()` every step.  (d) One prefill
+   forward at the paper's fidelity (every linear through the 6-bit ADC:
+   the experts through the expert launch's ADC mode).  (e) Serves
+   dbrx-132b's first 4 of 40 layers at full width (48 q heads over 8 KV
+   heads, 16 experts top-4): the request's prefill and 8 decode tokens,
+   replayed, profiled and split as in (b).
 Phases 10-12 first run a row probe: RMSNorm, the bf16 unembed, the
 top-k / top-p truncation, its softmax and the Gumbel arg-max must give a
 row the same bits alone and among other rows (up to 40 = 8 slots x 5
@@ -198,7 +222,9 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.checkpoint.checkpoint import flatten as ckpt_flatten  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import PIMConfig  # noqa: E402
 from repro_torch.core import attention as A  # noqa: E402
 from repro_torch.core.attention import expected_kv_block_iters  # noqa: E402
 from repro_torch.data import pipeline as data  # noqa: E402
@@ -211,6 +237,9 @@ from repro_torch.kernels import pim_matmul as mm_k  # noqa: E402
 from repro_torch.kernels.pim_attention import (  # noqa: E402
     pim_attention, pim_attention_plain)
 from repro_torch.kernels.pim_decode import pim_decode, pim_decode_plain  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.layers import mlp_apply  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.runtime import serve_lib  # noqa: E402
 
@@ -224,7 +253,7 @@ F32_OPS = 67e12
 REL_TOL = 1e-5
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
 # what a phase needs run first: kernel entries (2, 8) or the small model (4)
 NEEDS = {3: {2}, 5: {4}, 6: {2}, 7: {2}, 9: {8}}
 
@@ -2981,6 +3010,8 @@ def main(argv=None) -> int:
         small_model(dev, 5 in phases)
     if phases & {6, 7, 9, 10, 11, 12, 13}:
         serve_phases(dev, cfg, phases, entries, compare, results)
+    if 14 in phases:
+        moe_phase(dev, entries, compare, results)
     stamp(f"phases {sorted(phases)} done: every check passed")
     for name in max_err:
         if name in entries:
@@ -2996,7 +3027,8 @@ def main(argv=None) -> int:
     extra = ("wrapper_ms", "cold_ms", "served_us", "served_bound_us", "paged_ms", "paged_bound_ms",
              "paged_launches", "dense_sched_launches", "mixed_launches", "verify_launches",
              "kv4_launches", "paged_kv4_ms", "paged_kv4_bound_ms",
-             "ideal_ms", "int_mm_ms")
+             "ideal_ms", "int_mm_ms", "quantized_ms", "quantized_bound_ms",
+             "int_mm_loop_ms")
     print(json.dumps({"kernels": [{**{k: e.get(k) for k in keys},
                                    **{k: e[k] for k in extra if k in e}}
                                   for e in entries.values()]}))
@@ -3005,6 +3037,458 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---- 14. Mixture-of-Experts serving: deepseek-moe-16b and dbrx-132b --------
+# M of deepseek's routed expert launch: C of a 4-row decode step (1), of 40
+# verify rows (5), of the classic 512-row prefill (60) and of an admission
+# wave of 8 x 256 rows (240); (K, N) of its w_gate / w_in and its w_out
+MOE_ROUTED_M = (1, 5, 60, 240)
+MOE_KN = ((2048, 1408), (1408, 2048))
+MOE_HEAD = (64, 1, 2048, 1408)   # (E, M, K, N) of the JSON line: decode w_gate / w_in
+DBRX_LAYERS = 4                  # dbrx-132b's first layers served (40 do not fit one card)
+MOE_TRACE = 8                    # requests of phase 7's trace through the Scheduler
+
+
+def expert_bound(E: int, M: int, K: int, N: int, quantized: bool):
+    """`matmul_bound` of E expert products: E times each's bytes and
+    operations (every expert's weights read once)."""
+    ms, by = matmul_bound(M, K, N, quantized)
+    return E * ms, by
+
+
+def device_ms(fn, iters: int) -> float:
+    """Summed device ms per call of `iters` calls of `fn`, profiled again
+    while the profiler drops every event of a session (it did, late in
+    the script, for short sessions)."""
+    for _ in range(5):
+        ms = per_call_ms(profiled(fn, iters), iters)
+        if ms > 0:
+            return ms
+        print("  profiler saw no device event: profiling again", flush=True)
+    check(False, "profiler saw the device work")
+
+
+def int_mm_rows(x: torch.Tensor) -> torch.Tensor:
+    """x padded with zero rows to what cuBLAS's int8 GEMM takes: more than
+    16 rows, a multiple of 8."""
+    M = x.shape[-2]
+    return F.pad(x, (0, 0, 0, max(32, -(-M // 8) * 8) - M))
+
+
+def expert_kernels(dev, gen, entries) -> dict:
+    """Phase 14 (a): kernel 3's expert launch against its plain version and
+    against E single launches, bit for bit, in both ADC modes, at the
+    shapes deepseek-moe-16b's and dbrx-132b's experts serve; then timed
+    beside its bound and, as a yardstick the port never calls, a loop of E
+    `torch._int_mm` calls of the ideal mode."""
+    pim_q = dataclasses.replace(PIMConfig(), adc_mode="quantized")
+    pim_i = dataclasses.replace(PIMConfig(), adc_mode="ideal")
+    shapes = [(64, M, K, N, "deepseek routed") for M in MOE_ROUTED_M for K, N in MOE_KN]
+    shapes += [(2, M, K, N, "deepseek shared") for M in (4, 512) for K, N in MOE_KN]
+    shapes += [(16, 160, 6144, 10752, "dbrx routed")]
+    print("kernel 3's expert launch vs its plain version and E single launches, "
+          "bit for bit; device ms per launch (torch.profiler):", flush=True)
+    rows, err = [], 0.0
+    for E, M, K, N, what in shapes:
+        x = int8_codes((E, M, K), gen, dev)
+        w = int8_codes((E, N, K), gen, dev).transpose(1, 2)     # the deployed layout
+        row = dict(what=what, E=E, M=M, K=K, N=N)
+        for mode, pc in (("ideal", pim_i), ("quantized", pim_q)):
+            got = mm_k.pim_matmul_int(x, w, pc)
+            plain = mm_k.pim_matmul_int_plain(x, w, pc)
+            singles = torch.stack([mm_k.pim_matmul_int(x[e], w[e], pc) for e in range(E)])
+            torch.cuda.synchronize()
+            e_max = (got.double() - plain.double()).abs().max().item()
+            err = max(err, e_max)
+            check(got.shape == (E, M, N) and torch.equal(got, plain)
+                  and torch.equal(got, singles),
+                  f"{what} E{E} M{M} K{K} N{N} {mode}: one launch == plain == "
+                  f"{E} single launches (max|diff| {e_max:.3g})")
+            row[mode] = kernel_ms(lambda: mm_k.pim_matmul_int(x, w, pc), "pim_matmul_kernel")
+            row[f"{mode}_bound"], row[f"{mode}_bound_by"] = expert_bound(
+                E, M, K, N, mode == "quantized")
+            del got, plain, singles
+        xp = int_mm_rows(x)
+        row["int_mm_loop"] = device_ms(
+            lambda: [torch._int_mm(xp[e], w[e]) for e in range(E)], 5)
+        if (E, M, K, N) == MOE_HEAD:
+            for mode, pc in (("ideal", pim_i), ("quantized", pim_q)):
+                row[f"{mode}_plain"] = device_ms(
+                    lambda: mm_k.pim_matmul_int_plain(x, w, pc), 2)
+        rows.append(row)
+        print(f"  {what} E{E} M{M} K{K} N{N}: ideal {row['ideal']:.4f} (bound "
+              f"{row['ideal_bound']:.4f}, {row['ideal_bound_by']}, "
+              f"{row['ideal_bound'] / row['ideal']:.1%}), quantized {row['quantized']:.4f} "
+              f"(bound {row['quantized_bound']:.4f}, {row['quantized_bound_by']}, "
+              f"{row['quantized_bound'] / row['quantized']:.1%}); loop of {E} "
+              f"torch._int_mm {row['int_mm_loop']:.4f}", flush=True)
+        del x, w, xp
+        torch.cuda.empty_cache()
+    head = next(r for r in rows if (r["E"], r["M"], r["K"], r["N"]) == MOE_HEAD)
+    entries["pim_matmul_experts"] = dict(
+        name="pim_matmul_experts", route="cuda",
+        source="src/repro_torch/kernels/csrc/pim_matmul.cu",
+        replaces="src/repro/kernels/pim_matmul.py:69",
+        ms=head["ideal"], plain_ms=head["ideal_plain"], bound_ms=head["ideal_bound"],
+        bound_by=head["ideal_bound_by"], library_ms=None, max_abs_err=err,
+        quantized_ms=head["quantized"], quantized_plain_ms=head["quantized_plain"],
+        quantized_bound_ms=head["quantized_bound"], int_mm_loop_ms=head["int_mm_loop"],
+        timed=rows,
+        shape="E64 M1 K2048 N1408 ideal ADC (deepseek-moe-16b's routed w_gate / w_in "
+              "at decode); library: no one PyTorch call computes a batched int8 "
+              "product; int_mm_loop_ms is a loop of 64 torch._int_mm calls")
+    return dict(timed=rows, max_abs_err=err)
+
+
+@contextlib.contextmanager
+def expert_launches(pick=lambda i: None):
+    """Within the block, records (E, M, K, N, ADC mode) of every expert launch
+    of kernel 3 (the stacked calls of `core/pim.py`) and keeps the operands
+    of those `pick(index)` labels: the activations copied at launch, the
+    weights as the layer holds them (serving never writes them).  Yields
+    (shapes, {label: (x, w, cfg)})."""
+    seen, kept = [], {}
+    fn = core_pim._adc_matmul
+
+    def call(x, w, cfg):
+        if w.dim() == 3:
+            label = pick(len(seen))
+            seen.append((x.shape[0], x.shape[1], x.shape[2], w.shape[2], cfg.adc_mode))
+            if label:
+                kept[label] = (x.clone(), w, cfg)
+        return fn(x, w, cfg)
+
+    core_pim._adc_matmul = call
+    try:
+        yield seen, kept
+    finally:
+        core_pim._adc_matmul = fn
+
+
+def replay_experts(label: str, kept: dict, want: dict) -> None:
+    """Served expert launches against the plain version, bit for bit; `want`
+    {label: M} names every launch that must have been kept."""
+    check(sorted(kept) == sorted(want),
+          f"{label}: kept expert launches {sorted(kept)}, expected {sorted(want)}")
+    for what, (x, w, cfg) in kept.items():
+        check(x.shape[1] == want[what], f"{label}, {what}: {x.shape[1]} rows an "
+              f"expert, expected {want[what]}")
+        got, plain = mm_k.pim_matmul_int(x, w, cfg), mm_k.pim_matmul_int_plain(x, w, cfg)
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain), f"{label}, {what}: served expert launch "
+              f"{tuple(x.shape)} x {tuple(w.shape)} {cfg.adc_mode}, kernel == plain "
+              "bit for bit")
+
+
+def moe_launches(cfg, forwards: int) -> dict:
+    """Launches of each kernel wrapper in `forwards` forwards of the classic
+    request on the kernel path at the ideal ADC: kernel 1 once a layer in
+    the prefill, kernel 2 once a layer in each decode, kernel 3's expert
+    launch once per expert matrix of a MoE layer (w_gate, w_in, w_out of the
+    routed experts, and of the shared ones)."""
+    L = cfg.num_layers
+    moe_layers = L - cfg.num_dense_layers
+    mats = 3 * (1 + (cfg.moe.num_shared > 0))
+    return {"pim_attention": L, "pim_decode": (forwards - 1) * L,
+            "pim_matmul_experts": mats * moe_layers * forwards}
+
+
+def moe_split(params, cfg, xf) -> dict:
+    """Device ms of one MoE layer on its served input `xf`, by part: the
+    router (float32 product, softmax, top-k, normalisation), the dispatch
+    (stable sort, ranks, the (E, C, D) buffer), the experts (routed and
+    shared stacks through kernel 3's expert launch) and the combine
+    (gates, the ordered adds, the shared sum)."""
+    p = TT._index(params["blocks"][0], 0)["moe"]
+    T, E = xf.shape[0], cfg.moe.num_experts
+    C = moe_mod.capacity(T, cfg)
+    gate, idx = moe_mod.route(p, xf, cfg)
+    xe, slot, keep = moe_mod.dispatch(xf, idx, C, E)
+    rows = xf.expand((cfg.moe.num_shared,) + xf.shape)
+
+    def experts():
+        return (mlp_apply(p["experts"], xe, cfg),
+                mlp_apply(p["shared"], rows, cfg) if "shared" in p else None)
+
+    ye, sh = experts()
+
+    def combine():
+        y = moe_mod.combine(ye, gate, idx, slot, keep)
+        return y if sh is None else y + sh.sum(0)
+
+    parts = {"router": lambda: moe_mod.route(p, xf, cfg),
+             "dispatch": lambda: moe_mod.dispatch(xf, idx, C, E),
+             "experts": experts, "combine": combine,
+             "layer": lambda: moe_mod.moe_ffn_local(p, xf, cfg)}
+    out = {name: device_ms(fn, 10) for name, fn in parts.items()}
+    out.update(T=T, C=C)
+    return out
+
+
+def moe_model(cfg, entries, compare, full: bool) -> dict:
+    """Phase 14 (b)-(e) for one MoE model at its published widths on the
+    kernel path at the ideal ADC, random weights from seed 0: the classic
+    request (batch 4, prompt 128; `full`: 32 new tokens, else the prefill
+    and 8 decode tokens), its launches and served kernel launches replayed,
+    profiled (busy share, kernels 1-3's us per launch beside their bounds)
+    and its MoE layer's device time split by part; with `full` also dense
+    == paged streams on one-page prompts, the Scheduler over 8 requests of
+    phase 7's trace and a forward at the paper's fidelity."""
+    name = cfg.name
+    stamp(f"phase 14: {name}, {cfg.num_layers} layers")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    dev, L, V = model.device, cfg.num_layers, cfg.vocab_size
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [t for t in ckpt_flatten(params) if isinstance(t, torch.Tensor)]
+    weight_gb = sum(t.untyped_storage().nbytes() for t in leaves) / 1e9
+    peak_init = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"serve {name}: {L} layers ({cfg.num_dense_layers} dense), d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads (q_per_kv "
+          f"{cfg.num_heads // cfg.num_kv_heads}), head_dim {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff}, {cfg.moe.num_experts} experts top-{cfg.moe.top_k}, "
+          f"{cfg.moe.num_shared} shared, vocab {V}, {cfg.param_count() / 1e9:.3f} B "
+          f"params, {weight_gb:.2f} GB deployed; init+deploy {init_s:.1f} s, peak "
+          f"{peak_init:.2f} GiB", flush=True)
+    out = dict(layers=L, init_s=init_s, weight_gb=weight_gb, peak_init_gib=peak_init)
+
+    Bs, P = 4, 128
+    T = 32 if full else 9
+    batch = {"tokens": torch.from_numpy(data.lm_batch(0, Bs, P, V)).long()}
+    serve_lib.generate(model, params, batch, 2, P + T)           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve_lib.generate(model, params, batch, 1, P + T)           # prefill only
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    moe_layers = L - cfg.num_dense_layers
+    mats = 3 * (1 + (cfg.moe.num_shared > 0))
+    last = mats * moe_layers
+    # a forward's expert launch of the last MoE layer's routed w_out (each
+    # layer launches the routed w_gate, w_in, w_out, then the shared ones)
+    w_out = (moe_layers - 1) * mats + 2
+
+    def pick_expert(i):
+        """The prefill's first expert launch (the first MoE layer's routed
+        w_gate) and the last forward's routed w_out of the last MoE layer."""
+        if i == 0:
+            return "prefill w_gate"
+        if i == (T - 1) * last + w_out:
+            return f"decode forward {T} w_out"
+        return None
+
+    def pick_attention(kind, i):
+        """The prefill's first layer and a decode forward's last layer."""
+        if kind == "pim_attention" and i == 0:
+            return "prefill layer 0"
+        if kind == "pim_decode" and i == 3 * L - 1:
+            return f"decode forward 4 layer {L - 1}"
+        return None
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    with plain_calls() as n_plain, expert_launches(pick_expert) as (seen, kept), \
+            recorded(pick_attention) as kept_attn:
+        t0 = time.perf_counter()
+        toks = serve_lib.generate(model, params, batch, T, P + T)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(not n_plain, f"{name}: no plain-version call on the path ({n_plain})")
+    want = moe_launches(cfg, T)
+    check(all(launches.get(k, 0) == n for k, n in want.items())
+          and not launches.get("pim_matmul"),
+          f"{name}: launches {launches} == {want}, no single-product kernel 3 "
+          "(the dense linears' ideal ADC is cuBLAS's int8 GEMM)")
+    check(tuple(toks.shape) == (Bs, T) and int(toks.min()) >= 0
+          and int(toks.max()) < V, f"{name}: served ({Bs}, {T}) token ids in the vocabulary")
+    C_pre, C_dec = moe_mod.capacity(Bs * P, cfg), moe_mod.capacity(Bs, cfg)
+    replay_experts(name, kept, {"prefill w_gate": C_pre, f"decode forward {T} w_out": C_dec})
+    replay_served(name, kept_attn, compare)
+    decode_ms = (total_s - prefill_s) / (T - 1) * 1e3
+    print(f"  classic request: prefill {prefill_s * 1e3:.1f} ms, decode {decode_ms:.2f} "
+          f"ms/token, {Bs * T / total_s:.1f} tokens/s, peak {peak:.2f} GiB; launches "
+          f"{launches} ({sum(launches.values()) / T:.1f} kernel launches per forward); "
+          f"C {C_pre} at prefill, {C_dec} at decode; first sequence "
+          f"{toks[0, :12].tolist()}", flush=True)
+    out["classic"] = dict(prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_ms,
+                          tokens_per_s=Bs * T / total_s, total_s=total_s,
+                          launches=launches, forwards=T, peak_gib=peak)
+    if full:
+        entries["pim_matmul_experts"]["launches"] = launches["pim_matmul_experts"]
+
+    # the request cut to PROFILED_TOKENS new tokens, unprofiled, then profiled
+    cut_tokens = min(PROFILED_TOKENS, T)
+
+    def cut(_):
+        serve_lib.generate(model, params, batch, cut_tokens, P + T)
+
+    @contextlib.contextmanager
+    def shapes_of_launches():
+        with launch_shapes(cfg) as attn, expert_launches() as (experts, _):
+            yield attn, experts
+
+    (attn_shapes, exp_shapes), wall = unprofiled_wall(lambda: None, cut, shapes_of_launches)
+    label = f"{name} request cut to {cut_tokens} new tokens"
+    report = profiled_report(lambda: None, cut, label, wall, ATTENTION_KERNELS
+                             + (("pim_matmul_kernel", "pim_matmul_experts"),))
+    served = {}
+    for kind, kernel, num in (("pim_attention", "pim_attention_kernel", 1),
+                              ("pim_decode", "pim_decode_kernel", 2)):
+        bounds = [(prefill_bound(*s, cfg) if num == 1 else decode_bound(*s[1:], cfg))[0]
+                  * 1e3 for s in attn_shapes[kind]]
+        served[kind] = (report["kernels"][kernel]["us_per_launch"],
+                        sum(bounds) / len(bounds))
+    bounds = [expert_bound(E, M, K, N, False)[0] * 1e3 for E, M, K, N, _ in exp_shapes]
+    served["pim_matmul_experts"] = (report["kernels"]["pim_matmul_kernel"]["us_per_launch"],
+                                    sum(bounds) / len(bounds))
+    for kind, (us, b_us) in served.items():
+        print(f"  {kind} served on the {label}: {us:.2f} us per launch, bound "
+              f"{b_us:.3f} us (mean over the launches' shapes), {b_us / us:.1%} of it",
+              flush=True)
+        if kind in entries:
+            entries[kind].setdefault("served_us", {})[name] = us
+            entries[kind].setdefault("served_bound_us", {})[name] = b_us
+    report["served_us"] = served
+    report["device_events_per_forward"] = report["device_events"] / cut_tokens
+    print(f"  {report['device_events_per_forward']:.1f} device kernels and copies per "
+          f"forward, {report['host_launches'] / cut_tokens:.1f} cudaLaunchKernel calls",
+          flush=True)
+    out["profile"] = report
+
+    # one MoE layer's device time by part, on its served prefill and decode input
+    xs = []
+    fn = moe_mod.moe_ffn_local
+
+    def keep_input(p, xf, c):
+        if len(xs) < 1 or (len(xs) < 2 and xf.shape[0] != xs[0].shape[0]):
+            xs.append(xf.clone())
+        return fn(p, xf, c)
+
+    moe_mod.moe_ffn_local = keep_input
+    try:
+        serve_lib.generate(model, params, batch, 2, P + T)
+    finally:
+        moe_mod.moe_ffn_local = fn
+    out["split"] = {}
+    for xf in xs:
+        s = moe_split(params, cfg, xf)
+        out["split"][f"T{s['T']}"] = s
+        print(f"  MoE layer at T {s['T']} (C {s['C']}), device ms: router "
+              f"{s['router']:.4f}, dispatch {s['dispatch']:.4f}, experts "
+              f"{s['experts']:.4f}, combine {s['combine']:.4f}; the layer "
+              f"{s['layer']:.4f}", flush=True)
+    if not full:
+        return out
+
+    # dense == paged where the reference promises it: prompts of one page
+    # (a dense prefill runs 256-row KV tiles, a paged one 16-row pages), the
+    # same batch on both, so the same routing
+    one_page = {"tokens": batch["tokens"][:, :PAGE]}
+    dense = serve_lib.generate(model, params, one_page, 32, PAGE + 32)
+    with plain_calls() as n_plain:
+        paged = serve_lib.generate(model, params, one_page, 32, PAGE + 32,
+                                   continuous_batching=True, page_size=PAGE)
+    check(not n_plain, f"{name} paged: no plain-version call ({n_plain})")
+    check(torch.equal(dense, paged), f"{name}: the classic request on prompts of one "
+          f"page ({PAGE} tokens), 32 new tokens: dense == paged token for token")
+    # on the request's own prompts the two prefills take other LUT steps
+    # (ROADMAP §3): printed, not checked
+    paged = serve_lib.generate(model, params, batch, T, P + T, continuous_batching=True,
+                               page_size=PAGE)
+    same = [int((toks[b] != paged[b]).nonzero()[0]) if not torch.equal(toks[b], paged[b])
+            else T for b in range(Bs)]
+    print(f"  the classic request's own {P}-token prompts, dense vs paged: first "
+          f"differing token per row {same} (of {T})", flush=True)
+    out["dense_vs_paged_first_diff"] = same
+
+    # the Scheduler over the first requests of phase 7's trace
+    trace = sched_trace(V)[0][:MOE_TRACE]
+    n_tok = sum(b for _, b in trace)
+    sched = serve_lib.Scheduler(model, params, page_size=PAGE, **SCHED_KW)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    with plain_calls() as n_plain:
+        t0 = time.perf_counter()
+        streams = run_audited(sched, trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    st = sched.stats
+    check(not n_plain, f"{name} Scheduler: no plain-version call ({n_plain})")
+    check(all(len(s) == b for s, (_, b) in zip(streams, trace))
+          and all(0 <= t < V for s in streams for t in s),
+          f"{name} Scheduler: every request got its budget of in-vocabulary tokens")
+    check(len(sched.free_pages) == sched.num_pages - 1,
+          f"{name} Scheduler: every page returned to the free list (audit() clean "
+          "after every step)")
+    check(launches.get("pim_matmul_experts", 0) == last * st["model_steps"],
+          f"{name} Scheduler: {last} expert launches per forward")
+    print(f"  Scheduler, {MOE_TRACE} requests of phase 7's trace (prompts "
+          f"{[len(p) for p, _ in trace]}, {n_tok} tokens): {wall:.2f} s, "
+          f"{n_tok / wall:.1f} tokens/s, {wall / st['steps'] * 1e3:.1f} ms per step "
+          f"({st['steps']} steps, {st['model_steps']} forwards), peak pages "
+          f"{sched.peak_pages_in_use}, launches {launches}", flush=True)
+    out["scheduler"] = dict(wall_s=wall, tokens_per_s=n_tok / wall, steps=st["steps"],
+                            model_steps=st["model_steps"], launches=launches,
+                            peak_pages_in_use=sched.peak_pages_in_use)
+    del sched
+
+    # one prefill forward at the paper's fidelity: every linear through the
+    # 6-bit ADC (kernel 3, the experts in its expert launch), behavioral
+    # attention (kernel 4)
+    pcfg = dataclasses.replace(cfg, attn_impl="behavioral",
+                               pim=dataclasses.replace(cfg.pim, adc_mode="quantized"))
+    pmodel = build_model(pcfg, dev)
+    _build.LAUNCHES.clear()
+    with plain_calls() as n_plain, expert_launches(
+            lambda i: "prefill w_out of the last MoE layer" if i == w_out else None
+    ) as (_, kept):
+        t0 = time.perf_counter()
+        logits, _ = pmodel.forward_serve(params, {"tokens": batch["tokens"].to(dev)},
+                                         pmodel.init_cache(Bs, P + T), 0)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    dense_linears = 4 * L + 3 * cfg.num_dense_layers
+    check(not n_plain, f"{name} paper fidelity: no plain-version call ({n_plain})")
+    check(tuple(logits.shape) == (Bs, V) and bool(torch.isfinite(logits).all()),
+          f"{name} paper fidelity: prefill logits finite, ({Bs}, {V})")
+    check(launches.get("pim_matmul_experts") == last
+          and launches.get("pim_matmul") == dense_linears
+          and launches.get("lut_softmax") == L,
+          f"{name} paper fidelity: launches {launches}: {last} expert launches, "
+          f"{dense_linears} single products, {L} LUT softmaxes")
+    replay_experts(f"{name} paper fidelity", kept,
+                   {"prefill w_out of the last MoE layer": C_pre})
+    print(f"  paper fidelity: one prefill forward {fwd_s * 1e3:.1f} ms, launches "
+          f"{launches}", flush=True)
+    out["paper_fidelity"] = dict(forward_ms=fwd_s * 1e3, launches=launches)
+    return out
+
+
+def moe_phase(dev, entries, compare, results) -> None:
+    """Phase 14: kernel 3's expert launch, deepseek-moe-16b at full width
+    and depth, dbrx-132b's first DBRX_LAYERS layers at full width."""
+    stamp("phase 14 (a): kernel 3's expert launch")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    results["moe_kernels"] = expert_kernels(dev, gen, entries)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moe = {}
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), attn_impl="kernel",
+                              decode_block_k=PAGE)
+    moe["deepseek"] = moe_model(cfg, entries, compare, full=True)
+    dcfg = dataclasses.replace(get_config("dbrx-132b"), num_layers=DBRX_LAYERS,
+                               attn_impl="kernel", decode_block_k=PAGE)
+    moe["dbrx"] = moe_model(dcfg, entries, compare, full=False)
+    results["moe"] = moe
 
 
 def small_model(dev, scheduler: bool) -> None:

@@ -1,11 +1,21 @@
 """Architecture registry of the port: the archs whose serving path is ported."""
-from repro_torch.configs import internlm2_1_8b
+from repro_torch.configs import (
+    dbrx_132b,
+    deepseek_moe_16b,
+    internlm2_1_8b,
+    mistral_large_123b,
+    qwen2_72b,
+)
 from repro_torch.configs.base import (  # noqa: F401
     LUTSoftmaxConfig, ModelConfig, MoEConfig, PIMConfig,
 )
 
 _MODULES = {
+    "mistral-large-123b": mistral_large_123b,
     "internlm2-1.8b": internlm2_1_8b,
+    "qwen2-72b": qwen2_72b,
+    "deepseek-moe-16b": deepseek_moe_16b,
+    "dbrx-132b": dbrx_132b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -10,6 +10,13 @@ product the JAX package leaves to XLA: an int32 matmul on the CPU, cuBLAS's
 int8 GEMM (`torch._int_mm`) on the GPU.  The quantized ADC mode goes through
 `kernels/pim_matmul.py`: the CUDA kernel for CUDA tensors, its plain version
 for CPU tensors.
+
+Stacked expert weights, (E, K, N) against (E, M, K) activations, are the
+MoE layer's experts, each its own engine with its own per-channel scales
+(the reference vmaps the linear over them).  On the GPU both ADC modes run
+them through kernel 3's expert launch, one launch for the stack (cuBLAS's
+int8 GEMM has no batch axis); on the CPU the ideal mode is a batched int32
+product and the quantized one kernel 3's plain version.
 """
 from __future__ import annotations
 
@@ -40,9 +47,14 @@ def pim_matmul_int(x_q: torch.Tensor, w_q: torch.Tensor,
                    cfg: PIMConfig) -> torch.Tensor:
     """Integer-domain macro-tiled matmul: (..., K) int8 x (K, N) int8 ->
     (..., N) float32 on the accumulation grid (int32-exact in ideal mode,
-    ADC-grid values in quantized mode)."""
+    ADC-grid values in quantized mode); a stack of experts, (E, M, K) x
+    (E, K, N) -> (E, M, N)."""
     K = x_q.shape[-1]
-    assert w_q.shape[0] == K, (x_q.shape, w_q.shape)
+    assert w_q.shape[-2] == K, (x_q.shape, w_q.shape)
+    if w_q.dim() == 3:
+        if cfg.adc_mode == "ideal" and not x_q.is_cuda:
+            return torch.bmm(x_q.to(torch.int32), w_q.to(torch.int32)).float()
+        return _adc_matmul(x_q, w_q, cfg)
     lead = x_q.shape[:-1]
     N = w_q.shape[-1]
     if cfg.adc_mode == "ideal":

@@ -1,5 +1,7 @@
 // Macro-tiled PIM matmul on Hopper (sm_90a): (M, K) int8 x (K, N) int8 ->
-// (M, N) float32 on the accumulation grid.
+// (M, N) float32 on the accumulation grid, or a stack of E such products,
+// (E, M, K) x (E, K, N) -> (E, M, N), in one launch (the experts of a MoE
+// layer, each its own weight-stationary engine).
 //
 // Replaces the TPU kernel `repro/kernels/pim_matmul.py::pim_matmul_int_pallas`
 // (body `_pim_matmul_kernel`, ADC `_adc`).  Ideal mode: the exact int32 dot,
@@ -45,6 +47,13 @@
 //   __threadfence) adds the other splits, four loads in flight at a time,
 //   converts and resets the counter to 0 for the next launch.  Any order of
 //   int32 additions is exact, so the result is that of one CTA.
+// * An expert axis.  grid.z holds E x splits CTAs per output tile: expert
+//   blockIdx.z / splits, split blockIdx.z % splits.  Each CTA moves its
+//   operand and output pointers to its expert's slice and is otherwise the
+//   CTA of a single product, so a stacked launch computes exactly what E
+//   launches compute.  A split launch's partial sums and tile counters are
+//   indexed by (expert, tile); the wrapper splits only grids of at most
+//   one output tile (over all experts) per SM, so its counters suffice.
 // * A division-free exact ADC.  code(p) is monotone in the integer partial
 //   sum p, and |p| <= 16 * 128 * 128 = 2^18.  So it is fixed by the
 //   thresholds T[c] = min{p : code(p) >= c}, c = lo + 1 .. hi, which the
@@ -89,6 +98,7 @@ struct Operand {
   const int8_t* ptr;
   long ld_row;  // bytes between rows (the non-K axis)
   long ld_k;    // bytes between K positions (1: K-contiguous)
+  long ld_e;    // bytes between experts
   int rows;
   int vec;      // ld_k == 1 and every row 16-byte aligned: cp.async
 };
@@ -153,7 +163,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 pim_matmul_kernel(Operand P, Operand Q, float* __restrict__ out,
                   int* __restrict__ part, int* __restrict__ counters,
                   const float* __restrict__ table, int n_table, Adc adc,
-                  long sp, long sq, int K, int k_split, float step) {
+                  long sp, long sq, long so, int K, int splits, int k_split,
+                  float step) {
   static_assert(WP * WQ * 32 == kThreads, "eight warps");
   constexpr int MT = BP / WP / 16, NT = BQ / WQ / 8;
   static_assert(MT * WP * 16 == BP && NT * WQ * 8 == BQ, "warp tiling");
@@ -167,7 +178,12 @@ pim_matmul_kernel(Operand P, Operand Q, float* __restrict__ out,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wp = warp / WQ, wq = warp % WQ;
   const int p0 = blockIdx.x * BP, q0 = blockIdx.y * BQ;
-  const int k_begin = blockIdx.z * k_split;
+  // this CTA's expert and split: the operands and output of that expert
+  const int expert = blockIdx.z / splits, z = blockIdx.z % splits;
+  P.ptr += expert * P.ld_e;
+  Q.ptr += expert * Q.ld_e;
+  out += expert * so;
+  const int k_begin = z * k_split;
   const int k_end = min(K, k_begin + k_split);
   const int nk = (k_end - k_begin + kBK - 1) / kBK;
 
@@ -314,16 +330,17 @@ pim_matmul_kernel(Operand P, Operand Q, float* __restrict__ out,
     return QUANT ? __fmul_rn(f, step) : f;
   };
 
-  if (gridDim.z == 1) {
+  if (splits == 1) {
     each([&](int v, long o) { out[o] = finish(v); });
     return;
   }
-  const int splits = gridDim.z, z = blockIdx.z;
+  // this expert's (splits, M, N) partial sums and its tiles' counters
   const long plane = static_cast<long>(P.rows) * Q.rows;
+  part += static_cast<long>(expert) * splits * plane;
   each([&](int v, long o) { part[z * plane + o] = v; });
   __threadfence();
   __syncthreads();
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int tile = (expert * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
   if (tid == 0) s_last = atomicAdd(counters + tile, 1) == splits - 1;
   __syncthreads();
   if (!s_last) return;
@@ -348,7 +365,8 @@ template <int BP, int BQ, int WP, int WQ, int STAGES, bool QUANT>
 cudaError_t launch(dim3 grid, cudaStream_t s, const Operand& P,
                    const Operand& Q, float* out, int* part, int* counters,
                    const float* table, int n_table, const Adc& adc, long sp,
-                   long sq, int K, int k_split, float step) {
+                   long sq, long so, int K, int splits, int k_split,
+                   float step) {
   constexpr int smem = STAGES * (BP + BQ) * kRS;
   auto kern = pim_matmul_kernel<BP, BQ, WP, WQ, STAGES, QUANT>;
   static cudaError_t attr = cudaFuncSetAttribute(
@@ -357,7 +375,7 @@ cudaError_t launch(dim3 grid, cudaStream_t s, const Operand& P,
   grid.x = (P.rows + BP - 1) / BP;
   grid.y = (Q.rows + BQ - 1) / BQ;
   kern<<<grid, kThreads, smem, s>>>(P, Q, out, part, counters, table, n_table,
-                                    adc, sp, sq, K, k_split, step);
+                                    adc, sp, sq, so, K, splits, k_split, step);
   return cudaGetLastError();
 }
 
@@ -365,49 +383,55 @@ template <bool QUANT>
 cudaError_t dispatch(int m, int n, dim3 grid, cudaStream_t s,
                      const Operand& x, const Operand& w, float* out,
                      int* part, int* counters, const float* table,
-                     int n_table, const Adc& adc, int K, int k_split,
-                     float step) {
+                     int n_table, const Adc& adc, int K, int splits,
+                     int k_split, float step) {
   // M <= 16: the weights are the A operand (rows n), the tokens the B
   // operand, and out[m, n] = C[n][m]
+  const long so = static_cast<long>(m) * n;
   if (m <= 8)
     return launch<128, 8, 8, 1, 6, QUANT>(grid, s, w, x, out, part, counters,
-                                          table, n_table, adc, 1, n, K,
-                                          k_split, step);
+                                          table, n_table, adc, 1, n, so, K,
+                                          splits, k_split, step);
   if (m <= 16)
     return launch<128, 16, 8, 1, 6, QUANT>(grid, s, w, x, out, part,
                                            counters, table, n_table, adc, 1,
-                                           n, K, k_split, step);
+                                           n, so, K, splits, k_split, step);
   return launch<64, 128, 2, 4, 4, QUANT>(grid, s, x, w, out, part, counters,
-                                         table, n_table, adc, n, 1, K,
-                                         k_split, step);
+                                         table, n_table, adc, n, 1, so, K,
+                                         splits, k_split, step);
 }
 
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
-// x is (m, k) with rows `ldx` bytes apart; w[k, n] is at w + k * ldk + n * ldn.
-// vec_x / vec_w: the operand is K-contiguous and every row 16-byte aligned.
-// `splits` > 1 needs `part`, (splits, m, n) int32 scratch, and `counters`,
-// one zeroed int32 per output tile (left zeroed); K rows
+// `experts` products in one launch: expert e's x is (m, k) at x + e * x_e
+// with rows `ldx` bytes apart, its w[k, n] at w + e * w_e + k * ldk +
+// n * ldn, and its output the (m, n) plane e of `out`, (experts, m, n).
+// vec_x / vec_w: the operand is K-contiguous and every row of every expert
+// 16-byte aligned.  `splits` > 1 needs `part`, (experts, splits, m, n)
+// int32 scratch, and `counters`, one zeroed int32 per output tile of every
+// expert (left zeroed); K rows
 // [s * k_split, (s + 1) * k_split) belong to split s, k_split % 64 == 0.
 // Quantized mode reads the `n_table` (<= 256) thresholds of `table` and the
 // constants a, b, w, c of the division-free ADC (see the header).
 extern "C" int pim_matmul_launch(const void* x, const void* w, void* out,
                                  void* part, void* counters,
-                                 const void* table, int n_table, int m,
-                                 int n, int k, long ldx, long ldk, long ldn,
+                                 const void* table, int n_table,
+                                 int experts, int m, int n, int k, long ldx,
+                                 long ldk, long ldn, long x_e, long w_e,
                                  int vec_x, int vec_w, int splits,
                                  int k_split, int quantized, float step,
                                  float a, float b, float wscale, float c,
                                  void* stream) {
-  if (k_split % kBK != 0 || splits < 1 ||
+  if (k_split % kBK != 0 || splits < 1 || experts < 1 ||
+      static_cast<long>(experts) * splits > 65535 ||
       (splits > 1 && (part == nullptr || counters == nullptr)) ||
       (quantized && (table == nullptr || n_table < 1 || n_table > kMaxTable)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Operand xo{static_cast<const int8_t*>(x), ldx, 1, m, vec_x};
-  const Operand wo{static_cast<const int8_t*>(w), ldn, ldk, n, vec_w};
+  const Operand xo{static_cast<const int8_t*>(x), ldx, 1, x_e, m, vec_x};
+  const Operand wo{static_cast<const int8_t*>(w), ldn, ldk, w_e, n, vec_w};
   const Adc adc{a, b, wscale, c};
-  const dim3 grid(1, 1, splits);
+  const dim3 grid(1, 1, experts * splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* op = static_cast<float*>(out);
   int* pp = static_cast<int*>(part);
@@ -415,8 +439,8 @@ extern "C" int pim_matmul_launch(const void* x, const void* w, void* out,
   const float* tp = static_cast<const float*>(table);
   const cudaError_t err =
       quantized ? dispatch<true>(m, n, grid, s, xo, wo, op, pp, cp, tp,
-                                 n_table, adc, k, k_split, step)
+                                 n_table, adc, k, splits, k_split, step)
                 : dispatch<false>(m, n, grid, s, xo, wo, op, pp, cp, tp,
-                                  n_table, adc, k, k_split, step);
+                                  n_table, adc, k, splits, k_split, step);
   return static_cast<int>(err);
 }

@@ -7,6 +7,9 @@ says what it computes, what bounds it on the card and how.
 
 `pim_matmul_int` launches the kernel for CUDA tensors and runs
 `pim_matmul_int_plain` for CPU tensors, never one in place of the other.
+Both take one product, (M, K) x (K, N), or a stack of E of them, (E, M, K)
+x (E, K, N) -> (E, M, N): the experts of a MoE layer in one launch, each
+computed exactly as its own (M, K) x (K, N) call.
 Both sum the ADC codes of the 16-row groups as integers and multiply by the
 ADC step once, so they agree bit for bit at every K; the reference's float32
 sum of code * step equals theirs wherever that sum is exact.
@@ -24,7 +27,7 @@ from repro_torch.kernels import _build
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
-    "pim_matmul_launch": [_P] * 6 + [_I] * 4 + [_L] * 3 + [_I] * 5 + [_F] * 5
+    "pim_matmul_launch": [_P] * 6 + [_I] * 5 + [_L] * 5 + [_I] * 5 + [_F] * 5
                          + [_P],
 }
 _BN, _BK = 128, 64         # N rows of an output tile; K rows of a stage
@@ -35,9 +38,10 @@ _PLAIN_CHUNK = 1 << 26
 
 
 def _check(x_q: torch.Tensor, w_q: torch.Tensor) -> None:
-    if x_q.dim() != 2 or w_q.dim() != 2 or x_q.shape[1] != w_q.shape[0]:
-        raise ValueError(f"pim_matmul takes (M, K) x (K, N), got "
-                         f"{tuple(x_q.shape)} x {tuple(w_q.shape)}")
+    if (x_q.dim() not in (2, 3) or w_q.dim() != x_q.dim()
+            or x_q.shape[-1] != w_q.shape[-2] or x_q.shape[:-2] != w_q.shape[:-2]):
+        raise ValueError(f"pim_matmul takes (M, K) x (K, N) or (E, M, K) x "
+                         f"(E, K, N), got {tuple(x_q.shape)} x {tuple(w_q.shape)}")
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise ValueError("pim_matmul takes int8 operands")
     if x_q.device != w_q.device:
@@ -48,7 +52,9 @@ def pim_matmul_int(x_q: torch.Tensor, w_q: torch.Tensor,
                    cfg: PIMConfig = PIMConfig()) -> torch.Tensor:
     """(M, K) int8 x (K, N) int8 -> (M, N) float32 on the accumulation grid:
     exact int32 sums (ideal) or summed ADC codes times the step (quantized).
-    `w_q` is read as stored, at its offset and strides (one of them 1)."""
+    With a leading expert axis, (E, M, K) x (E, K, N) -> (E, M, N) in one
+    launch.  `w_q` is read as stored, at its offset and strides (one of its
+    last two strides 1)."""
     _check(x_q, w_q)
     if x_q.is_cuda:
         return _launch(x_q, w_q, cfg)
@@ -63,23 +69,35 @@ def pim_matmul_int_plain(x_q: torch.Tensor, w_q: torch.Tensor,
     products are float64, exact for every int8 dot (|sum| < 2^53): CUDA has
     no integer matmul."""
     _check(x_q, w_q)
-    M, K = x_q.shape
-    N = w_q.shape[1]
+    if x_q.dim() == 2:
+        return _plain_stack(x_q[None], w_q[None], cfg)[0]
+    return _plain_stack(x_q, w_q, cfg)
+
+
+def _plain_stack(x_q: torch.Tensor, w_q: torch.Tensor,
+                 cfg: PIMConfig) -> torch.Tensor:
+    """(E, M, K) x (E, K, N), expert by expert: an expert's word-line
+    groups through batched products, a chunk of groups at a time."""
+    E, M, K = x_q.shape
+    N = w_q.shape[-1]
     if cfg.adc_mode == "ideal":
-        return (x_q.double() @ w_q.double()).float()
+        return torch.bmm(x_q.double(), w_q.double()).float()
     g = cfg.wordline_group
     pad = (-K) % g
     f = torch.nn.functional
     G = (K + pad) // g
-    xg = f.pad(x_q, (0, pad)).view(M, G, g).transpose(0, 1).double()
-    wg = f.pad(w_q.t(), (0, pad)).t().reshape(G, g, N).double()
-    codes = torch.zeros((M, N), dtype=torch.int32, device=x_q.device)
+    # (E * G, M, g) and (E * G, g, N): one (expert, word-line group) a row
+    xg = f.pad(x_q, (0, pad)).view(E, M, G, g).transpose(1, 2).reshape(E * G, M, g)
+    wg = f.pad(w_q.transpose(1, 2), (0, pad)).transpose(1, 2).reshape(E * G, g, N)
+    codes = torch.zeros((E, M, N), dtype=torch.int32, device=x_q.device)
     per = max(1, _PLAIN_CHUNK // max(1, M * N))
-    for lo in range(0, G, per):
-        # (groups, M, N) partial sums, one per word-line group
-        psum = torch.bmm(xg[lo:lo + per], wg[lo:lo + per])
-        code = quant.adc_code(psum, cfg.adc_bits, quant.adc_full_range(cfg))
-        codes += code.to(torch.int32).sum(dim=0, dtype=torch.int32)
+    for e in range(E):
+        for lo in range(e * G, (e + 1) * G, per):
+            hi = min(lo + per, (e + 1) * G)
+            # (groups, M, N) partial sums, one per word-line group
+            psum = torch.bmm(xg[lo:hi].double(), wg[lo:hi].double())
+            code = quant.adc_code(psum, cfg.adc_bits, quant.adc_full_range(cfg))
+            codes[e] += code.to(torch.int32).sum(dim=0, dtype=torch.int32)
     step = torch.full((), quant.adc_step(cfg), device=x_q.device)
     return codes.float() * step
 
@@ -96,11 +114,12 @@ def tile_m(M: int) -> int:
     return 8 if M <= 8 else 16 if M <= 16 else 64
 
 
-def split_k(M: int, N: int, K: int, sms: int):
+def split_k(M: int, N: int, K: int, sms: int, experts: int = 1):
     """(splits, K rows per split): K is cut into 64-row-aligned ranges of
     at least 256 rows until the grid has about two CTAs per SM (decode's few
-    rows, and prefill at small N, leave few output tiles)."""
-    tiles = -(-N // _BN) * -(-M // tile_m(M))
+    rows, and prefill at small N, leave few output tiles).  The tiles of
+    every expert count: a split grid has at most one tile per SM."""
+    tiles = experts * -(-N // _BN) * -(-M // tile_m(M))
     want = max(1, min(2 * sms // tiles, -(-K // (4 * _BK))))
     k_split = -(-(-(-K // want)) // _BK) * _BK
     return -(-K // k_split), k_split
@@ -205,7 +224,8 @@ def _device_table(cfg: PIMConfig, dev: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _tile_counters(dev: torch.device) -> torch.Tensor:
     """A zeroed int32 per output tile of a split launch, which the kernel
-    leaves zeroed (`split_k` splits only grids of at most one tile per SM).
+    leaves zeroed (`split_k` splits only grids of at most one tile per SM,
+    the tiles of every expert counted).
     Launches on one stream at a time share them."""
     return torch.zeros(_sm_count(dev.index or 0), dtype=torch.int32, device=dev)
 
@@ -215,19 +235,23 @@ def _lib():
 
 
 def _launch(x_q: torch.Tensor, w_q: torch.Tensor, cfg: PIMConfig):
-    M, K = x_q.shape
-    N = w_q.shape[1]
+    stacked = x_q.dim() == 3
+    if not stacked:
+        x_q, w_q = x_q[None], w_q[None]
+    E, M, K = x_q.shape
+    N = w_q.shape[-1]
     dev = x_q.device
     if cfg.wordline_group != 16:
         raise ValueError("the kernel's ADC groups are 16 rows "
                          f"(wordline_group={cfg.wordline_group})")
-    ldk, ldn = w_q.stride()
+    w_e, ldk, ldn = w_q.stride()
     if not (ldk == 1 and (ldn >= K or N == 1)) and ldn != 1:
-        raise ValueError(f"w_q strides {w_q.stride()}: one of them must be 1")
+        raise ValueError(f"w_q strides {w_q.stride()}: one of the last two "
+                         "must be 1")
     x_q = x_q.contiguous()
     vec_x = int(K % 16 == 0 and x_q.data_ptr() % 16 == 0)
     vec_w = int(ldk == 1 and (ldn % 16 == 0 or N == 1)
-                and w_q.data_ptr() % 16 == 0)
+                and (E == 1 or w_e % 16 == 0) and w_q.data_ptr() % 16 == 0)
     quantized = cfg.adc_mode == "quantized"
     table, consts = None, (0.0,) * 4
     if quantized:
@@ -235,18 +259,19 @@ def _launch(x_q: torch.Tensor, w_q: torch.Tensor, cfg: PIMConfig):
             raise ValueError(f"the kernel's ADC takes at most 8 bits ({cfg.adc_bits})")
         consts = adc_table(cfg)[1]
         table = _device_table(cfg, dev)
-    splits, k_split = split_k(M, N, K, _sm_count(dev.index or 0))
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    splits, k_split = split_k(M, N, K, _sm_count(dev.index or 0), E)
+    out = torch.empty((E, M, N), dtype=torch.float32, device=dev)
     part = counters = None
     if splits > 1:
-        part = torch.empty((splits, M, N), dtype=torch.int32, device=dev)
+        part = torch.empty((E, splits, M, N), dtype=torch.int32, device=dev)
         counters = _tile_counters(dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _lib().pim_matmul_launch(
         x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(), ptr(part),
         ptr(counters), ptr(table), 0 if table is None else table.shape[0],
-        M, N, K, K, ldk, ldn, vec_x, vec_w, splits, k_split, int(quantized),
-        quant.adc_step(cfg), *consts, torch.cuda.current_stream(dev).cuda_stream)
+        E, M, N, K, K, ldk, ldn, M * K, w_e, vec_x, vec_w, splits, k_split,
+        int(quantized), quant.adc_step(cfg), *consts,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "pim_matmul launch")
-    _build.LAUNCHES["pim_matmul"] += 1
-    return out
+    _build.LAUNCHES["pim_matmul_experts" if stacked else "pim_matmul"] += 1
+    return out if stacked else out[0]

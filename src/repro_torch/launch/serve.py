@@ -4,6 +4,10 @@ KV cache, greedy by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
       --attn-impl kernel --batch 4 --prompt-len 128 --new-tokens 32
 
+`--arch` takes every arch of `repro_torch.configs.ARCH_NAMES`: the attention
+stacks internlm2-1.8b, qwen2-72b and mistral-large-123b and the MoE stacks
+deepseek-moe-16b and dbrx-132b (`--smoke` for their small variants).
+
 `--continuous-batching` serves the batch through the slot scheduler
 (`--max-batch-slots`, retirement at `--eos-id`); `--page-size N` puts the
 slots on the paged KV pool of `--num-pages` pages, where
@@ -198,6 +202,9 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    # float32 products stay float32 on the card (a MoE router's top-k
+    # equals the reference's only without TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)

@@ -1,4 +1,5 @@
-"""The serve-path attention block (`attn` kind).
+"""The serve-path attention block (`attn` kind, and `moe`: the same block
+with a Mixture-of-Experts FFN in place of the MLP).
 
 Counterpart of the attention half of the JAX package's `models/blocks.py`
 on three storages: the classic dense cache (scalar offset), ragged dense
@@ -18,6 +19,7 @@ from repro_torch.core import attention as A
 from repro_torch.core import pim
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 def _qkv(params, x: torch.Tensor, cfg: ModelConfig, pos_ids: torch.Tensor):
@@ -31,6 +33,15 @@ def _qkv(params, x: torch.Tensor, cfg: ModelConfig, pos_ids: torch.Tensor):
         q = L.rope_apply(q, pos_ids, cfg.rope_theta)
         k = L.rope_apply(k, pos_ids, cfg.rope_theta)
     return q, k, v
+
+
+def _ffn(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The block's FFN: the MoE layer where the block carries "moe", else
+    the MLP.  The reference also returns the MoE load-balance aux term,
+    which only training reads; serving drops it."""
+    if "moe" in params:
+        return M.moe_ffn_apply(params["moe"], x, cfg)
+    return L.mlp_apply(params["mlp"], x, cfg)
 
 
 def _serve_attend(q, cache: A.KVCache, offset, cfg: ModelConfig,
@@ -169,4 +180,4 @@ def attn_block_fwd_serve(params, x: torch.Tensor, cache, offset,
                              cfg.pim, cfg.pim_linears)
     x = x + o
     h = L.norm_apply(params["norm2"], x, cfg.norm)
-    return x + L.mlp_apply(params["mlp"], h, cfg)
+    return x + _ffn(params, h, cfg)

@@ -1,15 +1,20 @@
-"""Model assembly for attention stacks: parameter init, the serve cache and
-the serve forward.
+"""Model assembly for attention and MoE stacks: parameter init, the serve
+cache and the serve forward.
 
 Counterpart of the JAX package's `models/transformer.py` for serving
-attention stacks: the classic dense cache, ragged slots and the paged pool.
-Parameters keep the reference's tree: `"blocks"` is a tuple with one stack
-per block-pattern position, each leaf carrying a leading layer-repetition
-axis.  The reference scans over that axis; here it is a Python loop over
-layer views.
+attention and MoE stacks: the classic dense cache, ragged slots and the
+paged pool.  Parameters keep the reference's tree: `"blocks"` is a tuple
+with one stack per block-pattern position, each leaf carrying a leading
+layer-repetition axis; `"tail"` holds the unrolled remainder and, for a MoE
+arch with dense leading layers (deepseek-moe), `"dense_prefix"` those
+layers, which run first.  The reference scans over the layer axis; here it
+is a Python loop over layer views.  Cache trees carry the same keys;
+leaves under "blocks" have the layer axis first (batch or page axis 1),
+those under "tail" and "dense_prefix" do not (axis 0).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -19,15 +24,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as A
 from repro_torch.models import blocks
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense attention stacks; anything else raises."""
+    """The port serves attention and MoE stacks; anything else raises."""
     unsupported = []
-    if set(cfg.block_pattern) != {"attn"}:
+    if not set(cfg.block_pattern) <= {"attn", "moe"}:
         unsupported.append(f"block kinds {sorted(set(cfg.block_pattern))}")
-    if cfg.moe.num_experts:
-        unsupported.append("MoE")
+    if "moe" in cfg.block_pattern and not cfg.moe.num_experts:
+        unsupported.append("a moe block without experts")
     if cfg.window:
         unsupported.append("windowed (ring) caches")
     if cfg.is_encoder_decoder or cfg.num_image_patches:
@@ -40,8 +46,9 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def pattern_layout(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
-    """(pattern, repetitions, tail_kinds): num_layers = R * len(pattern)
-    (stacked) + len(tail) (unrolled remainder)."""
+    """(pattern, repetitions, tail_kinds): num_layers = num_dense_layers
+    (a MoE arch's dense prefix) + R * len(pattern) (stacked) + len(tail)
+    (unrolled remainder)."""
     pat = cfg.block_pattern
     n = cfg.num_layers
     if cfg.num_dense_layers and "moe" in pat:
@@ -52,19 +59,32 @@ def pattern_layout(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, Tuple[str, .
     return pat, R, tail
 
 
-def _attn_block_init(normal, zeros, ones, cfg: ModelConfig, lead):
+def _moe_kind_for_layer(cfg: ModelConfig, kind: str, layer_idx: int) -> str:
+    """deepseek-moe keeps the first `num_dense_layers` layers dense."""
+    if kind == "moe" and layer_idx < cfg.num_dense_layers:
+        return "attn"
+    return kind
+
+
+def _block_init(kind: str, normal, ones, linear, expert_linear,
+                cfg: ModelConfig, lead):
+    """One attention block, or a stack of them (`lead` the layer axis):
+    `kind` "moe" carries a MoE FFN in place of the MLP.  The FFN is drawn
+    before the attention, as every earlier slice drew it (the weights of a
+    seed stay those of earlier runs)."""
     d, dh, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
 
     def lin(d_in, d_out, bias=False):
-        p = {"w": normal(lead + (d_in, d_out), 1.0 / d_in ** 0.5)}
-        if bias:
-            p["b"] = zeros(lead + (d_out,))
-        return p
+        return linear(lead, d_in, d_out, 1.0 / d_in ** 0.5, bias)
 
-    mlp = {"w_in": lin(d, f), "w_out": lin(f, d)}
-    if cfg.activation in ("swiglu", "geglu"):
-        mlp = {"w_gate": lin(d, f), **mlp}
+    if kind == "moe":
+        ffn = {"moe": M.moe_ffn_init(normal, cfg, lead, expert_linear)}
+    else:
+        mlp = {"w_in": lin(d, f), "w_out": lin(f, d)}
+        if cfg.activation in ("swiglu", "geglu"):
+            mlp = {"w_gate": lin(d, f), **mlp}
+        ffn = {"mlp": mlp}
     return {
         "norm1": {"scale": ones(lead + (d,))},
         "attn": {"wq": lin(d, nq * dh, cfg.qkv_bias),
@@ -72,35 +92,47 @@ def _attn_block_init(normal, zeros, ones, cfg: ModelConfig, lead):
                  "wv": lin(d, nkv * dh, cfg.qkv_bias),
                  "wo": lin(nq * dh, d)},
         "norm2": {"scale": ones(lead + (d,))},
-        "mlp": mlp,
+        **ffn,
     }
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device) -> Dict[str, Any]:
-    """Random fp parameters in the reference's tree, drawn on `device`
-    from `generator` (which must live on that device)."""
+                device, expert_linear=None) -> Dict[str, Any]:
+    """Random parameters in the reference's tree, drawn on `device` from
+    `generator` (which must live on that device).  Every linear is an fp
+    {"w"} drawn whole, N(0, scale^2), with zero biases, but a stack of
+    experts (a `lead` of layer and expert axes), which
+    `expert_linear(lead, d_in, d_out, scale)` makes when it is given."""
     check_supported(cfg)
     pat, R, tail = pattern_layout(cfg)
 
     def normal(shape, scale):
         return torch.randn(shape, generator=generator, device=device) * scale
 
-    def zeros(shape):
-        return torch.zeros(shape, device=device)
-
     def ones(shape):
         return torch.ones(shape, device=device)
 
+    def fp_linear(lead, d_in, d_out, scale, bias=False):
+        p = {"w": normal(lead + (d_in, d_out), scale)}
+        if bias:
+            p["b"] = torch.zeros(lead + (d_out,), device=device)
+        return p
+
+    blk = functools.partial(_block_init, normal=normal, ones=ones,
+                            linear=fp_linear,
+                            expert_linear=expert_linear or fp_linear, cfg=cfg)
     params: Dict[str, Any] = {
         "embed": {"table": normal((cfg.vocab_size, cfg.d_model), 0.02)}}
     if not cfg.tie_embeddings:
         params["unembed"] = {
             "table": normal((cfg.vocab_size, cfg.d_model), 0.02)}
-    params["blocks"] = tuple(_attn_block_init(normal, zeros, ones, cfg, (R,))
-                             for _ in pat)
-    params["tail"] = tuple(_attn_block_init(normal, zeros, ones, cfg, ())
-                           for _ in tail)
+    params["blocks"] = tuple(blk(kind, lead=(R,)) for kind in pat)
+    params["tail"] = tuple(
+        blk(_moe_kind_for_layer(cfg, kind, R * len(pat) + i), lead=())
+        for i, kind in enumerate(tail))
+    if cfg.num_dense_layers and "moe" in pat:
+        params["dense_prefix"] = tuple(
+            blk("attn", lead=()) for _ in range(cfg.num_dense_layers))
     params["final_norm"] = {"scale": ones((cfg.d_model,))}
     return params
 
@@ -120,14 +152,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
         mk = dict(num_pages=num_pages, page_size=page_size,
                   n_kv=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
                   kv_bits=cfg.kv_bits, device=device)
-        return {"blocks": tuple(A.init_paged_kv_cache(layers=R, **mk)
-                                for _ in pat),
-                "tail": tuple(A.init_paged_kv_cache(**mk) for _ in tail)}
-    mk = dict(batch=batch, max_len=max_len, n_kv=cfg.num_kv_heads,
-              head_dim=cfg.resolved_head_dim, kv_bits=cfg.kv_bits,
-              device=device, ragged=ragged)
-    return {"blocks": tuple(A.init_kv_cache(layers=R, **mk) for _ in pat),
-            "tail": tuple(A.init_kv_cache(**mk) for _ in tail)}
+        one = functools.partial(A.init_paged_kv_cache, **mk)
+    else:
+        one = functools.partial(
+            A.init_kv_cache, batch=batch, max_len=max_len,
+            n_kv=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+            kv_bits=cfg.kv_bits, device=device, ragged=ragged)
+    cache = {"blocks": tuple(one(layers=R) for _ in pat),
+             "tail": tuple(one() for _ in tail)}
+    if "moe" in pat and cfg.num_dense_layers:
+        cache["dense_prefix"] = tuple(one() for _ in range(cfg.num_dense_layers))
+    return cache
+
+
+def _layer_axis(key: str) -> int:
+    """1 for the stacked leaves under "blocks" (their layer axis first),
+    0 under "tail" and "dense_prefix"."""
+    return 1 if key == "blocks" else 0
+
+
+def _caches(cache):
+    """Every layer's cache record, in the order the forward runs them."""
+    return (cache.get("dense_prefix", ()) + cache["blocks"] + cache["tail"])
 
 
 def cache_scatter(big, sub, slots: torch.Tensor):
@@ -137,7 +183,7 @@ def cache_scatter(big, sub, slots: torch.Tensor):
     per-slot lengths follow.  A slot's bytes up to its length are then those
     of the reference's whole-row scatter (what lies past it is never read).
     `slots` is an (n,) int64 device tensor."""
-    for b, s in zip(big["blocks"] + big["tail"], sub["blocks"] + sub["tail"]):
+    for b, s in zip(_caches(big), _caches(sub)):
         ax = b.k_q.dim() - 4                  # 1 with the stacked layer axis
         L = s.k_q.shape[ax + 2]
         for f in ("k_q", "v_q", "k_scale", "v_scale"):
@@ -151,18 +197,19 @@ def cache_copy_pages(cache, src, dst):
     """Copy pages `src[i]` -> `dst[i]` in every layer's paged pool, in
     place: a slot's table row names the same page ids in every layer, so
     one copy-on-write decision applies to the whole stack.  Pools under
-    "blocks" carry the layer axis (page axis 1), "tail" pools do not."""
-    for key, axis in (("blocks", 1), ("tail", 0)):
-        for pool in cache[key]:
-            A.copy_pages(pool, src, dst, page_axis=axis)
+    "blocks" carry the layer axis (page axis 1), "tail" and "dense_prefix"
+    pools do not."""
+    for key, pools in cache.items():
+        for pool in pools:
+            A.copy_pages(pool, src, dst, page_axis=_layer_axis(key))
     return cache
 
 
 def cache_fetch_pages(cache, pages):
     """Gather pages `pages[i]` out of every layer's paged pool: a tree of
     the cache's structure whose pools are replaced by the gathered pages
-    (page axis 1 under "blocks", 0 under "tail") and whose other leaves
-    are None.  One fetch covers the stack, since a slot's table row names
+    (page axis 1 under "blocks", 0 under "tail" and "dense_prefix") and
+    whose other leaves are None.  One fetch covers the stack, since a slot's table row names
     the same pages in every layer."""
     def visit(node, axis):
         if isinstance(node, A.PagedKVCache):
@@ -171,7 +218,7 @@ def cache_fetch_pages(cache, pages):
             return type(node)(visit(v, axis) for v in node)
         return None
 
-    return {k: visit(v, 1 if k == "blocks" else 0) for k, v in cache.items()}
+    return {k: visit(v, _layer_axis(k)) for k, v in cache.items()}
 
 
 def cache_page_checksums(cache, pages):
@@ -194,8 +241,8 @@ def cache_page_checksums(cache, pages):
             for v in node:
                 visit(v, axis)
 
-    for k in sorted(cache):
-        visit(cache[k], 1 if k == "blocks" else 0)
+    for k in sorted(cache):        # blocks, dense_prefix, tail
+        visit(cache[k], _layer_axis(k))
     return crcs
 
 
@@ -211,7 +258,7 @@ def cache_restore_pages(cache, pages, data):
                 visit(v, dv, axis)
 
     for k, v in cache.items():
-        visit(v, data[k], 1 if k == "blocks" else 0)
+        visit(v, data[k], _layer_axis(k))
     return cache
 
 
@@ -245,7 +292,7 @@ def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
     is then (B, P, V), column j of a row equal to the logits of the
     single-token step it replaces.  Every layer reuses the step's offsets,
     lengths and table as they are: callers bring them to the device once
-    per step."""
+    per step.  A MoE arch's dense prefix layers run first."""
     pat, R, tail = pattern_layout(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -253,6 +300,8 @@ def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
     x = L.embed_apply(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
     kw = dict(causal=cfg.causal, seq_lens=seq_lens, pages=pages,
               decode_rows=decode_rows, verify_len=verify_len)
+    for p, c in zip(params.get("dense_prefix", ()), cache.get("dense_prefix", ())):
+        x = blocks.attn_block_fwd_serve(p, x, c, offset, cfg, **kw)
     for r in range(R):
         for j in range(len(pat)):
             x = blocks.attn_block_fwd_serve(
@@ -262,7 +311,7 @@ def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
         x = blocks.attn_block_fwd_serve(params["tail"][i], x,
                                         cache["tail"][i], offset, cfg, **kw)
     if pages is None:
-        for c in cache["blocks"] + cache["tail"]:
+        for c in _caches(cache):
             max_len = c.k_q.shape[-2]
             c.length = offset + S if not ragged else torch.clamp(
                 offset + (S if seq_lens is None else seq_lens), max=max_len

@@ -423,11 +423,14 @@ def ragged_decode(model: Model, params, cache, tok, lengths, active,
     active = active.bool()
     pois = torch.zeros_like(active)
     toks, emitted = [], []
+    V = model.cfg.vocab_size
     for t in range(chunk):
         act = active.int()
+        # an idle row's token -1 embeds row V - 1, as the reference's
+        # indexing takes it: a MoE step routes every row, idle ones too
         logits, cache = model.forward_serve(
-            params, {"tokens": torch.clamp(tok, min=0)[:, None]}, cache,
-            lengths, seq_lens=act, pages=pt)
+            params, {"tokens": torch.where(tok < 0, tok + V, tok)[:, None]},
+            cache, lengths, seq_lens=act, pages=pt)
         if t == 0:
             logits = _poisoned(logits, poison)
         fin = torch.isfinite(logits).all(dim=-1)
