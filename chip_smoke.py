@@ -20,7 +20,13 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    launches), a q_len-0 row and 4-bit KV; iteration
    maps against the analytic count; and decode at the served request's
    own shape (a 160-token cache holding 129..159 tokens, one partial
-   partition), with verify rows and 4-bit KV there too.  Times kernel,
+   partition), with verify rows and 4-bit KV there too.  At head_dim 256
+   (gemma-7b's 16/16 heads and recurrentgemma-9b's 16/1): kernel 1 causal
+   at Sq 512, windowed (window 128 at Sq 512; window 2048 at Sq 2304,
+   16/1) and 4-bit; kernel 2 at kv_len 4096 with and without a window of
+   2048, verify rows (Sq 4 and 5, bit-identical to single steps) and
+   4-bit; iteration maps against the analytic count; each timed shape
+   beside its bound and bf16 SDPA.  Times kernel,
    plain version and, as a yardstick only, bf16
    `scaled_dot_product_attention` at the same shapes: device time from
    torch.profiler, and the wall time of back-to-back calls beside it.  A
@@ -32,7 +38,10 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    4-bit KV, with iteration maps equal, and paged == dense bit for bit at
    block_k == page size.  Times the paged mode at the shapes timed in
    phase 2 (one pim_decode_kernel per decode call), at int8 and over 4-bit
-   pages.
+   pages.  Then at head_dim 256 (16/16 and 16/1 heads): decode, verify
+   rows and a ragged prefill chunk over 16-token pages, int8 and 4-bit,
+   against the plain versions and, bit for bit, against dense at block_k
+   16.
 4. Checks the kernel path of a small model against the plain path on the CPU.
 5. Runs the continuous-batching Scheduler on the card at that small width
    (float32, kernel path): dense slots, the paged pool and classic greedy
@@ -191,6 +200,27 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    dbrx-132b's first 4 of 40 layers at full width (48 q heads over 8 KV
    heads, 16 experts top-4): the request's prefill and 8 decode tokens,
    replayed, profiled and split as in (b).
+15. The Griffin family at published widths and full depth, random
+   weights from seed 0, bf16, int8 KV, the kernel path at the ideal ADC,
+   decode_block_k 16.  gemma-7b (28 layers, d_model 3,072, 16/16 heads of
+   256, GeGLU d_ff 24,576, vocab 256,000, tied): the classic request
+   (28 kernel-1 and 31 x 28 kernel-2 launches, no plain-version call,
+   served launches replayed), its 8-token cut profiled, dense == paged on
+   one-page prompts, 8 requests of phase 7's trace through the paged
+   Scheduler with every page back, a paper-fidelity request (prompt 128,
+   4 new tokens: kernel 3 in every linear, kernel 4 at head_dim 256).
+   recurrentgemma-9b (26 RG-LRU and 12 local-attention layers, lru_width
+   4,096, 16 q heads over 1 KV head of 256, window 2,048): (a) batch 2,
+   prompts of 2,304 tokens, 32 new tokens, over rings of 2,048 slots: 12
+   windowed kernel-1 launches in the prefill (the iteration map skips the
+   blocks before the window), 12 kernel-4 launches and no kernel 2 a
+   decode forward, a served ring-decode kernel-4 launch replayed bit for
+   bit, the cut profiled; (c) the reference's prefill / prefill + one
+   ring-decode identity at full width within rel 0.05 (behavioral path;
+   the kernel path's value printed); (b) the classic request at max_len
+   160 (no ring: kernel 2 with the window at q_per_kv 16), profiled; the
+   device time of an RG-LRU layer and a ring-attention layer at prefill
+   and decode; a paper-fidelity request.
 Phases 10-12 first run a row probe: RMSNorm, the bf16 unembed, the
 top-k / top-p truncation, its softmax and the Gumbel arg-max must give a
 row the same bits alone and among other rows (up to 40 = 8 slots x 5
@@ -253,7 +283,7 @@ F32_OPS = 67e12
 REL_TOL = 1e-5
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
 # what a phase needs run first: kernel entries (2, 8) or the small model (4)
 NEEDS = {3: {2}, 5: {4}, 6: {2}, 7: {2}, 9: {8}}
 
@@ -263,6 +293,12 @@ class CheckFailed(SystemExit):
 
 
 T0 = time.perf_counter()
+# s of idle host time before and after the profiled calls, by attempt: late
+# in the script the profiler dropped some or all device events of short
+# sessions, and a retry gives the session more room at its edges
+PROFILE_PADS = (0.0, 0.05, 0.2, 0.5)
+# the measurements that no padded profile saw, timed with CUDA events instead
+EVENT_TIMED = []
 
 
 def stamp(what: str) -> None:
@@ -355,18 +391,55 @@ def kernel_us(times: dict, kernel: str):
     return sum(us for us, _ in hits), sum(n for _, n in hits)
 
 
-def profiled(fn, iters: int, check_reader: bool = False) -> dict:
-    """`device_us` of `iters` calls of `fn`, after one warm-up call (with
+def profiled(fn, iters: int, check_reader: bool = False, pad_s: float = 0.0) -> dict:
+    """`device_us` of `iters` calls of `fn`, after one warm-up call, with
+    `pad_s` idle before and after the calls inside the session (with
     `check_reader`, the raw reader held against `key_averages()`)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        time.sleep(pad_s)
     if check_reader:
         check_raw_reader(prof)
     return raw_device_us(prof)[0]
+
+
+def profiled_until(fn, iters: int, seen, what: str):
+    """`profiled(fn, iters)` once `seen(times)` holds, the session padded
+    more at each attempt (`PROFILE_PADS`); None if no attempt saw it."""
+    for pad in PROFILE_PADS:
+        times = profiled(fn, iters, pad_s=pad)
+        if seen(times):
+            return times
+        print(f"  profiler ({pad} s idle at the edges) missed {what}: profiling again",
+              flush=True)
+    return None
+
+
+def event_timed(fn, iters: int, what: str) -> float:
+    """ms per call of `fn` from CUDA events, for a measurement that no
+    padded profile saw (kept in `EVENT_TIMED`): the wall of back-to-back
+    calls, launch gaps and every kernel of a call included."""
+    ms = cuda_ms(fn, iters)
+    EVENT_TIMED.append(what)
+    print(f"  {what}: no profile saw it; {ms:.4f} ms per call from CUDA events",
+          flush=True)
+    return ms
+
+
+def device_ms(fn, iters: int, what: str = "a call's device work") -> float:
+    """Summed device ms per call of `iters` calls of `fn`, profiled again
+    (`profiled_until`) while the profiler drops every event of a session,
+    or `event_timed` where no padded profile saw one."""
+    times = profiled_until(fn, iters, lambda t: per_call_ms(t, iters) > 0,
+                           f"every device event of {what}")
+    if times is None:
+        return event_timed(fn, iters, what)
+    return per_call_ms(times, iters)
 
 
 def others(times: dict, kernel: str) -> dict:
@@ -437,17 +510,20 @@ def profile_report(prof, wall_s: float, prof_s: float, label: str,
 def profiled_report(prepare, run, label: str, wall_s: float,
                     kernel_names=ATTENTION_KERNELS, tries: int = 3) -> dict:
     """`profile_report` of `run(prepare())` under torch.profiler (only the
-    run is timed and profiled), profiled again, up to `tries` times, while
-    the profiler drops some of its kernels' events."""
-    for attempt in range(1, tries + 1):
+    run is timed and profiled), profiled again, up to `tries` times and
+    padded as `profiled_until` pads, while the profiler drops some of its
+    kernels' events."""
+    for attempt, pad in enumerate(PROFILE_PADS[:tries], 1):
         state = prepare()
         torch.cuda.synchronize()
         _build.LAUNCHES.clear()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             t0 = time.perf_counter()
             run(state)
             torch.cuda.synchronize()
             prof_s = time.perf_counter() - t0
+            time.sleep(pad)
         try:
             return profile_report(prof, wall_s, prof_s, label, dict(_build.LAUNCHES),
                                   kernel_names, last=attempt == tries)
@@ -488,10 +564,11 @@ def kv_token_bytes(cfg) -> int:
 def decode_bound(kv_lens, q_lens, Sq: int, cfg):
     """(ms, limit) of one pim_decode call at a served shape: the K/V codes
     (at the cache's precision) and f32 scales of the rows that each slot
-    with a query attends to, read once, q, its scales and the f32 output,
-    against the pairs it scores."""
+    with a query attends to (at most `cfg.window` of them), read once, q,
+    its scales and the f32 output, against the pairs it scores."""
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    live = [(kv, ql) for kv, ql in zip(kv_lens, q_lens) if ql > 0]
+    W = cfg.window or 1 << 62     # a windowed arch's layers all attend in the window
+    live = [(min(kv, W), ql) for kv, ql in zip(kv_lens, q_lens) if ql > 0]
     nbytes = (sum(kv for kv, _ in live) * Hkv * kv_token_bytes(cfg)
               + len(kv_lens) * H * Sq * (Dh + 4 + 4 * Dh))
     return attention_bound(nbytes, sum(H * ql * kv for kv, ql in live), Dh)
@@ -501,12 +578,12 @@ def prefill_bound(offs, kv_lens, q_lens, Sq: int, cfg):
     """(ms, limit) of one pim_attention call at a served shape: bytes as
     `decode_bound`, against the causal pairs of each slot's valid query
     rows (row i at position offs + i sees min(kv_len, offs + i + 1)
-    keys)."""
+    keys, of them the last `cfg.window` in a windowed arch)."""
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     live = [(o, kv, min(ql, Sq)) for o, kv, ql in zip(offs, kv_lens, q_lens) if ql > 0]
     nbytes = (sum(kv for _, kv, _ in live) * Hkv * kv_token_bytes(cfg)
               + len(kv_lens) * H * Sq * (Dh + 4 + 4 * Dh))
-    pairs = sum(int(np.minimum(kv, o + np.arange(ql) + 1).sum()) for o, kv, ql in live)
+    pairs = sum(window_pairs(ql, o, kv, cfg.window) for o, kv, ql in live)
     return attention_bound(nbytes, H * pairs, Dh)
 
 
@@ -2268,13 +2345,13 @@ def softmax_bound(scores: torch.Tensor, mask: torch.Tensor):
 
 def kernel_ms(fn, kernel: str, iters: int = 20) -> float:
     """Device ms per launch of the device kernel `kernel` over `iters` calls
-    of `fn` (torch.profiler; other kernels of the calls left out)."""
-    for _ in range(5):   # the profiler may drop a short kernel's events
-        us, n = kernel_us(profiled(fn, iters), kernel)
-        if n == iters:
-            return us / n / 1e3
-        print(f"  profiler saw {n} of the {iters} {kernel} launches: profiling again")
-    check(False, f"profiler saw the {iters} {kernel} launches ({n})")
+    of `fn` (torch.profiler; other kernels of the calls left out), or
+    `event_timed` where no padded profile saw every launch."""
+    times = profiled_until(fn, iters, lambda t: kernel_us(t, kernel)[1] == iters,
+                           f"some of the {iters} {kernel} launches")
+    if times is None:
+        return event_timed(fn, iters, f"{kernel} launches")
+    return kernel_us(times, kernel)[0] / iters / 1e3
 
 
 L2_FLUSH_BYTES = 64 << 20   # a write of more than the H100's 50 MB L2
@@ -2468,20 +2545,15 @@ def adc_kernels(dev, cfg, gen, entries) -> None:
             xp = F.pad(x, (0, 0, 0, max(0, 32 - M)))       # cuBLAS takes > 16 rows
             t = {}
             for mode, pc in (("quantized", pim_q), ("ideal", pim_i)):
-                for _ in range(5):   # the profiler may drop a short kernel's events
-                    times = profiled(lambda: mm_k.pim_matmul_int(x, w, pc), 20)
-                    _, n = kernel_us(times, "pim_matmul_kernel")
-                    if n == 20:
-                        break
-                    print(f"  profiler saw {n} of the 20 {mode} launches: profiling again")
-                check(n == 20, f"profiler saw the 20 {mode} pim_matmul launches ({n})")
-                t[mode] = per_call_ms(times, 20)
-            t["plain"] = per_call_ms(profiled(lambda: mm_k.pim_matmul_int_plain(x, w, pim_q), 2), 2)
-            for _ in range(5):   # the profiler may drop a session's events
-                t["int_mm"] = per_call_ms(profiled(lambda: torch._int_mm(xp, w), 20), 20)
-                if t["int_mm"] > 0:
-                    break
-            check(t["int_mm"] > 0, "profiler saw the torch._int_mm launches")
+                def call(pc=pc):
+                    return mm_k.pim_matmul_int(x, w, pc)
+                times = profiled_until(
+                    call, 20, lambda t: kernel_us(t, "pim_matmul_kernel")[1] == 20,
+                    f"some of the 20 {mode} pim_matmul launches")
+                t[mode] = (event_timed(call, 20, f"M{M} K{K} N{N} {mode} pim_matmul")
+                           if times is None else per_call_ms(times, 20))
+            t["plain"] = device_ms(lambda: mm_k.pim_matmul_int_plain(x, w, pim_q), 2)
+            t["int_mm"] = device_ms(lambda: torch._int_mm(xp, w), 20)
             b_ms, b_by = matmul_bound(M, K, N, True)
             bi_ms, _ = matmul_bound(M, K, N, False)
             tops = {m: 2 * M * N * K / (t[m] * 1e-3) / 1e12 for m in ("quantized", "ideal")}
@@ -2919,6 +2991,165 @@ def dense_kernels(dev, cfg, gen, operands, compare, bound, entries) -> None:
                     pim_decode(*o, L - n, L, **kwb), pim_decode_plain(*o, L - n, L, **kwb))
 
 
+# ---- 2 and 3 at head_dim 256: gemma-7b's and recurrentgemma-9b's heads ------
+DH256_HEADS = (("16/16 heads (gemma-7b)", (16, 16, 256)),
+               ("16/1 heads (recurrentgemma-9b)", (16, 1, 256)))
+
+
+def window_pairs(Sq: int, offset: int, kv_len: int, window: int) -> int:
+    """Unmasked (query, key) pairs of one head: the query at offset + i sees
+    the keys (q - window, q] below kv_len (window 0: every key up to q)."""
+    q = offset + np.arange(Sq)
+    hi = np.minimum(q + 1, kv_len)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def timed_call(kern, plain, lib, kernel: str, iters: int) -> dict:
+    """Device ms per call of a kernel (its launches all seen), its plain
+    version and a bf16 SDPA yardstick, from torch.profiler (`kernel_ms`,
+    `device_ms`)."""
+    return dict(ms=kernel_ms(kern, kernel, iters), plain_ms=device_ms(plain, 2),
+                library_ms=device_ms(lib, iters))
+
+
+def dense_kernels_256(dev, cfg, gen, operands, compare, entries) -> None:
+    """Phase 2 at head_dim 256: both kernels against their plain versions
+    (iteration maps against the analytic count), verify rows bit-identical
+    to single steps, 4-bit KV, and times beside bounds and bf16 SDPA."""
+    pim_cfg, lut_cfg = cfg.pim, cfg.lut
+    B, Dh = 4, 256
+    kw = dict(pim_cfg=pim_cfg, lut_cfg=lut_cfg, return_iters=True)
+    timed = {}
+    print("kernels vs plain versions at head_dim 256:", flush=True)
+    for what, heads in DH256_HEADS:
+        H, Hkv, _ = heads
+        for Sq, window, time_it in ((512, 0, True), (512, 128, False),
+                                    (2304, 2048, True)):
+            if window == 2048 and Hkv != 1:
+                continue          # recurrentgemma-9b's window at its prompt
+            q, _, opnd = operands(Sq, Sq, Sq, heads=heads)
+            name = f"prefill Dh256 {what} Sq{Sq} window {window}"
+            got = pim_attention(*opnd, 0, Sq, window=window, **kw)
+            compare(name, got, pim_attention_plain(*opnd, 0, Sq, window=window, **kw))
+            exp = expected_kv_block_iters(Sq, Sq, 0, 32, 256, window=window)
+            check(bool((got[1].sum(dim=1) == exp).all()),
+                  f"{name}: iterations per head == expected_kv_block_iters ({exp})")
+            if not time_it:
+                continue
+            qb = q.transpose(1, 2)
+            kf = torch.randn(B, Hkv, Sq, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
+            mask = None
+            if window:
+                pos = torch.arange(Sq, device=dev)
+                mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            t = timed_call(
+                lambda: pim_attention(*opnd, 0, Sq, pim_cfg, lut_cfg, window=window),
+                lambda: pim_attention_plain(*opnd, 0, Sq, pim_cfg, lut_cfg, window=window),
+                lambda: F.scaled_dot_product_attention(
+                    qb, kf, kf, attn_mask=mask, is_causal=mask is None, enable_gqa=True),
+                "pim_attention_kernel", 20)
+            nbytes = sum(x.numel() * x.element_size() for x in opnd) + B * H * Sq * Dh * 4
+            pairs = B * H * window_pairs(Sq, 0, Sq, window)
+            t["bound_ms"], t["bound_by"] = attention_bound(nbytes, pairs, Dh)
+            key = f"prefill {heads[0]}/{heads[1]} Sq{Sq} window {window}"
+            timed[key] = t
+            print(f"  {key}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, sdpa bf16 "
+                  f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']}), "
+                  f"{t['bound_ms'] / t['ms']:.1%} of it", flush=True)
+        _, _, opnd4 = operands(512, 512, 512, kv_bits=4, heads=heads)
+        compare(f"prefill Dh256 {what} kv4 Sq512", pim_attention(*opnd4, 0, 512, **kw),
+                pim_attention_plain(*opnd4, 0, 512, **kw))
+        # decode at kv_len 4096, block_k 256, with and without the window
+        kv = 4096
+        kwd = dict(kw, block_k=256)
+        q, cache, opnd = operands(1, kv, kv, heads=heads)
+        for window in (0, 2048):
+            name = f"decode Dh256 {what} kv_len {kv} window {window}"
+            got = pim_decode(*opnd, kv - 1, kv, window=window, **kwd)
+            compare(name, got, pim_decode_plain(*opnd, kv - 1, kv, window=window, **kwd))
+            exp = expected_kv_block_iters(1, kv, kv - 1, 1, 256, window=window,
+                                          kv_valid_len=kv)
+            check(bool((got[1].sum(dim=1) == exp).all()),
+                  f"{name}: partitions per KV head == expected_kv_block_iters ({exp})")
+            qb = q.transpose(1, 2)
+            kf = torch.randn(B, Hkv, kv, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
+            lo = kv - window if window else 0
+            t = timed_call(
+                lambda: pim_decode(*opnd, kv - 1, kv, pim_cfg, lut_cfg, window=window),
+                lambda: pim_decode_plain(*opnd, kv - 1, kv, pim_cfg, lut_cfg, window=window),
+                lambda: F.scaled_dot_product_attention(qb, kf[:, :, lo:], kf[:, :, lo:],
+                                                       enable_gqa=True),
+                "pim_decode_kernel", 50)
+            keys = kv - lo
+            nbytes = (B * Hkv * keys * (2 * Dh + 8) + B * H * (Dh + 4 + 4 * Dh))
+            t["bound_ms"], t["bound_by"] = attention_bound(nbytes, B * H * keys, Dh)
+            key = f"decode {heads[0]}/{heads[1]} kv_len {kv} window {window}"
+            timed[key] = t
+            print(f"  {key}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, sdpa bf16 "
+                  f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']}), "
+                  f"{t['bound_ms'] / t['ms']:.1%} of it", flush=True)
+        for sq in (4, 5):
+            qv, cache_v, opnd_v = operands(sq, kv, kv, heads=heads)
+            for window in (0, 2048):
+                o_v, it_v = pim_decode(*opnd_v, kv - sq, kv, window=window, **kwd)
+                compare(f"decode Dh256 {what} verify rows Sq{sq} window {window}",
+                        (o_v, it_v),
+                        pim_decode_plain(*opnd_v, kv - sq, kv, window=window, **kwd))
+                same = True
+                for l in range(sq):
+                    o_1 = ops.pim_flash_attention(qv[:, l:l + 1], cache_v, kv - sq + l,
+                                                  pim_cfg, lut_cfg, window=window,
+                                                  out_dtype=torch.float32)
+                    same &= torch.equal(o_v.reshape(B, H, sq, Dh)[:, :, l], o_1[:, 0])
+                check(bool(same), f"Dh256 {what} verify rows Sq{sq} window {window} "
+                      "bit-identical to single-step decodes")
+        _, _, opnd4 = operands(1, kv, kv, kv_bits=4, heads=heads)
+        compare(f"decode Dh256 {what} kv4", pim_decode(*opnd4, kv - 1, kv, **kwd),
+                pim_decode_plain(*opnd4, kv - 1, kv, **kwd))
+    for name, prefix in (("pim_attention", "prefill"), ("pim_decode", "decode")):
+        entries[name]["dh256"] = {k: v for k, v in timed.items() if k.startswith(prefix)}
+
+
+def paged_kernels_256(dev, cfg, gen, compare) -> None:
+    """Phase 3 at head_dim 256: both kernels over 16-token pages against
+    their plain versions, int8 and 4-bit, and paged == dense at block_k ==
+    page size bit for bit."""
+    pim_cfg, lut_cfg = cfg.pim, cfg.lut
+    kw = dict(pim_cfg=pim_cfg, lut_cfg=lut_cfg, return_iters=True)
+    Dh, S = 256, 2048
+    for what, (H, Hkv, _) in DH256_HEADS:
+        for seed, (Sq, kv_bits, window, kern, plain) in enumerate((
+                (1, 8, 0, pim_decode, pim_decode_plain),
+                (4, 8, 0, pim_decode, pim_decode_plain),
+                (1, 4, 0, pim_decode, pim_decode_plain),
+                (128, 8, 0, pim_attention, pim_attention_plain),
+                (128, 4, 0, pim_attention, pim_attention_plain))):
+            lens = [16, 17, 2048, 1000]
+            B = len(lens)
+            lens_d = torch.tensor(lens, dtype=torch.int32, device=dev)
+            q = torch.randn(B, Sq, H, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
+            k = torch.randn(B, S, Hkv, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
+            v = torch.randn(B, S, Hkv, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
+            zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+            dense = A.init_kv_cache(B, S, Hkv, Dh, kv_bits=kv_bits, device=dev, ragged=True)
+            A.cache_write_ragged(dense, k, v, zeros, pim_cfg, seq_lens=lens_d)
+            pt, P = random_table(lens, S // PAGE, 30 + seed, dev)
+            pool = A.init_paged_kv_cache(P, PAGE, Hkv, Dh, kv_bits=kv_bits, device=dev)
+            A.paged_cache_write(pool, k, v, zeros, pim_cfg, pt, seq_lens=lens_d)
+            q_q, qs = ops._q_kernel_layout(q, pim_cfg.input_bits)
+            paged = (q_q, qs, pool.k_q, pool.k_scale, pool.v_q, pool.v_scale)
+            offs, ql = torch.clamp(lens_d - Sq, min=0), torch.clamp(lens_d, max=Sq)
+            name = (f"{'decode' if Sq < 128 else 'prefill'} Dh256 {what} paged Sq{Sq} "
+                    f"kv{kv_bits} lens {lens}")
+            o_k = kern(*paged, offs, lens_d, q_len=ql, page_table=pt, **kw)
+            compare(name, o_k, plain(*paged, offs, lens_d, q_len=ql, page_table=pt, **kw))
+            o_d = kern(*ops.kernel_attention_layout(q, dense, pim_cfg.input_bits), offs,
+                       lens_d, q_len=ql, block_k=PAGE, **kw)
+            check(torch.equal(o_k[0], o_d[0]) and torch.equal(o_k[1], o_d[1]),
+                  f"{name}: paged == dense at block_k {PAGE}, bit for bit")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="", help="also write the results here")
@@ -3000,9 +3231,11 @@ def main(argv=None) -> int:
     if 2 in phases:
         stamp("phase 2")
         dense_kernels(dev, cfg, gen, operands, compare, bound, entries)
+        dense_kernels_256(dev, cfg, gen, operands, compare, entries)
     if 3 in phases:
         stamp("phase 3")
         paged_kernels(dev, cfg, gen, compare, bound, entries)
+        paged_kernels_256(dev, cfg, gen, compare)
     if 8 in phases:
         stamp("phase 8")
         adc_kernels(dev, cfg, gen, entries)
@@ -3012,11 +3245,16 @@ def main(argv=None) -> int:
         serve_phases(dev, cfg, phases, entries, compare, results)
     if 14 in phases:
         moe_phase(dev, entries, compare, results)
+    if 15 in phases:
+        griffin_phase(entries, compare, results)
     stamp(f"phases {sorted(phases)} done: every check passed")
     for name in max_err:
         if name in entries:
             entries[name]["max_abs_err"] = max_err[name]
     results["kernels"] = list(entries.values())
+    results["event_timed"] = EVENT_TIMED
+    print(f"measurements timed with CUDA events, no profile having seen them: "
+          f"{EVENT_TIMED or 'none'}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -3028,7 +3266,7 @@ def main(argv=None) -> int:
              "paged_launches", "dense_sched_launches", "mixed_launches", "verify_launches",
              "kv4_launches", "paged_kv4_ms", "paged_kv4_bound_ms",
              "ideal_ms", "int_mm_ms", "quantized_ms", "quantized_bound_ms",
-             "int_mm_loop_ms")
+             "int_mm_loop_ms", "dh256", "griffin_launches")
     print(json.dumps({"kernels": [{**{k: e.get(k) for k in keys},
                                    **{k: e[k] for k in extra if k in e}}
                                   for e in entries.values()]}))
@@ -3055,18 +3293,6 @@ def expert_bound(E: int, M: int, K: int, N: int, quantized: bool):
     operations (every expert's weights read once)."""
     ms, by = matmul_bound(M, K, N, quantized)
     return E * ms, by
-
-
-def device_ms(fn, iters: int) -> float:
-    """Summed device ms per call of `iters` calls of `fn`, profiled again
-    while the profiler drops every event of a session (it did, late in
-    the script, for short sessions)."""
-    for _ in range(5):
-        ms = per_call_ms(profiled(fn, iters), iters)
-        if ms > 0:
-            return ms
-        print("  profiler saw no device event: profiling again", flush=True)
-    check(False, "profiler saw the device work")
 
 
 def int_mm_rows(x: torch.Tensor) -> torch.Tensor:
@@ -3111,11 +3337,13 @@ def expert_kernels(dev, gen, entries) -> dict:
             del got, plain, singles
         xp = int_mm_rows(x)
         row["int_mm_loop"] = device_ms(
-            lambda: [torch._int_mm(xp[e], w[e]) for e in range(E)], 5)
+            lambda: [torch._int_mm(xp[e], w[e]) for e in range(E)], 5,
+            f"{E} torch._int_mm at M{M} K{K} N{N}")
         if (E, M, K, N) == MOE_HEAD:
             for mode, pc in (("ideal", pim_i), ("quantized", pim_q)):
                 row[f"{mode}_plain"] = device_ms(
-                    lambda: mm_k.pim_matmul_int_plain(x, w, pc), 2)
+                    lambda: mm_k.pim_matmul_int_plain(x, w, pc), 2,
+                    f"the {mode} expert plain version")
         rows.append(row)
         print(f"  {what} E{E} M{M} K{K} N{N}: ideal {row['ideal']:.4f} (bound "
               f"{row['ideal_bound']:.4f}, {row['ideal_bound_by']}, "
@@ -3221,7 +3449,7 @@ def moe_split(params, cfg, xf) -> dict:
              "dispatch": lambda: moe_mod.dispatch(xf, idx, C, E),
              "experts": experts, "combine": combine,
              "layer": lambda: moe_mod.moe_ffn_local(p, xf, cfg)}
-    out = {name: device_ms(fn, 10) for name, fn in parts.items()}
+    out = {name: device_ms(fn, 10, f"the MoE {name}") for name, fn in parts.items()}
     out.update(T=T, C=C)
     return out
 
@@ -3637,6 +3865,411 @@ def serve_classic(model, params, cfg, entries, results) -> None:
         **profiled_report(lambda: None, cut,
                           f"request cut to {PROFILED_TOKENS} new tokens", wall))
     served_attention(entries, "classic request", results["serve"], shapes, cfg)
+
+
+# ---- 15. the Griffin family: gemma-7b and recurrentgemma-9b ------------------
+LONG_PROMPT = 2304   # recurrentgemma-9b's long request: past its 2,048-token window
+GRIFFIN_TRACE = 8    # requests of phase 7's trace through gemma-7b's Scheduler
+
+
+def load_model(cfg, label: str) -> tuple:
+    """(model, params, facts) of `cfg` on the card: random weights from
+    seed 0, deployed; prints the weights' size, the load time and the peak
+    device memory of the load."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [t for t in ckpt_flatten(params) if isinstance(t, torch.Tensor)]
+    weight_gb = sum(t.untyped_storage().nbytes() for t in leaves) / 1e9
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"serve {label}: {cfg.num_layers} layers {cfg.block_pattern}, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} {cfg.activation}, window "
+          f"{cfg.window}, lru_width {cfg.lru_width}, vocab {cfg.vocab_size} (tied "
+          f"{cfg.tie_embeddings}), {cfg.param_count() / 1e9:.3f} B params, "
+          f"{weight_gb:.2f} GB deployed; init+deploy {init_s:.1f} s, peak "
+          f"{peak:.2f} GiB", flush=True)
+    return model, params, dict(init_s=init_s, weight_gb=weight_gb, peak_init_gib=peak)
+
+
+def classic_run(model, params, batch, T: int, max_len: int, label: str, want: dict,
+                pick=None, compare=None) -> tuple:
+    """One classic request with every kernel count set to 0 just before it
+    and read just after: no plain-version call, the counts `want` exactly
+    ({wrapper: launches}, the others 0), in-vocabulary tokens; served
+    launches `pick` labels are replayed against the plain versions.
+    Returns (tokens, launches, wall s)."""
+    V = model.cfg.vocab_size
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    with plain_calls() as n_plain, recorded(pick or (lambda n, i: None)) as kept:
+        t0 = time.perf_counter()
+        toks = serve_lib.generate(model, params, batch, T, max_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    check(not n_plain, f"{label}: no plain-version call on the path ({n_plain})")
+    check(launches == {k: n for k, n in want.items() if n},
+          f"{label}: launches {launches} == {want}")
+    B = batch["tokens"].shape[0]
+    check(tuple(toks.shape) == (B, T) and int(toks.min()) >= 0 and int(toks.max()) < V,
+          f"{label}: served ({B}, {T}) token ids in the vocabulary")
+    if pick is not None:
+        replay_served(label, kept, compare,
+                      need=sorted({n for n, _, _ in kept.values()}))
+    return toks, launches, wall
+
+
+def profile_cut(model, params, batch, T: int, max_len: int, label: str, entries,
+                kernel_names) -> dict:
+    """The request cut to T new tokens, unprofiled then profiled: busy
+    share, per-launch device time of the kernels beside their bounds and
+    the top device operators."""
+    cfg = model.cfg
+
+    def cut(_):
+        serve_lib.generate(model, params, batch, T, max_len)
+
+    @contextlib.contextmanager
+    def recorder():
+        with launch_shapes(cfg) as shapes, adc_bounds() as bounds:
+            yield shapes, bounds
+
+    (shapes, bounds), wall = unprofiled_wall(lambda: None, cut, recorder)
+    report = profiled_report(lambda: None, cut, label, wall, kernel_names)
+    report["served"] = served_attention(entries, label, report, shapes, cfg)
+    if bounds["lut_softmax"]:     # kernel 4 in ring decode
+        us = report["kernels"]["lut_softmax_kernel"]["us_per_launch"]
+        b_us = sum(bounds["lut_softmax"]) / len(bounds["lut_softmax"])
+        report["served"]["lut_softmax"] = (us, b_us)
+        if "lut_softmax" in entries:
+            entries["lut_softmax"].setdefault("served_us", {})[label] = us
+            entries["lut_softmax"].setdefault("served_bound_us", {})[label] = b_us
+        print(f"  kernel 4 on the {label}: {us:.2f} us per launch, bound {b_us:.3f} us "
+              f"(mean over its {len(bounds['lut_softmax'])} calls' operands), "
+              f"{b_us / us:.1%} of it", flush=True)
+    return report
+
+
+def griffin_launches(entries, name: str, what: str, n: int) -> None:
+    """A served path's launches of a kernel beside its entry (where the
+    kernel's entry exists: `--phases 15` alone runs no kernel phase)."""
+    if name in entries:
+        entries[name].setdefault("griffin_launches", {})[what] = n
+
+
+def fidelity_run(cfg, params, batch, label: str, linears: int) -> dict:
+    """One paper-fidelity request (prompt 128, 4 new tokens): every PIM
+    linear through the 6-bit ADC (kernel 3) and behavioral attention,
+    whose LUT softmax is kernel 4 at head_dim 256; `linears` PIM linears
+    a forward, one kernel 4 launch per attention layer and forward."""
+    pcfg = dataclasses.replace(cfg, attn_impl="behavioral",
+                               pim=dataclasses.replace(cfg.pim, adc_mode="quantized"))
+    model = build_model(pcfg)
+    n_attn = sum(k.startswith("attn") for k in
+                 (cfg.block_pattern * cfg.num_layers)[:cfg.num_layers])
+    T, P = 4, batch["tokens"].shape[1]
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    with plain_calls() as n_plain:
+        t0 = time.perf_counter()
+        toks = serve_lib.generate(model, params, batch, T, P + T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    want = {"pim_matmul": linears * T, "lut_softmax": n_attn * T}
+    check(not n_plain, f"{label} paper fidelity: no plain-version call ({n_plain})")
+    check(launches == want, f"{label} paper fidelity: launches {launches} == {want}")
+    check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          f"{label} paper fidelity: tokens in the vocabulary")
+    print(f"  paper fidelity ({label}): prompt {P}, {T} new tokens in {wall:.2f} s, "
+          f"launches {launches}; first sequence {toks[0].tolist()}", flush=True)
+    return dict(wall_s=wall, launches=launches)
+
+
+def gemma_serve(entries, compare) -> dict:
+    """Phase 15, gemma-7b at full width and depth (28 layers, d_model 3,072,
+    16/16 heads of 256, GeGLU d_ff 24,576, vocab 256,000, tied)."""
+    stamp("phase 15: gemma-7b")
+    cfg = dataclasses.replace(get_config("gemma-7b"), attn_impl="kernel",
+                              decode_block_k=PAGE)
+    model, params, out = load_model(cfg, "gemma-7b")
+    L, V = cfg.num_layers, cfg.vocab_size
+    Bs, P, T = 4, 128, 32
+    batch = {"tokens": torch.from_numpy(data.lm_batch(0, Bs, P, V)).long()}
+    serve_lib.generate(model, params, batch, 2, P + T)           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve_lib.generate(model, params, batch, 1, P + T)           # prefill only
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+
+    def pick(name, i):
+        if name == "pim_attention" and i == 0:
+            return "prefill layer 0"
+        if name == "pim_decode" and i == 3 * L - 1:
+            return f"decode forward 4 layer {L - 1}"
+        return None
+
+    toks, launches, wall = classic_run(
+        model, params, batch, T, P + T, "gemma-7b classic request",
+        {"pim_attention": L, "pim_decode": (T - 1) * L}, pick, compare)
+    decode_ms = (wall - prefill_s) / (T - 1) * 1e3
+    print(f"  classic request: prefill {prefill_s * 1e3:.1f} ms, decode {decode_ms:.2f} "
+          f"ms/token, {Bs * T / wall:.1f} tokens/s; launches {launches}; first "
+          f"sequence {toks[0, :12].tolist()}", flush=True)
+    out["classic"] = dict(prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_ms,
+                          tokens_per_s=Bs * T / wall, launches=launches)
+    for name in ("pim_attention", "pim_decode"):
+        griffin_launches(entries, name, "gemma-7b classic", launches[name])
+    out["profile"] = profile_cut(model, params, batch, PROFILED_TOKENS, P + T,
+                                 f"gemma-7b request cut to {PROFILED_TOKENS} new tokens",
+                                 entries, ATTENTION_KERNELS)
+
+    # dense == paged on prompts of one page, where both run the same tiles
+    one_page = {"tokens": batch["tokens"][:, :PAGE]}
+    dense = serve_lib.generate(model, params, one_page, 32, PAGE + 32)
+    with plain_calls() as n_plain:
+        paged = serve_lib.generate(model, params, one_page, 32, PAGE + 32,
+                                   continuous_batching=True, page_size=PAGE)
+    check(not n_plain, f"gemma-7b paged: no plain-version call ({n_plain})")
+    check(torch.equal(dense, paged), f"gemma-7b: prompts of one page ({PAGE} tokens), "
+          "32 new tokens: dense == paged token for token")
+
+    trace = sched_trace(V)[0][:GRIFFIN_TRACE]
+    n_tok = sum(b for _, b in trace)
+    sched = serve_lib.Scheduler(model, params, page_size=PAGE, **SCHED_KW)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    with plain_calls() as n_plain:
+        t0 = time.perf_counter()
+        streams = run_audited(sched, trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    check(not n_plain, f"gemma-7b Scheduler: no plain-version call ({n_plain})")
+    check(all(len(s) == b for s, (_, b) in zip(streams, trace))
+          and all(0 <= t < V for s in streams for t in s),
+          "gemma-7b Scheduler: every request got its budget of in-vocabulary tokens")
+    check(len(sched.free_pages) == sched.num_pages - 1,
+          "gemma-7b Scheduler: every page returned to the free list (audit() clean "
+          "after every step)")
+    check(launches.get("pim_attention", 0) > 0 and launches.get("pim_decode", 0) > 0,
+          f"gemma-7b Scheduler: kernels 1 and 2 launched ({launches})")
+    st = sched.stats
+    print(f"  Scheduler, {GRIFFIN_TRACE} requests of phase 7's trace ({n_tok} tokens): "
+          f"{wall:.2f} s, {n_tok / wall:.1f} tokens/s, {st['steps']} steps, "
+          f"{st['model_steps']} forwards, peak pages {sched.peak_pages_in_use}, "
+          f"launches {launches}", flush=True)
+    out["scheduler"] = dict(wall_s=wall, tokens_per_s=n_tok / wall, steps=st["steps"],
+                            model_steps=st["model_steps"], launches=launches)
+    del sched
+    out["paper_fidelity"] = fidelity_run(cfg, params, batch, "gemma-7b",
+                                         LINEARS_PER_LAYER * L)
+    return out
+
+
+def layer_ms(fn, what: str, iters: int = 5) -> tuple:
+    """(device ms, wall ms) of one call of `fn`: its kernels' summed device
+    time (torch.profiler) and CUDA events around `iters` back-to-back calls,
+    which a host-bound call stretches past its device time."""
+    return device_ms(fn, iters, what), cuda_ms(fn, iters)
+
+
+def griffin_split(model, params, cfg, batch) -> dict:
+    """Device ms (and the wall of back-to-back calls) of one RG-LRU layer
+    and one ring-attention layer of recurrentgemma-9b, at the long
+    request's prefill (its inputs captured from a served prefill) and at a
+    decode step over a full ring."""
+    from repro_torch.models import blocks as TB
+    xs = {}
+    rg, at = TB.rglru_block_fwd_serve, TB.attn_block_fwd_serve
+
+    def keep_rg(p, x, state, c):
+        xs.setdefault(("rglru", x.shape[1]), (p, x.clone(),
+                                              {k: v.clone() for k, v in state.items()}))
+        return rg(p, x, state, c)
+
+    def keep_at(p, x, cache, offset, c, **kw):
+        xs.setdefault(("attn", x.shape[1]), (p, x.clone(), offset, kw))
+        return at(p, x, cache, offset, c, **kw)
+
+    TB.rglru_block_fwd_serve, TB.attn_block_fwd_serve = keep_rg, keep_at
+    try:
+        serve_lib.generate(model, params, batch, 2, LONG_PROMPT + 32)
+    finally:
+        TB.rglru_block_fwd_serve, TB.attn_block_fwd_serve = rg, at
+    out = {}
+    dev = model.device
+    B = batch["tokens"].shape[0]
+    for (kind, S), item in sorted(xs.items()):
+        what = "prefill" if S > 1 else "decode"
+        if kind == "rglru":
+            p, x, state = item
+            ms, wall = layer_ms(lambda: rg(p, x, {k: v.clone() for k, v in state.items()},
+                                           cfg), f"an RG-LRU layer at {what}")
+        else:
+            p, x, offset, kw = item
+            cache = TT._state_init("attn_local", cfg, B, LONG_PROMPT + 32, dev)
+            W = cfg.window         # the ring after the long prompt: slot s holds p = s (mod W)
+            pos = torch.arange(W, device=dev)
+            cache.positions.copy_(torch.where(pos < LONG_PROMPT - W, pos + W, pos))
+            ms, wall = layer_ms(lambda: at(p, x, cache, offset, cfg, **kw),
+                                f"a ring-attention layer at {what}")
+        out[f"{kind} {what}"] = dict(device_ms=ms, wall_ms=wall)
+        print(f"  recurrentgemma-9b {kind} layer at {what} (S {S}, batch {B}): "
+              f"{ms:.3f} ms of device time a layer, {wall:.3f} ms wall back to back",
+              flush=True)
+    return out
+
+
+def recurrentgemma_serve(entries, compare) -> dict:
+    """Phase 15, recurrentgemma-9b at full width and depth (26 RG-LRU and 12
+    local-attention layers, lru_width 4,096, MQA 16 q heads over 1 KV head
+    of 256, window 2,048)."""
+    stamp("phase 15: recurrentgemma-9b")
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), attn_impl="kernel",
+                              decode_block_k=PAGE)
+    model, params, out = load_model(cfg, "recurrentgemma-9b")
+    V, W = cfg.vocab_size, cfg.window
+    n_attn = sum(k == "attn_local" for k in TT.pattern_layout(cfg)[0]) \
+        * TT.pattern_layout(cfg)[1]
+    n_rg = cfg.num_layers - n_attn
+    check((n_attn, n_rg) == (12, 26), f"12 local-attention and 26 RG-LRU layers "
+          f"({n_attn}, {n_rg})")
+    T = 32
+
+    # (a) the long request: prompts past the window, rings of 2,048 slots
+    Bs, P = 2, LONG_PROMPT
+    long_batch = {"tokens": torch.from_numpy(data.lm_batch(1, Bs, P, V)).long()}
+    serve_lib.generate(model, params, long_batch, 2, P + T)       # warm-up
+    cache = model.init_cache(Bs, P + T)
+    ring = cache["blocks"][2]
+    check(ring.positions is not None and ring.k_q.shape[-2] == W,
+          f"recurrentgemma-9b at max_len {P + T}: rings of {W} slots")
+    del cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve_lib.generate(model, params, long_batch, 1, P + T)       # prefill only
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+
+    def pick_long(name, i):
+        return "windowed prefill, first attention layer" if i == 0 else None
+
+    toks, launches, wall = classic_run(
+        model, params, long_batch, T, P + T, "recurrentgemma-9b long request",
+        {"pim_attention": n_attn, "lut_softmax": (T - 1) * n_attn}, pick_long, compare)
+    # the windowed prefill's iteration map: the analytic count with the
+    # window (at 2,304 tokens no 256-row block lies wholly before a 32-row
+    # q block's window, so it equals the causal count; phase 2's window
+    # 128 at Sq 512 skips blocks)
+    torch.cuda.synchronize()
+    with recorded(pick_long) as kept:
+        serve_lib.generate(model, params, long_batch, 1, P + T)
+    (_, args, kw), = kept.values()
+    _, iters = pim_attention(*args, **kw, return_iters=True)
+    exp = expected_kv_block_iters(P, P, 0, 32, 256, window=W)
+    full = expected_kv_block_iters(P, P, 0, 32, 256)
+    check(kw.get("window") == W and bool((iters.sum(dim=1) == exp).all()),
+          f"recurrentgemma-9b prefill: window {kw.get('window')}, iterations per head "
+          f"== expected_kv_block_iters ({exp}; {full} without the window)")
+    decode_ms = (wall - prefill_s) / (T - 1) * 1e3
+    print(f"  long request (batch {Bs}, prompt {P}, {T} new tokens): prefill "
+          f"{prefill_s * 1e3:.1f} ms, decode {decode_ms:.2f} ms/token, "
+          f"{Bs * T / wall:.1f} tokens/s; launches {launches}; first sequence "
+          f"{toks[0, :12].tolist()}", flush=True)
+    out["long"] = dict(prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_ms,
+                       tokens_per_s=Bs * T / wall, launches=launches)
+    griffin_launches(entries, "lut_softmax", "recurrentgemma-9b long, ring decode",
+                     launches["lut_softmax"])
+    griffin_launches(entries, "pim_attention", "recurrentgemma-9b long, windowed prefill",
+                     launches["pim_attention"])
+    # a served ring-decode launch of kernel 4 (its broadcast slot mask read
+    # in place) against the plain version, bit for bit
+    with recorded(lambda n, i: "ring decode, first attention layer" if i == 0 else None,
+                  {"lut_softmax": ADC_TARGETS["lut_softmax"]}) as kept:
+        serve_lib.generate(model, params, long_batch, 2, P + T)
+    replay_adc("recurrentgemma-9b ring decode", kept,
+               {"ring decode, first attention layer": Bs})
+    out["long_profile"] = profile_cut(
+        model, params, long_batch, PROFILED_TOKENS, P + T,
+        f"recurrentgemma-9b long request cut to {PROFILED_TOKENS} new tokens", entries,
+        (("pim_attention_kernel", "pim_attention"), ("lut_softmax_kernel", "lut_softmax")))
+
+    # (c) the reference's own identity (tests/test_models_smoke.py, on its
+    # default behavioral path, at its SMOKE depth of 3 layers: one
+    # repetition of the pattern): token P's logits from one prefill against
+    # a prefill of P - 1 tokens and one ring-decode step, held within 0.05
+    # at full width.  At full depth it is printed, not held: the prefill
+    # folds V scales over every earlier position, the ring over its window
+    # (both the reference's rule), and 38 random layers amplify that; the
+    # reference's own identity at 38 layers is 0.069 in bf16 (SMOKE widths,
+    # a CPU run).  On the kernel path the prefill's online LUT exps meet the
+    # ring decode's behavioral codes: printed
+    dev = model.device
+    toks_d = long_batch["tokens"].to(dev)
+    out["prefill_decode_rel"] = {}
+    for impl, layers in (("behavioral", 3), ("behavioral", cfg.num_layers),
+                         ("kernel", cfg.num_layers)):
+        c, p = cut_depth(cfg, params, layers) if layers < cfg.num_layers else (cfg, params)
+        m = build_model(dataclasses.replace(c, attn_impl=impl))
+        with torch.inference_mode():
+            la, _ = m.forward_serve(p, {"tokens": toks_d}, m.init_cache(Bs, P + T), 0)
+            _, cb = m.forward_serve(p, {"tokens": toks_d[:, :P - 1]},
+                                    m.init_cache(Bs, P + T), 0)
+            lb, _ = m.forward_serve(p, {"tokens": toks_d[:, P - 1:]}, cb, P - 1)
+        a, b = la.float(), lb.float()
+        rel = float(torch.linalg.norm(a - b) / (torch.linalg.norm(a) + 1e-9))
+        out["prefill_decode_rel"][f"{impl} {layers} layers"] = rel
+        what = (f"recurrentgemma-9b, {layers} layers, {impl} attention: token {P}'s "
+                f"logits from one prefill vs a prefill of {P - 1} and one ring-decode "
+                f"step, relative error {rel:.4f}")
+        if impl == "behavioral" and layers == 3:
+            check(bool(torch.isfinite(a).all()) and rel < 0.05, f"{what} < 0.05")
+        else:
+            print(f"  {what}", flush=True)
+        del la, lb, cb
+
+    # (b) the classic request at max_len 160: no ring, kernel 2 with the window
+    Bc, Pc = 4, 128
+    batch = {"tokens": torch.from_numpy(data.lm_batch(0, Bc, Pc, V)).long()}
+    check(model.init_cache(Bc, Pc + T)["blocks"][2].positions is None,
+          "recurrentgemma-9b at max_len 160: no ring")
+
+    def pick_classic(name, i):
+        if name == "pim_decode" and i == 3 * n_attn - 1:
+            return "windowed decode forward 4, last attention layer"
+        return None
+
+    serve_lib.generate(model, params, batch, 2, Pc + T)           # warm-up
+    toks, launches, wall = classic_run(
+        model, params, batch, T, Pc + T, "recurrentgemma-9b classic request",
+        {"pim_attention": n_attn, "pim_decode": (T - 1) * n_attn}, pick_classic, compare)
+    print(f"  classic request (batch {Bc}, prompt {Pc}, {T} new tokens): "
+          f"{Bc * T / wall:.1f} tokens/s, {wall:.2f} s; launches {launches}", flush=True)
+    out["classic"] = dict(tokens_per_s=Bc * T / wall, wall_s=wall, launches=launches)
+    griffin_launches(entries, "pim_decode", "recurrentgemma-9b classic, windowed",
+                     launches["pim_decode"])
+    out["profile"] = profile_cut(model, params, batch, PROFILED_TOKENS, Pc + T,
+                                 f"recurrentgemma-9b request cut to {PROFILED_TOKENS} "
+                                 "new tokens", entries, ATTENTION_KERNELS)
+    out["split"] = griffin_split(model, params, cfg, long_batch)
+    out["paper_fidelity"] = fidelity_run(cfg, params, batch, "recurrentgemma-9b",
+                                         6 * n_rg + LINEARS_PER_LAYER * n_attn)
+    return out
+
+
+def griffin_phase(entries, compare, results) -> None:
+    """Phase 15: gemma-7b and recurrentgemma-9b at full width and depth."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results["griffin"] = {"gemma-7b": gemma_serve(entries, compare)}
+    torch.cuda.empty_cache()
+    results["griffin"]["recurrentgemma-9b"] = recurrentgemma_serve(entries, compare)
 
 
 if __name__ == "__main__":

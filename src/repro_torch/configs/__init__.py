@@ -2,9 +2,11 @@
 from repro_torch.configs import (
     dbrx_132b,
     deepseek_moe_16b,
+    gemma_7b,
     internlm2_1_8b,
     mistral_large_123b,
     qwen2_72b,
+    recurrentgemma_9b,
 )
 from repro_torch.configs.base import (  # noqa: F401
     LUTSoftmaxConfig, ModelConfig, MoEConfig, PIMConfig,
@@ -16,6 +18,8 @@ _MODULES = {
     "qwen2-72b": qwen2_72b,
     "deepseek-moe-16b": deepseek_moe_16b,
     "dbrx-132b": dbrx_132b,
+    "gemma-7b": gemma_7b,
+    "recurrentgemma-9b": recurrentgemma_9b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

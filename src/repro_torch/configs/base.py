@@ -102,22 +102,27 @@ class ModelConfig:
         return self.head_dim if self.head_dim else self.d_model // self.num_heads
 
     def param_count(self) -> int:
-        """Analytic parameter count of an attention or MoE stack (embedding,
-        blocks, head): a MoE layer counts every routed and shared expert and
-        the router, a dense prefix layer its MLP."""
+        """Analytic parameter count (embedding, blocks, head): a MoE layer
+        counts every routed and shared expert and the router, a dense
+        prefix layer its MLP, and an RG-LRU layer, as the reference counts
+        it, its x / gate / out projections, conv and two gate vectors and
+        its MLP (the reference leaves out its (w, w) gate matrices)."""
         d, h = self.d_model, self.resolved_head_dim
         attn = d * h * self.num_heads + 2 * d * h * self.num_kv_heads \
             + h * self.num_heads * d
         mult = 3 if self.activation in ("swiglu", "geglu") else 2
         ffn_dense = mult * d * self.d_ff
-        ffn, dense = ffn_dense, self.num_layers
+        w = self.lru_width or d
+        rglru = 3 * d * w + self.conv1d_width * w + 2 * w + ffn_dense + 2 * d
+        n_rglru = _pattern_kinds(self).count("rglru")
+        ffn, dense = ffn_dense, self.num_layers - n_rglru
         if self.moe.num_experts:
             ffn = (self.moe.num_experts + self.moe.num_shared) * ffn_dense \
                 + d * self.moe.num_experts
             dense = self.num_dense_layers
         total = (dense * (attn + ffn_dense + 2 * d)
-                 + (self.num_layers - dense) * (attn + ffn + 2 * d)
-                 + self.vocab_size * d)
+                 + (self.num_layers - dense - n_rglru) * (attn + ffn + 2 * d)
+                 + n_rglru * rglru + self.vocab_size * d)
         if not self.tie_embeddings:
             total += self.vocab_size * d
         return total

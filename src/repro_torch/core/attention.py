@@ -4,7 +4,7 @@ the behavioral (paper-faithful) PIM attention and the fp baseline.
 Counterpart of the JAX package's `core/attention.py`: the dense cache
 (classic scalar fill or ragged per-slot lengths) and the paged pool with
 its trash page, page copies, the page fetches and restores of a spill,
-and page checksums.  Ring caches belong to a later slice of the port.
+and page checksums; the ring caches of sliding-window layers.
 
 Score: int8 QK^T, requantized to 8-bit score codes.  Softmax: LUT exp and a
 two-phase normalization, in the shifted mode through the LUT softmax kernel
@@ -45,6 +45,10 @@ class KVCache:
     `length` is an int on the classic equal-length path, or a (B,) int32
     device tensor of per-slot fills in ragged (slot) mode, where 0 marks an
     empty slot.
+
+    A ring (sliding-window) cache also carries `positions`, the absolute
+    token position held in each slot (-1: empty), shared by the batch as
+    in the reference; other caches have None there.
     """
 
     k_q: torch.Tensor      # ([R,] B, Hkv, S, Dh * kv_bits // 8) int8
@@ -52,10 +56,12 @@ class KVCache:
     k_scale: torch.Tensor  # ([R,] B, Hkv, S) f32
     v_scale: torch.Tensor  # ([R,] B, Hkv, S) f32
     length: Union[int, torch.Tensor] = 0
+    positions: Optional[torch.Tensor] = None  # ([R,] S) int32, ring only
 
     def layer(self, r: int) -> "KVCache":
         return KVCache(self.k_q[r], self.v_q[r], self.k_scale[r],
-                       self.v_scale[r], self.length)
+                       self.v_scale[r], self.length,
+                       None if self.positions is None else self.positions[r])
 
 
 def packed_head_dim(head_dim: int, kv_bits: int) -> int:
@@ -73,9 +79,10 @@ def cache_kv_bits(stored_dim: int, head_dim: int) -> int:
 
 def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
                   kv_bits: int = 8, device=None, layers=None,
-                  ragged: bool = False) -> KVCache:
-    """Zeroed cache of `max_len` tokens; `layers` adds the stacked axis and
-    `ragged` the (B,) per-slot lengths (all 0: every slot empty)."""
+                  ragged: bool = False, ring: bool = False) -> KVCache:
+    """Zeroed cache of `max_len` tokens; `layers` adds the stacked axis,
+    `ragged` the (B,) per-slot lengths (all 0: every slot empty) and
+    `ring` the slot positions of a ring cache (all -1)."""
     dhp = packed_head_dim(head_dim, kv_bits)
     lead = () if layers is None else (layers,)
     z = dict(device=device)
@@ -85,6 +92,8 @@ def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
         k_scale=torch.zeros(lead + (batch, n_kv, max_len), dtype=torch.float32, **z),
         v_scale=torch.zeros(lead + (batch, n_kv, max_len), dtype=torch.float32, **z),
         length=torch.zeros(batch, dtype=torch.int32, **z) if ragged else 0,
+        positions=torch.full(lead + (max_len,), -1, dtype=torch.int32, **z)
+        if ring else None,
     )
 
 
@@ -287,6 +296,29 @@ def cache_write(cache: KVCache, k: torch.Tensor, v: torch.Tensor, pos: int,
     cache.k_scale[:, :, pos:pos + S] = ks.transpose(1, 2)
     cache.v_scale[:, :, pos:pos + S] = vs.transpose(1, 2)
     cache.length = pos + S
+    return cache
+
+
+def cache_write_ring(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
+                     offset: int, cfg: PIMConfig) -> KVCache:
+    """Ring write of a sliding-window layer, in place: the token at
+    absolute position p lands in slot p mod W (W the cache's length).  Of
+    more than W new tokens only the last W are written (the earlier ones
+    would be overwritten anyway).  `length` becomes offset + S and the
+    slots' positions are recorded.  Ring caches are int8."""
+    W = cache.k_q.shape[2]
+    S = k.shape[1]
+    keep = min(S, W)
+    k, v = k[:, S - keep:], v[:, S - keep:]
+    abs_pos = offset + S - keep + torch.arange(keep, device=k.device)
+    slots = torch.remainder(abs_pos, W)
+    k_q, v_q, ks, vs = quantize_kv(k, v, cfg)
+    cache.k_q[:, :, slots] = k_q.transpose(1, 2)
+    cache.v_q[:, :, slots] = v_q.transpose(1, 2)
+    cache.k_scale[:, :, slots] = ks.transpose(1, 2)
+    cache.v_scale[:, :, slots] = vs.transpose(1, 2)
+    cache.positions[slots] = abs_pos.to(torch.int32)
+    cache.length = offset + S
     return cache
 
 
@@ -528,6 +560,68 @@ def pim_attention(q: torch.Tensor, cache: KVCache, pim_cfg: PIMConfig,
                                       vs_bh, vs_cum, kv_len, pim_cfg, lut_cfg,
                                       causal, window))
     return torch.cat(outs, dim=1).to(out_dtype)
+
+
+def pim_attention_ring(q: torch.Tensor, cache: KVCache, pim_cfg: PIMConfig,
+                       lut_cfg: LUTSoftmaxConfig, q_offset: int, window: int,
+                       out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Paper-faithful quantized attention over a ring (sliding-window)
+    cache: q (B, Sq, H, Dh) at absolute positions q_offset .. + Sq - 1.
+    Slots are masked by their recorded positions, (pos >= 0) & (pos <= q)
+    & (pos > q - window), so causality needs no slot order.  The V scales
+    are folded against their maximum over the valid slots.  Under the
+    ideal ADC the products are GQA-grouped (exact integers, as the
+    reference's head-expanded ones); under the quantized ADC the cache is
+    head-expanded and every contraction goes through the ADC.  The LUT
+    softmax runs kernel 4 (shifted mode) on the broadcast slot mask."""
+    B, Sq, H, Dh = q.shape
+    Hkv = cache.k_q.shape[1]
+    dev = q.device
+    ideal = pim_cfg.adc_mode == "ideal"
+    G = H // Hkv if ideal else 1
+    k_q, v_q = cache.k_q, cache.v_q                        # (B, Hkv, Sk, Dh)
+    ks, vs = cache.k_scale, cache.v_scale                  # (B, Hkv, Sk)
+    if not ideal:
+        k_q, v_q = (torch.repeat_interleave(x, H // Hkv, dim=1)
+                    for x in (k_q, v_q))
+        ks, vs = (torch.repeat_interleave(x, H // Hkv, dim=1)
+                  for x in (ks, vs))
+    Hg = k_q.shape[1]
+    sm_scale = 1.0 / (Dh ** 0.5)
+    q_scale = quant.symmetric_max_scale(q, pim_cfg.input_bits, axis=-1)
+    q_q = quant.quantize(q, q_scale, pim_cfg.input_bits)
+    if ideal:
+        s_int = _int_einsum("bqhgd,bhkd->bhgqk",
+                            q_q.reshape(B, Sq, Hkv, G, Dh), k_q)
+    else:
+        s_int = pim_scores_int(q_q, k_q.transpose(1, 2), pim_cfg)[:, :, None]
+    qs = q_scale[..., 0].float().reshape(B, Sq, Hg, G).permute(0, 2, 3, 1)
+    s_real = (s_int * qs[..., None] * ks[:, :, None, None, :]) * sm_scale
+    qmax = (1 << (lut_cfg.input_bits - 1)) - 1
+    s_codes = torch.clamp(torch.round(s_real / lut_cfg.score_scale),
+                          -qmax - 1, qmax).to(torch.int32)
+    pos = cache.positions[None, :]                         # (1, Sk)
+    q_pos = q_offset + torch.arange(Sq, device=dev)[:, None]
+    mask = (pos >= 0) & (pos <= q_pos) & (pos > q_pos - window)  # (Sq, Sk)
+    mask = mask.expand(s_codes.shape)
+    if lut_cfg.mode == "shifted":
+        codes = _lut_softmax_kernel(s_codes, mask, lut_cfg)
+    else:
+        codes = lut_softmax_codes(s_codes, lut_cfg, mask=mask)
+    p_u8 = probs_to_uint8(codes, lut_cfg)                  # (B,Hg,G,Sq,Sk)
+    valid = (cache.positions >= 0)[None, None]
+    s_fold = torch.clamp_min(torch.where(valid, vs, 0.0).amax(dim=-1,
+                                                              keepdim=True),
+                             1e-8)                         # (B, Hg, 1)
+    p_fold = torch.clamp(torch.round(
+        p_u8.float() * (vs / s_fold)[:, :, None, None, :]), 0, 255)
+    if ideal:
+        o_int = _int_einsum("bhgqk,bhkd->bqhgd", p_fold, v_q)
+    else:
+        o_int = pim_av_int(p_fold[:, :, 0], v_q.transpose(1, 2),
+                           pim_cfg)[:, :, :, None]
+    o = (o_int * s_fold[:, None, :, :, None]) * (2.0 ** -8)
+    return o.reshape(B, Sq, H, Dh).to(out_dtype)
 
 
 def _expand_kv(x: torch.Tensor, q_per_kv: int) -> torch.Tensor:

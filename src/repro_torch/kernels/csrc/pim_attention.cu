@@ -37,6 +37,11 @@
 //   counts are the reference's, written for every head of the CTA.  A q
 //   block past q_len (the idle rows of a ragged wave) writes its zeros and
 //   exits before the set-up.
+// * Head dim 256 (gemma-7b, recurrentgemma-9b): a CTA holds at most 32 rows
+//   (one head's 32-row q block), in 146,064 bytes of shared memory, so one
+//   CTA takes an SM (no register cap from a second one); a group of 16 q
+//   heads over one KV head (recurrentgemma-9b) takes 16 CTAs, each staging
+//   the group's K/V again.
 // * Scores on s8 tensor cores: mma.sync m16n8k32, Q fragments in registers
 //   for the whole CTA, K fragments by ldmatrix from a staged tile; each
 //   warp owns one m16 tile and 8 / (rows / 16) n8 tiles of a 64-row stage.
@@ -178,8 +183,10 @@ __device__ __forceinline__ void stg(float* p, const float (&d)[N]) {
   }
 }
 
+// Two CTAs an SM where two fit (head_dim up to 128); at head_dim 256 a
+// CTA's shared memory leaves room for one, and so its registers may too.
 template <int DH, int R>
-__global__ void __launch_bounds__(pim::kThreads, 2)
+__global__ void __launch_bounds__(pim::kThreads, DH > 128 ? 1 : 2)
 pim_attention_kernel(const Args a) {
   constexpr int MT = R / 16;                 // m16 tiles of the CTA
   constexpr int NT = MT;                     // n8 tiles of a stage per warp
@@ -655,12 +662,15 @@ cudaError_t launch(const Args& a, dim3 grid, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// rows * DH <= 8192: 32 float32 accumulators a thread
 template <int DH>
 cudaError_t by_rows(int rows, const Args& a, dim3 grid, cudaStream_t s) {
   switch (rows) {
     case 16: return launch<DH, 16>(a, grid, s);
     case 32: return launch<DH, 32>(a, grid, s);
-    case 64: return launch<DH, 64>(a, grid, s);
+    case 64:
+      if constexpr (DH <= 128) return launch<DH, 64>(a, grid, s);
+      break;
     case 128:
       if constexpr (DH <= 64) return launch<DH, 128>(a, grid, s);
       break;
@@ -711,6 +721,7 @@ extern "C" int pim_attention_launch(
     case 32: err = by_rows<32>(rows, a, grid, s); break;
     case 64: err = by_rows<64>(rows, a, grid, s); break;
     case 128: err = by_rows<128>(rows, a, grid, s); break;
+    case 256: err = by_rows<256>(rows, a, grid, s); break;
   }
   return static_cast<int>(err);
 }

@@ -42,6 +42,9 @@
 //   (the wrapper sizes chunks from the SM count, for two CTAs an SM); CTA c
 //   takes run c, and a CTA whose run is empty exits after reading the
 //   scalars.
+// * Head dim 256: a CTA over the whole head dim takes 185,488 bytes of
+//   shared memory at 8-row tiles (one CTA an SM, 255 registers allowed);
+//   a small grid's 32-dim slices take 115-128 KB.
 // * Staging: each unit's K stages, then its V stages, 128 rows each, by
 //   16-byte `cp.async.cg` copies into a 3-slot ring, two stages ahead of the
 //   one computed (4-bit KV is decoded to int8 levels by synchronous loads
@@ -208,8 +211,10 @@ __device__ __forceinline__ void v_scaled(float (&x)[DPL], const int8_t* p, float
   }
 }
 
+// Two CTAs an SM where two fit; at head_dim 256 and the whole head dim a
+// CTA (dsplit 1) its shared memory leaves room for one.
 template <int DH, int RT, int DV>
-__global__ void __launch_bounds__(pim::kThreads, 2)
+__global__ void __launch_bounds__(pim::kThreads, DH > 128 && DV == DH ? 1 : 2)
 pim_decode_kernel(const Args a) {
   constexpr int KS = DH / 32;                // k32 steps of the scores
   constexpr int LD = slot_ld(DH);
@@ -814,6 +819,9 @@ extern "C" int pim_decode_launch(
       break;
     case 128:
       err = dsplit == 1 ? by_rows<128, 128>(rt, a, grid, s) : by_rows<128, 32>(rt, a, grid, s);
+      break;
+    case 256:
+      err = dsplit == 1 ? by_rows<256, 256>(rt, a, grid, s) : by_rows<256, 32>(rt, a, grid, s);
       break;
   }
   return static_cast<int>(err);

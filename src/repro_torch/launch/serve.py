@@ -5,8 +5,10 @@ KV cache, greedy by default.
       --attn-impl kernel --batch 4 --prompt-len 128 --new-tokens 32
 
 `--arch` takes every arch of `repro_torch.configs.ARCH_NAMES`: the attention
-stacks internlm2-1.8b, qwen2-72b and mistral-large-123b and the MoE stacks
-deepseek-moe-16b and dbrx-132b (`--smoke` for their small variants).
+stacks internlm2-1.8b, qwen2-72b, mistral-large-123b and gemma-7b, the MoE
+stacks deepseek-moe-16b and dbrx-132b, and the hybrid recurrentgemma-9b
+(RG-LRU and sliding-window attention; the classic path only) (`--smoke`
+for their small variants).
 
 `--continuous-batching` serves the batch through the slot scheduler
 (`--max-batch-slots`, retirement at `--eos-id`); `--page-size N` puts the

@@ -1,8 +1,9 @@
-"""The serve-path attention block (`attn` kind, and `moe`: the same block
-with a Mixture-of-Experts FFN in place of the MLP).
+"""The serve-path blocks: attention (`attn`; `attn_local`, its sliding-
+window form; `moe`, the same block with a Mixture-of-Experts FFN in place
+of the MLP) and Griffin's RG-LRU recurrence (`rglru`).
 
-Counterpart of the attention half of the JAX package's `models/blocks.py`
-on three storages: the classic dense cache (scalar offset), ragged dense
+Counterpart of the attention and RG-LRU blocks of the JAX package's
+`models/blocks.py`; attention on three storages: the classic dense cache (scalar offset), ragged dense
 slots and the paged pool (per-row offsets).  Serve-path attention runs the
 paper's PIM pipeline, either the behavioral two-pass
 (`cfg.attn_impl == "behavioral"`) or the fused kernels (`"kernel"`), and
@@ -119,6 +120,28 @@ def _mixed_attend(q, cache, offset, kv_len, seq_lens, decode_rows,
     return torch.cat([head, o[:, Lv:]], dim=1)
 
 
+def _ring_attend(q, k, v, cache: A.KVCache, offset: int, cfg: ModelConfig,
+                 window: int, causal: bool) -> torch.Tensor:
+    """A sliding-window layer over its ring cache, as the reference serves
+    it.  Prefill (S > 1, from position 0): banded attention over a
+    temporary dense cache of the chunk (on the kernel path kernel 1 with
+    `window`), freed when the layer returns, then a ring write of the
+    chunk's last W tokens.  Decode: the ring write, then
+    `pim_attention_ring` on either attention path."""
+    B, S = k.shape[:2]
+    if S > 1:
+        tmp = A.init_kv_cache(B, S, cfg.num_kv_heads, cfg.resolved_head_dim,
+                              device=k.device)
+        A.cache_write(tmp, k, v, 0, cfg.pim)
+        o = _serve_attend(q, tmp, 0, cfg, window, causal)
+        del tmp
+        A.cache_write_ring(cache, k, v, 0, cfg.pim)
+        return o
+    A.cache_write_ring(cache, k, v, offset, cfg.pim)
+    return A.pim_attention_ring(q, cache, cfg.pim, cfg.lut, offset, window,
+                                out_dtype=getattr(torch, cfg.compute_dtype))
+
+
 def attn_block_fwd_serve(params, x: torch.Tensor, cache, offset,
                          cfg: ModelConfig, window: int = 0,
                          causal: bool = True, seq_lens=None, pages=None,
@@ -142,7 +165,13 @@ def attn_block_fwd_serve(params, x: torch.Tensor, cache, offset,
     through `_mixed_attend`, while the behavioral path's per-row
     arithmetic needs no routing.  `verify_len` > 1 (speculation) widens a
     decode row to up to verify_len tokens, its current token and drafts,
-    all verified through the split-K decode launch in one step."""
+    all verified through the split-K decode launch in one step.
+
+    A sliding-window layer (`window` > 0) whose classic cache is a ring
+    (it carries `positions`) goes through `_ring_attend`; one whose cache
+    holds its whole context attends through the normal branch with the
+    window mask.  Paged and ragged storage have no windows here, as in the
+    reference."""
     mixed = decode_rows is not None and cfg.attn_impl == "kernel"
     B, S, _ = x.shape
     ragged = isinstance(offset, torch.Tensor)
@@ -165,6 +194,8 @@ def attn_block_fwd_serve(params, x: torch.Tensor, cache, offset,
             o = _serve_attend_paged(q, cache, pages, kv_len, offset, cfg,
                                     causal, q_len=seq_lens)
     elif ragged:
+        if cache.positions is not None:
+            raise NotImplementedError("ragged serving has no ring caches")
         A.cache_write_ragged(cache, k, v, offset, cfg.pim, seq_lens)
         if mixed:
             o = _mixed_attend(q, cache, offset, cache.length, seq_lens,
@@ -173,6 +204,8 @@ def attn_block_fwd_serve(params, x: torch.Tensor, cache, offset,
         else:
             o = _serve_attend(q, cache, offset, cfg, window, causal,
                               q_len=seq_lens)
+    elif cache.positions is not None:
+        o = _ring_attend(q, k, v, cache, offset, cfg, window, causal)
     else:
         A.cache_write(cache, k, v, offset, cfg.pim)
         o = _serve_attend(q, cache, offset, cfg, window, causal)
@@ -181,3 +214,97 @@ def attn_block_fwd_serve(params, x: torch.Tensor, cache, offset,
     x = x + o
     h = L.norm_apply(params["norm2"], x, cfg.norm)
     return x + _ffn(params, h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU block (Griffin / recurrentgemma): gated linear recurrence + FFN
+# ---------------------------------------------------------------------------
+_RGLRU_C = 8.0
+
+
+def _rglru_gates(params, u: torch.Tensor):
+    """u: (B, S, w) conv output.  Returns (log_a, b) in float32: Griffin's
+    a_t = sigmoid(Lambda)^(c r_t), c = 8, as log a_t = c r_t log
+    sigmoid(Lambda), and the input b_t = sqrt(1 - a_t^2) (i_t u_t)."""
+    uf = u.float()
+    r = torch.sigmoid(uf @ params["w_rec_gate"])
+    i = torch.sigmoid(uf @ params["w_input_gate"])
+    log_a = _RGLRU_C * r * torch.nn.functional.logsigmoid(params["lambda_p"])
+    a2 = torch.exp(2.0 * log_a)
+    b = torch.sqrt(torch.clamp_min(1.0 - a2, 1e-8)) * (i * uf)
+    return log_a, b
+
+
+def _causal_conv1d(u: torch.Tensor, conv_w: torch.Tensor,
+                   conv_b: torch.Tensor, carry=None):
+    """Depthwise causal conv over (B, S, w) u, with the (B, W - 1, w)
+    history `carry` (None: zeros).  As the reference: the products promote
+    to float32 and are summed from 0, tap by tap, the bias last, then cast
+    to u's dtype; the new carry is the last W - 1 inputs in u's dtype."""
+    W = conv_w.shape[0]
+    B, S, w = u.shape
+    pad = (torch.zeros((B, W - 1, w), dtype=u.dtype, device=u.device)
+           if carry is None else carry.to(u.dtype))
+    ext = torch.cat([pad, u], dim=1)                       # (B, S + W - 1, w)
+    out = 0
+    for i in range(W):
+        out = out + ext[:, i:i + S] * conv_w[i]
+    out = out + conv_b
+    return out.to(u.dtype), (ext[:, S:] if W > 1 else None)
+
+
+def _lru_combine(x, y):
+    (la1, b1), (la2, b2) = x, y
+    return la1 + la2, b1 * torch.exp(la2) + b2
+
+
+def _associative_scan(la: torch.Tensor, b: torch.Tensor):
+    """The inclusive scan of `_lru_combine` over dim 1, by the reference's
+    odd/even recursion (`lax.associative_scan`): log-depth, a few ops a
+    level, and the reference's order of float32 operations."""
+    n = la.shape[1]
+    if n < 2:
+        return la, b
+    odd = _associative_scan(*_lru_combine((la[:, 0:-1:2], b[:, 0:-1:2]),
+                                          (la[:, 1::2], b[:, 1::2])))
+    tail = (la[:, 2::2], b[:, 2::2])
+    if n % 2 == 0:
+        even = _lru_combine((odd[0][:, :-1], odd[1][:, :-1]), tail)
+    else:
+        even = _lru_combine(odd, tail)
+    out = []
+    for x, e, o in zip((la, b), even, odd):
+        y = torch.empty_like(x)
+        y[:, 0::2] = torch.cat([x[:, :1], e], dim=1)
+        y[:, 1::2] = o
+        out.append(y)
+    return tuple(out)
+
+
+def _lru_scan(log_a: torch.Tensor, b: torch.Tensor,
+              h0: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t over dim 1 from the (B, w) state h0."""
+    la, bb = _associative_scan(log_a, b)
+    return bb + torch.exp(la) * h0[:, None]
+
+
+def rglru_block_fwd_serve(params, x: torch.Tensor, state,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """Prefill or decode of one RG-LRU block from its state {"h": (B, w)
+    f32, "conv": (B, W - 1, w) f32}, which is updated in place.  The
+    conv weights and the gates' (w, w) matrices are raw float32 leaves;
+    w_x, w_gate and w_out are PIM linears."""
+    p, en = cfg.pim, cfg.pim_linears
+    h = L.norm_apply(params["norm"], x, cfg.norm)
+    u = pim.pim_linear_apply(params["w_x"], h, p, en)
+    gate = L.gelu(pim.pim_linear_apply(params["w_gate"], h, p, en))
+    u, conv = _causal_conv1d(u, params["conv_w"], params["conv_b"],
+                             carry=state["conv"])
+    log_a, b = _rglru_gates(params, u)
+    hseq = _lru_scan(log_a, b, state["h"])
+    state["h"].copy_(hseq[:, -1])
+    state["conv"].copy_(conv.float())
+    y = pim.pim_linear_apply(params["w_out"], hseq.to(x.dtype) * gate, p, en)
+    x = x + y
+    h = L.norm_apply(params["norm2"], x, cfg.norm)
+    return x + L.mlp_apply(params["mlp"], h, cfg)

@@ -3,6 +3,9 @@ linears).  Counterpart of the JAX package's `models/layers.py`; parameters
 are plain dicts of tensors in the same tree layout."""
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -89,13 +92,38 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor,
     return y.to(x.dtype)
 
 
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """The Python float `v` rounded to `dtype`."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The reference's tanh-form GELU, x * 0.5 * (1 + tanh(sqrt(2 / pi) *
+    (x + 0.044715 * x^3))), op by op with every constant first made a
+    value of x's dtype, as the reference rounds its constants: in bfloat16
+    bit for bit.  torch's fused `gelu(approximate="tanh")` rounds once at
+    its end instead, and differs in about 43% of bf16 outputs.  In float32
+    only tanh itself can differ from the reference's (an ulp).  The
+    constants are host scalars (a scalar operand's product or sum is
+    rounded to x's dtype like a tensor's), so no call copies to the card."""
+    def c(v):
+        return _rounded(v, x.dtype)
+
+    inner = c(_SQRT_2_OVER_PI) * (x + c(0.044715) * x ** 3)
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind in ("silu", "swiglu"):
         # x * 1 / (1 + exp(-x)), each op rounded to x's dtype: the
         # reference's sigmoid, bit for bit in bfloat16
         return x * torch.reciprocal(1 + torch.exp(-x))
     if kind in ("gelu", "geglu"):
-        return torch.nn.functional.gelu(x, approximate="tanh")
+        return gelu(x)
     if kind == "relu_sq":
         return torch.square(torch.relu(x))
     raise ValueError(kind)

@@ -11,7 +11,9 @@ expert stacks (`experts` / `shared`: `w_in`, `w_gate`, `w_out`, (E, D, F)
 arrays in the reference's tree) are deployed the same way, each expert
 with its own int8 codes and per-output-channel scales: bit for bit what
 the reference's vmapped QAT linear computes on every call (its own
-`deploy_tree` leaves them in floating point).
+`deploy_tree` leaves them in floating point).  An RG-LRU block's raw
+float32 leaves (conv taps and bias, the (w, w) gate matrices, lambda) are
+kept as they are: the reference reads them in float32.
 """
 from __future__ import annotations
 
@@ -50,21 +52,25 @@ def _kn_view(w_q: torch.Tensor) -> torch.Tensor:
     return w_q.transpose(-1, -2).contiguous().transpose(-1, -2)
 
 
+def deploy_linear(node, cfg: ModelConfig):
+    """One fp linear {"w"[, "b"]} -> its serving form (int8 codes in the
+    (K, N) view, per-channel scales); deployed linears and the fp linears
+    of a config without PIM linears are kept as they are."""
+    if "w_q" in node or not cfg.pim_linears:
+        return node
+    out = pim.deploy_params(node, cfg.pim, dtype=getattr(torch, cfg.compute_dtype))
+    out["w_q"] = _kn_view(out["w_q"])
+    return out
+
+
 def deploy_tree(params, cfg: ModelConfig):
     """fp parameters -> serving parameters (see the module docstring).
     Already deployed linears ({"w_q", "w_scale"}) are kept as they are."""
     dtype = getattr(torch, cfg.compute_dtype)
 
-    def linear(node):
-        if "w_q" in node or not cfg.pim_linears:
-            return node
-        out = pim.deploy_params(node, cfg.pim, dtype=dtype)
-        out["w_q"] = _kn_view(out["w_q"])
-        return out
-
     def visit(node, key=None):
         if _is_linear(node):
-            return linear(node)
+            return deploy_linear(node, cfg)
         if key in _EXPERT_STACKS:
             # the reference's bare expert arrays become linears
             return {k: visit(v if _is_linear(v) else {"w": v})
@@ -135,7 +141,11 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
         experts = None
         if cfg.pim_linears:
             experts = functools.partial(_drawn_experts, generator, cfg, device)
-        return deploy_tree(T.init_params(generator, cfg, device, experts), cfg)
+        # each linear (a stack of them) is deployed as soon as it is drawn,
+        # so no fp copy of the whole tree is held (gemma-7b's is 34 GB)
+        return deploy_tree(T.init_params(
+            generator, cfg, device, experts,
+            deploy=functools.partial(deploy_linear, cfg=cfg)), cfg)
 
     def init_cache(batch: int, max_len: int, ragged: bool = False,
                    page_size: int = 0, num_pages: int = 0):

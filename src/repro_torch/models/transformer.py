@@ -1,16 +1,18 @@
-"""Model assembly for attention and MoE stacks: parameter init, the serve
-cache and the serve forward.
+"""Model assembly for attention, MoE and hybrid RG-LRU stacks: parameter
+init, the serve state and the serve forward.
 
-Counterpart of the JAX package's `models/transformer.py` for serving
-attention and MoE stacks: the classic dense cache, ragged slots and the
-paged pool.  Parameters keep the reference's tree: `"blocks"` is a tuple
-with one stack per block-pattern position, each leaf carrying a leading
-layer-repetition axis; `"tail"` holds the unrolled remainder and, for a MoE
-arch with dense leading layers (deepseek-moe), `"dense_prefix"` those
-layers, which run first.  The reference scans over the layer axis; here it
-is a Python loop over layer views.  Cache trees carry the same keys;
-leaves under "blocks" have the layer axis first (batch or page axis 1),
-those under "tail" and "dense_prefix" do not (axis 0).
+Counterpart of the JAX package's `models/transformer.py` for serving:
+attention and MoE stacks on the classic dense cache, ragged slots and the
+paged pool; sliding-window attention (`attn_local`, ring caches past the
+window) and RG-LRU blocks on the classic path.  Parameters keep the
+reference's tree: `"blocks"` is a tuple with one stack per block-pattern
+position, each leaf carrying a leading layer-repetition axis; `"tail"`
+holds the unrolled remainder and, for a MoE arch with dense leading layers
+(deepseek-moe), `"dense_prefix"` those layers, which run first.  The
+reference scans over the layer axis; here it is a Python loop over layer
+views.  Serve-state trees carry the same keys; leaves under "blocks" have
+the layer axis first (batch or page axis 1), those under "tail" and
+"dense_prefix" do not (axis 0).
 """
 from __future__ import annotations
 
@@ -27,19 +29,26 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 
 
+SERVED_KINDS = ("attn", "attn_local", "moe", "rglru")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves attention and MoE stacks; anything else raises."""
+    """The port serves attention, sliding-window attention, MoE and RG-LRU
+    stacks; anything else raises, naming the ROADMAP item (§1) that ports
+    it."""
     unsupported = []
-    if not set(cfg.block_pattern) <= {"attn", "moe"}:
-        unsupported.append(f"block kinds {sorted(set(cfg.block_pattern))}")
+    kinds = set(cfg.block_pattern) - set(SERVED_KINDS)
+    if kinds:
+        unsupported.append(f"block kinds {sorted(kinds)} (item 7: xlstm-1.3b's "
+                           "mlstm / slstm, whisper-tiny's xattn / enc_attn)")
     if "moe" in cfg.block_pattern and not cfg.moe.num_experts:
         unsupported.append("a moe block without experts")
-    if cfg.window:
-        unsupported.append("windowed (ring) caches")
-    if cfg.is_encoder_decoder or cfg.num_image_patches:
-        unsupported.append("encoder / image front ends")
+    if cfg.is_encoder_decoder:
+        unsupported.append("an encoder (item 7: whisper-tiny)")
+    if cfg.num_image_patches:
+        unsupported.append("image patches (item 7: phi-3-vision-4.2b)")
     if cfg.pos not in ("rope", "none"):
-        unsupported.append(f"pos={cfg.pos!r}")
+        unsupported.append(f"pos={cfg.pos!r} (item 7: whisper-tiny)")
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: the port does not serve {', '.join(unsupported)} yet")
@@ -68,23 +77,28 @@ def _moe_kind_for_layer(cfg: ModelConfig, kind: str, layer_idx: int) -> str:
 
 def _block_init(kind: str, normal, ones, linear, expert_linear,
                 cfg: ModelConfig, lead):
-    """One attention block, or a stack of them (`lead` the layer axis):
-    `kind` "moe" carries a MoE FFN in place of the MLP.  The FFN is drawn
-    before the attention, as every earlier slice drew it (the weights of a
-    seed stay those of earlier runs)."""
+    """One block, or a stack of them (`lead` the layer axis).  An attention
+    block (`attn`, `attn_local`) carries an MLP, a `moe` one a MoE FFN in
+    its place; the FFN is drawn before the attention, as every earlier
+    slice drew it (the weights of a seed stay those of earlier runs)."""
     d, dh, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
 
     def lin(d_in, d_out, bias=False):
         return linear(lead, d_in, d_out, 1.0 / d_in ** 0.5, bias)
 
+    def mlp():
+        m = {"w_in": lin(d, f), "w_out": lin(f, d)}
+        if cfg.activation in ("swiglu", "geglu"):
+            m = {"w_gate": lin(d, f), **m}
+        return m
+
+    if kind == "rglru":
+        return _rglru_init(normal, ones, lin, mlp, cfg, lead)
     if kind == "moe":
         ffn = {"moe": M.moe_ffn_init(normal, cfg, lead, expert_linear)}
     else:
-        mlp = {"w_in": lin(d, f), "w_out": lin(f, d)}
-        if cfg.activation in ("swiglu", "geglu"):
-            mlp = {"w_gate": lin(d, f), **mlp}
-        ffn = {"mlp": mlp}
+        ffn = {"mlp": mlp()}
     return {
         "norm1": {"scale": ones(lead + (d,))},
         "attn": {"wq": lin(d, nq * dh, cfg.qkv_bias),
@@ -96,13 +110,30 @@ def _block_init(kind: str, normal, ones, linear, expert_linear,
     }
 
 
+def _rglru_init(normal, ones, lin, mlp, cfg: ModelConfig, lead):
+    """An RG-LRU block in the reference's tree: PIM linears w_x, w_gate,
+    w_out; raw float32 conv_w (W, w), conv_b, the gates' (w, w) matrices
+    and lambda_p (sigmoid(4) ~ 0.982)."""
+    d, w = cfg.d_model, cfg.lru_width or cfg.d_model
+    p = {"norm": {"scale": ones(lead + (d,))},
+         "w_x": lin(d, w), "w_gate": lin(d, w),
+         "conv_w": normal(lead + (cfg.conv1d_width, w), 0.1),
+         "conv_b": ones(lead + (w,)).zero_(),
+         "w_input_gate": normal(lead + (w, w), 1.0 / w ** 0.5),
+         "w_rec_gate": normal(lead + (w, w), 1.0 / w ** 0.5),
+         "lambda_p": ones(lead + (w,)) * 4.0,
+         "w_out": lin(w, d)}
+    return {**p, "norm2": {"scale": ones(lead + (d,))}, "mlp": mlp()}
+
+
 def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device, expert_linear=None) -> Dict[str, Any]:
+                device, expert_linear=None, deploy=None) -> Dict[str, Any]:
     """Random parameters in the reference's tree, drawn on `device` from
     `generator` (which must live on that device).  Every linear is an fp
-    {"w"} drawn whole, N(0, scale^2), with zero biases, but a stack of
-    experts (a `lead` of layer and expert axes), which
-    `expert_linear(lead, d_in, d_out, scale)` makes when it is given."""
+    {"w"} drawn whole, N(0, scale^2), with zero biases, and passed through
+    `deploy` when it is given, but a stack of experts (a `lead` of layer
+    and expert axes), which `expert_linear(lead, d_in, d_out, scale)`
+    makes when it is given."""
     check_supported(cfg)
     pat, R, tail = pattern_layout(cfg)
 
@@ -118,9 +149,13 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
             p["b"] = torch.zeros(lead + (d_out,), device=device)
         return p
 
+    def linear(lead, d_in, d_out, scale, bias=False):
+        p = fp_linear(lead, d_in, d_out, scale, bias)
+        return p if deploy is None else deploy(p)
+
     blk = functools.partial(_block_init, normal=normal, ones=ones,
-                            linear=fp_linear,
-                            expert_linear=expert_linear or fp_linear, cfg=cfg)
+                            linear=linear,
+                            expert_linear=expert_linear or linear, cfg=cfg)
     params: Dict[str, Any] = {
         "embed": {"table": normal((cfg.vocab_size, cfg.d_model), 0.02)}}
     if not cfg.tie_embeddings:
@@ -137,10 +172,41 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     return params
 
 
+def _state_init(kind: str, cfg: ModelConfig, batch: int, max_len: int,
+                device, layers=None, ragged: bool = False,
+                page_size: int = 0, num_pages: int = 0):
+    """One layer's serve state, or a stack of them (`layers`): a KV cache
+    (dense, ragged or a paged pool) for an attention kind, {"h", "conv"}
+    for an RG-LRU block.  A sliding-window layer whose context outgrows
+    its window (max_len > window) gets a ring of `window` slots, always
+    int8, as the reference's."""
+    dh = cfg.resolved_head_dim
+    if page_size:
+        if kind not in ("attn", "moe"):
+            raise NotImplementedError(
+                f"paged KV serves attention stacks only (got {kind!r})")
+        return A.init_paged_kv_cache(num_pages, page_size, cfg.num_kv_heads,
+                                     dh, kv_bits=cfg.kv_bits, device=device,
+                                     layers=layers)
+    lead = () if layers is None else (layers,)
+    if kind == "rglru":
+        w = cfg.lru_width or cfg.d_model
+        z = dict(dtype=torch.float32, device=device)
+        return {"h": torch.zeros(lead + (batch, w), **z),
+                "conv": torch.zeros(lead + (batch, cfg.conv1d_width - 1, w), **z)}
+    ring = kind == "attn_local" and bool(cfg.window) and max_len > cfg.window
+    return A.init_kv_cache(batch, min(max_len, cfg.window) if ring else max_len,
+                           cfg.num_kv_heads, dh,
+                           kv_bits=8 if ring else cfg.kv_bits, device=device,
+                           layers=layers, ragged=ragged, ring=ring)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                ragged: bool = False, page_size: int = 0, num_pages: int = 0):
-    """Serve state: one preallocated KV cache per layer, stacked like the
-    parameters; forward steps update it in place.  `ragged` gives every
+    """Serve state: one preallocated state per layer, stacked like the
+    parameters; forward steps update it in place.  An attention layer
+    holds a KV cache (a ring for a sliding-window layer past its window),
+    an RG-LRU layer its recurrent and conv state.  `ragged` gives every
     cache (B,) per-slot lengths (all 0: every slot empty), the layout the
     continuous-batching scheduler needs.  With `page_size` every layer
     holds instead a `PagedKVCache` pool of `num_pages` pages (page 0 is the
@@ -148,20 +214,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     to `forward_serve(pages=...)`, the same row naming the same pages in
     every layer."""
     pat, R, tail = pattern_layout(cfg)
-    if page_size:
-        mk = dict(num_pages=num_pages, page_size=page_size,
-                  n_kv=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-                  kv_bits=cfg.kv_bits, device=device)
-        one = functools.partial(A.init_paged_kv_cache, **mk)
-    else:
-        one = functools.partial(
-            A.init_kv_cache, batch=batch, max_len=max_len,
-            n_kv=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-            kv_bits=cfg.kv_bits, device=device, ragged=ragged)
-    cache = {"blocks": tuple(one(layers=R) for _ in pat),
-             "tail": tuple(one() for _ in tail)}
+    one = functools.partial(_state_init, cfg=cfg, batch=batch,
+                            max_len=max_len, device=device, ragged=ragged,
+                            page_size=page_size, num_pages=num_pages)
+    cache = {"blocks": tuple(one(kind, layers=R) for kind in pat),
+             "tail": tuple(one(kind) for kind in tail)}
     if "moe" in pat and cfg.num_dense_layers:
-        cache["dense_prefix"] = tuple(one() for _ in range(cfg.num_dense_layers))
+        cache["dense_prefix"] = tuple(one("attn")
+                                      for _ in range(cfg.num_dense_layers))
     return cache
 
 
@@ -265,7 +325,21 @@ def cache_restore_pages(cache, pages, data):
 def _index(tree, r: int):
     if isinstance(tree, dict):
         return {k: _index(v, r) for k, v in tree.items()}
+    if isinstance(tree, (A.KVCache, A.PagedKVCache)):
+        return tree.layer(r)
     return tree[r]
+
+
+def _block_fwd_serve(kind: str, params, x, state, offset, cfg: ModelConfig,
+                     **kw) -> torch.Tensor:
+    if kind == "rglru":
+        if kw["seq_lens"] is not None or kw["pages"] is not None:
+            raise NotImplementedError("RG-LRU layers serve the classic path only")
+        return blocks.rglru_block_fwd_serve(params, x, state, cfg)
+    window = cfg.window if kind == "attn_local" else 0
+    causal = True if kind == "attn_local" else cfg.causal
+    return blocks.attn_block_fwd_serve(params, x, state, offset, cfg,
+                                       window=window, causal=causal, **kw)
 
 
 def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
@@ -298,20 +372,23 @@ def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
     B, S = tokens.shape
     ragged = isinstance(offset, torch.Tensor)
     x = L.embed_apply(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
-    kw = dict(causal=cfg.causal, seq_lens=seq_lens, pages=pages,
-              decode_rows=decode_rows, verify_len=verify_len)
+    kw = dict(seq_lens=seq_lens, pages=pages, decode_rows=decode_rows,
+              verify_len=verify_len)
     for p, c in zip(params.get("dense_prefix", ()), cache.get("dense_prefix", ())):
-        x = blocks.attn_block_fwd_serve(p, x, c, offset, cfg, **kw)
+        x = _block_fwd_serve("attn", p, x, c, offset, cfg, **kw)
     for r in range(R):
-        for j in range(len(pat)):
-            x = blocks.attn_block_fwd_serve(
-                _index(params["blocks"][j], r), x,
-                cache["blocks"][j].layer(r), offset, cfg, **kw)
-    for i in range(len(tail)):
-        x = blocks.attn_block_fwd_serve(params["tail"][i], x,
-                                        cache["tail"][i], offset, cfg, **kw)
+        for j, kind in enumerate(pat):
+            x = _block_fwd_serve(kind, _index(params["blocks"][j], r), x,
+                                 _index(cache["blocks"][j], r), offset, cfg,
+                                 **kw)
+    for i, kind in enumerate(tail):
+        x = _block_fwd_serve(_moe_kind_for_layer(cfg, kind, R * len(pat) + i),
+                             params["tail"][i], x, cache["tail"][i], offset,
+                             cfg, **kw)
     if pages is None:
         for c in _caches(cache):
+            if not isinstance(c, A.KVCache):
+                continue            # an RG-LRU state has no length
             max_len = c.k_q.shape[-2]
             c.length = offset + S if not ragged else torch.clamp(
                 offset + (S if seq_lens is None else seq_lens), max=max_len

@@ -204,12 +204,23 @@ def test_entry_points_without_a_device_raise(monkeypatch, jax_params):
 
 
 def test_unported_features_raise():
+    """What is still unported raises: xLSTM blocks, whisper-tiny's config,
+    and a sliding window on the paged or ragged path (the reference has
+    none there either).  Windows on the classic path and gemma-7b /
+    recurrentgemma-9b are ported (tests/test_torch_griffin.py,
+    tests/test_torch_gemma.py)."""
     cfg = get_config(ARCH, smoke=True)
     with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, window=16), "cpu")
-    with pytest.raises(NotImplementedError):
         build_model(dataclasses.replace(cfg, block_pattern=("attn", "mlstm")), "cpu")
-    # the Scheduler is ported whole (tests/test_torch_sched.py and the files
-    # beside it), 4-bit KV and recovery included
     with pytest.raises(KeyError):
-        get_config("gemma-7b")
+        get_config("whisper-tiny")
+    local = dataclasses.replace(cfg, window=16, block_pattern=("attn_local",))
+    model = build_model(local, "cpu")
+    with pytest.raises(NotImplementedError):
+        model.init_cache(2, 32, page_size=8, num_pages=9)
+    params = model.init(seed=0)
+    cache = model.init_cache(2, 32, ragged=True)
+    with pytest.raises(NotImplementedError):
+        model.forward_serve(params, {"tokens": torch.zeros(2, 4, dtype=torch.long)},
+                            cache, torch.zeros(2, dtype=torch.int32),
+                            seq_lens=torch.full((2,), 4, dtype=torch.int32))
