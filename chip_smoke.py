@@ -26,7 +26,12 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    16/1) and 4-bit; kernel 2 at kv_len 4096 with and without a window of
    2048, verify rows (Sq 4 and 5, bit-identical to single steps) and
    4-bit; iteration maps against the analytic count; each timed shape
-   beside its bound and bf16 SDPA.  Times kernel,
+   beside its bound and bf16 SDPA.  At head_dim 96 (phi-3-vision-4.2b's
+   32/32 heads, and 32/8 for kernel 1's 64-row CTAs and kernel 2's 32-dim
+   slices): kernel 1 causal and windowed (128) at Sq 512 and 4-bit;
+   kernel 2 at kv_len 4096 (block_k 256; block_k 2048 at 32/8, dsplit 3),
+   verify rows (Sq 4 and 5, bit-identical to single steps) and 4-bit; both
+   dsplit 1 and 3 launched.  Times kernel,
    plain version and, as a yardstick only, bf16
    `scaled_dot_product_attention` at the same shapes: device time from
    torch.profiler, and the wall time of back-to-back calls beside it.  A
@@ -41,7 +46,8 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    pages.  Then at head_dim 256 (16/16 and 16/1 heads): decode, verify
    rows and a ragged prefill chunk over 16-token pages, int8 and 4-bit,
    against the plain versions and, bit for bit, against dense at block_k
-   16.
+   16; and the same at head_dim 96 (32/32 and 32/8 heads: page rows of
+   3,072 int8 or 1,536 4-bit bytes, a head 96 or 48 bytes into them).
 4. Checks the kernel path of a small model against the plain path on the CPU.
 5. Runs the continuous-batching Scheduler on the card at that small width
    (float32, kernel path): dense slots, the paged pool and classic greedy
@@ -221,6 +227,19 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    160 (no ring: kernel 2 with the window at q_per_kv 16), profiled; the
    device time of an RG-LRU layer and a ring-attention layer at prefill
    and decode; a paper-fidelity request.
+16. phi-3-vision-4.2b at published widths and full depth (32 layers,
+   d_model 3,072, 32/32 heads of 96, SwiGLU d_ff 8,192, vocab 32,064, 576
+   image patches), random weights from seed 0, bf16, int8 KV, the kernel
+   path at the ideal ADC, decode_block_k 16: the image moves the prefill's
+   input embedding at every position below 576 and none after it; the
+   classic request (batch 4, a 640-token prompt from `make_batch` with its
+   (4, 576, 3,072) image embeddings, 32 new tokens: 32 kernel-1 and 31 x
+   32 kernel-2 launches, no plain-version call, served launches replayed),
+   its 8-token cut profiled, dense == paged on one-page prompts (text
+   only), 8 requests of phase 7's trace through the paged Scheduler over an
+   int8 and a 4-bit pool with every page back, a paper-fidelity request
+   with the image (4 new tokens: kernel 3 in every linear, `img_proj` at M
+   2,304 included, kernel 4 at head_dim 96).
 Phases 10-12 first run a row probe: RMSNorm, the bf16 unembed, the
 top-k / top-p truncation, its softmax and the Gumbel arg-max must give a
 row the same bits alone and among other rows (up to 40 = 8 slots x 5
@@ -242,6 +261,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -283,7 +303,7 @@ F32_OPS = 67e12
 REL_TOL = 1e-5
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
 # what a phase needs run first: kernel entries (2, 8) or the small model (4)
 NEEDS = {3: {2}, 5: {4}, 6: {2}, 7: {2}, 9: {8}}
 
@@ -2991,9 +3011,24 @@ def dense_kernels(dev, cfg, gen, operands, compare, bound, entries) -> None:
                     pim_decode(*o, L - n, L, **kwb), pim_decode_plain(*o, L - n, L, **kwb))
 
 
-# ---- 2 and 3 at head_dim 256: gemma-7b's and recurrentgemma-9b's heads ------
-DH256_HEADS = (("16/16 heads (gemma-7b)", (16, 16, 256)),
-               ("16/1 heads (recurrentgemma-9b)", (16, 1, 256)))
+# ---- 2 and 3 at head_dims 256 and 96: the Griffin family's and phi-3's heads ---
+# head_dim: (head cases, prefill cases (Sq, window, timed) of a head case,
+# decode cases (block_k, window) of a head case, verify rows' windows)
+WIDE_HEADS = {
+    256: ((("16/16 heads (gemma-7b)", (16, 16, 256)),
+           ("16/1 heads (recurrentgemma-9b)", (16, 1, 256))),
+          lambda Hkv: ((512, 0, True), (512, 128, False))
+          + (((2304, 2048, True),) if Hkv == 1 else ()),   # recurrentgemma-9b's window
+          lambda Hkv: ((256, 0), (256, 2048)),
+          (0, 2048)),
+    # phi-3's 32/32 heads, and 32/8 for the prefill's 64-row CTAs (q_per_kv
+    # 4) and kernel 2's 32-dim slices (dsplit 3: 32 tiles at block_k 2048)
+    96: ((("32/32 heads (phi-3-vision-4.2b)", (32, 32, 96)),
+          ("32/8 heads", (32, 8, 96))),
+         lambda Hkv: ((512, 0, True), (512, 128, True)),
+         lambda Hkv: ((256, 0),) + (((2048, 0),) if Hkv == 8 else ()),
+         (0,)),
+}
 
 
 def window_pairs(Sq: int, offset: int, kv_len: int, window: int) -> int:
@@ -3013,23 +3048,22 @@ def timed_call(kern, plain, lib, kernel: str, iters: int) -> dict:
                 library_ms=device_ms(lib, iters))
 
 
-def dense_kernels_256(dev, cfg, gen, operands, compare, entries) -> None:
-    """Phase 2 at head_dim 256: both kernels against their plain versions
-    (iteration maps against the analytic count), verify rows bit-identical
-    to single steps, 4-bit KV, and times beside bounds and bf16 SDPA."""
+def dense_kernels_wide(Dh, dev, cfg, gen, operands, compare, entries) -> None:
+    """Phase 2 at head_dim `Dh` (WIDE_HEADS): both kernels against their
+    plain versions (iteration maps against the analytic count), verify rows
+    bit-identical to single steps, 4-bit KV, and times beside bounds and
+    bf16 SDPA; kernel 2's grid (rows, head-dim slices, chunks) printed."""
+    head_cases, prefill_cases, decode_cases, verify_windows = WIDE_HEADS[Dh]
     pim_cfg, lut_cfg = cfg.pim, cfg.lut
-    B, Dh = 4, 256
+    B = 4
     kw = dict(pim_cfg=pim_cfg, lut_cfg=lut_cfg, return_iters=True)
-    timed = {}
-    print("kernels vs plain versions at head_dim 256:", flush=True)
-    for what, heads in DH256_HEADS:
+    timed, dsplits = {}, set()
+    print(f"kernels vs plain versions at head_dim {Dh}:", flush=True)
+    for what, heads in head_cases:
         H, Hkv, _ = heads
-        for Sq, window, time_it in ((512, 0, True), (512, 128, False),
-                                    (2304, 2048, True)):
-            if window == 2048 and Hkv != 1:
-                continue          # recurrentgemma-9b's window at its prompt
+        for Sq, window, time_it in prefill_cases(Hkv):
             q, _, opnd = operands(Sq, Sq, Sq, heads=heads)
-            name = f"prefill Dh256 {what} Sq{Sq} window {window}"
+            name = f"prefill Dh{Dh} {what} Sq{Sq} window {window}"
             got = pim_attention(*opnd, 0, Sq, window=window, **kw)
             compare(name, got, pim_attention_plain(*opnd, 0, Sq, window=window, **kw))
             exp = expected_kv_block_iters(Sq, Sq, 0, 32, 256, window=window)
@@ -3052,23 +3086,28 @@ def dense_kernels_256(dev, cfg, gen, operands, compare, entries) -> None:
             nbytes = sum(x.numel() * x.element_size() for x in opnd) + B * H * Sq * Dh * 4
             pairs = B * H * window_pairs(Sq, 0, Sq, window)
             t["bound_ms"], t["bound_by"] = attention_bound(nbytes, pairs, Dh)
+            t["rows"] = attn_k.launch_plan(Dh, Dh, 32, H // Hkv, 256).rows
             key = f"prefill {heads[0]}/{heads[1]} Sq{Sq} window {window}"
             timed[key] = t
-            print(f"  {key}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, sdpa bf16 "
-                  f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']}), "
-                  f"{t['bound_ms'] / t['ms']:.1%} of it", flush=True)
+            print(f"  {key} ({t['rows']}-row CTAs): kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f}, sdpa bf16 {t['library_ms']:.4f}, bound "
+                  f"{t['bound_ms']:.4f} ({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} "
+                  "of it", flush=True)
         _, _, opnd4 = operands(512, 512, 512, kv_bits=4, heads=heads)
-        compare(f"prefill Dh256 {what} kv4 Sq512", pim_attention(*opnd4, 0, 512, **kw),
+        compare(f"prefill Dh{Dh} {what} kv4 Sq512", pim_attention(*opnd4, 0, 512, **kw),
                 pim_attention_plain(*opnd4, 0, 512, **kw))
-        # decode at kv_len 4096, block_k 256, with and without the window
+        # decode at kv_len 4096, with and without the window
         kv = 4096
-        kwd = dict(kw, block_k=256)
         q, cache, opnd = operands(1, kv, kv, heads=heads)
-        for window in (0, 2048):
-            name = f"decode Dh256 {what} kv_len {kv} window {window}"
+        for bk, window in decode_cases(Hkv):
+            kwd = dict(kw, block_k=bk)
+            plan = dec_k._checked_plan(H // Hkv, Dh, Dh, bk, kv // bk, B * Hkv, False,
+                                       dev.index or 0)
+            dsplits.add(plan.dsplit)
+            name = f"decode Dh{Dh} {what} kv_len {kv} block_k {bk} window {window}"
             got = pim_decode(*opnd, kv - 1, kv, window=window, **kwd)
             compare(name, got, pim_decode_plain(*opnd, kv - 1, kv, window=window, **kwd))
-            exp = expected_kv_block_iters(1, kv, kv - 1, 1, 256, window=window,
+            exp = expected_kv_block_iters(1, kv, kv - 1, 1, bk, window=window,
                                           kv_valid_len=kv)
             check(bool((got[1].sum(dim=1) == exp).all()),
                   f"{name}: partitions per KV head == expected_kv_block_iters ({exp})")
@@ -3076,24 +3115,31 @@ def dense_kernels_256(dev, cfg, gen, operands, compare, entries) -> None:
             kf = torch.randn(B, Hkv, kv, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
             lo = kv - window if window else 0
             t = timed_call(
-                lambda: pim_decode(*opnd, kv - 1, kv, pim_cfg, lut_cfg, window=window),
-                lambda: pim_decode_plain(*opnd, kv - 1, kv, pim_cfg, lut_cfg, window=window),
+                lambda: pim_decode(*opnd, kv - 1, kv, pim_cfg, lut_cfg, window=window,
+                                   block_k=bk),
+                lambda: pim_decode_plain(*opnd, kv - 1, kv, pim_cfg, lut_cfg, window=window,
+                                         block_k=bk),
                 lambda: F.scaled_dot_product_attention(qb, kf[:, :, lo:], kf[:, :, lo:],
                                                        enable_gqa=True),
                 "pim_decode_kernel", 50)
             keys = kv - lo
             nbytes = (B * Hkv * keys * (2 * Dh + 8) + B * H * (Dh + 4 + 4 * Dh))
             t["bound_ms"], t["bound_by"] = attention_bound(nbytes, B * H * keys, Dh)
-            key = f"decode {heads[0]}/{heads[1]} kv_len {kv} window {window}"
+            t["grid"] = dict(rows=plan.rows, dsplit=plan.dsplit, chunks=plan.chunks)
+            key = (f"decode {heads[0]}/{heads[1]} kv_len {kv} window {window}"
+                   + (f" block_k {bk}" if bk != 256 else ""))
             timed[key] = t
-            print(f"  {key}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, sdpa bf16 "
-                  f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']}), "
-                  f"{t['bound_ms'] / t['ms']:.1%} of it", flush=True)
+            print(f"  {key} (tiles of {plan.rows} rows, dsplit {plan.dsplit}, "
+                  f"{plan.chunks} chunks): kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f}, sdpa bf16 {t['library_ms']:.4f}, bound "
+                  f"{t['bound_ms']:.4f} ({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} "
+                  "of it", flush=True)
+        kwd = dict(kw, block_k=256)
         for sq in (4, 5):
             qv, cache_v, opnd_v = operands(sq, kv, kv, heads=heads)
-            for window in (0, 2048):
+            for window in verify_windows:
                 o_v, it_v = pim_decode(*opnd_v, kv - sq, kv, window=window, **kwd)
-                compare(f"decode Dh256 {what} verify rows Sq{sq} window {window}",
+                compare(f"decode Dh{Dh} {what} verify rows Sq{sq} window {window}",
                         (o_v, it_v),
                         pim_decode_plain(*opnd_v, kv - sq, kv, window=window, **kwd))
                 same = True
@@ -3102,23 +3148,26 @@ def dense_kernels_256(dev, cfg, gen, operands, compare, entries) -> None:
                                                   pim_cfg, lut_cfg, window=window,
                                                   out_dtype=torch.float32)
                     same &= torch.equal(o_v.reshape(B, H, sq, Dh)[:, :, l], o_1[:, 0])
-                check(bool(same), f"Dh256 {what} verify rows Sq{sq} window {window} "
+                check(bool(same), f"Dh{Dh} {what} verify rows Sq{sq} window {window} "
                       "bit-identical to single-step decodes")
         _, _, opnd4 = operands(1, kv, kv, kv_bits=4, heads=heads)
-        compare(f"decode Dh256 {what} kv4", pim_decode(*opnd4, kv - 1, kv, **kwd),
+        compare(f"decode Dh{Dh} {what} kv4", pim_decode(*opnd4, kv - 1, kv, **kwd),
                 pim_decode_plain(*opnd4, kv - 1, kv, **kwd))
+    if Dh == 96:
+        check(dsplits == {1, 3}, f"Dh96 decode: 32-dim slices and whole head dims both "
+              f"launched (dsplit {sorted(dsplits)})")
     for name, prefix in (("pim_attention", "prefill"), ("pim_decode", "decode")):
-        entries[name]["dh256"] = {k: v for k, v in timed.items() if k.startswith(prefix)}
+        entries[name][f"dh{Dh}"] = {k: v for k, v in timed.items() if k.startswith(prefix)}
 
 
-def paged_kernels_256(dev, cfg, gen, compare) -> None:
-    """Phase 3 at head_dim 256: both kernels over 16-token pages against
-    their plain versions, int8 and 4-bit, and paged == dense at block_k ==
-    page size bit for bit."""
+def paged_kernels_wide(Dh, dev, cfg, gen, compare) -> None:
+    """Phase 3 at head_dim `Dh` (WIDE_HEADS): both kernels over 16-token
+    pages against their plain versions, int8 and 4-bit, and paged == dense
+    at block_k == page size bit for bit."""
     pim_cfg, lut_cfg = cfg.pim, cfg.lut
     kw = dict(pim_cfg=pim_cfg, lut_cfg=lut_cfg, return_iters=True)
-    Dh, S = 256, 2048
-    for what, (H, Hkv, _) in DH256_HEADS:
+    S = 2048
+    for what, (H, Hkv, _) in WIDE_HEADS[Dh][0]:
         for seed, (Sq, kv_bits, window, kern, plain) in enumerate((
                 (1, 8, 0, pim_decode, pim_decode_plain),
                 (4, 8, 0, pim_decode, pim_decode_plain),
@@ -3140,7 +3189,7 @@ def paged_kernels_256(dev, cfg, gen, compare) -> None:
             q_q, qs = ops._q_kernel_layout(q, pim_cfg.input_bits)
             paged = (q_q, qs, pool.k_q, pool.k_scale, pool.v_q, pool.v_scale)
             offs, ql = torch.clamp(lens_d - Sq, min=0), torch.clamp(lens_d, max=Sq)
-            name = (f"{'decode' if Sq < 128 else 'prefill'} Dh256 {what} paged Sq{Sq} "
+            name = (f"{'decode' if Sq < 128 else 'prefill'} Dh{Dh} {what} paged Sq{Sq} "
                     f"kv{kv_bits} lens {lens}")
             o_k = kern(*paged, offs, lens_d, q_len=ql, page_table=pt, **kw)
             compare(name, o_k, plain(*paged, offs, lens_d, q_len=ql, page_table=pt, **kw))
@@ -3231,11 +3280,13 @@ def main(argv=None) -> int:
     if 2 in phases:
         stamp("phase 2")
         dense_kernels(dev, cfg, gen, operands, compare, bound, entries)
-        dense_kernels_256(dev, cfg, gen, operands, compare, entries)
+        for wide in (256, 96):
+            dense_kernels_wide(wide, dev, cfg, gen, operands, compare, entries)
     if 3 in phases:
         stamp("phase 3")
         paged_kernels(dev, cfg, gen, compare, bound, entries)
-        paged_kernels_256(dev, cfg, gen, compare)
+        for wide in (256, 96):
+            paged_kernels_wide(wide, dev, cfg, gen, compare)
     if 8 in phases:
         stamp("phase 8")
         adc_kernels(dev, cfg, gen, entries)
@@ -3247,6 +3298,8 @@ def main(argv=None) -> int:
         moe_phase(dev, entries, compare, results)
     if 15 in phases:
         griffin_phase(entries, compare, results)
+    if 16 in phases:
+        phi3_phase(entries, compare, results)
     stamp(f"phases {sorted(phases)} done: every check passed")
     for name in max_err:
         if name in entries:
@@ -3266,7 +3319,7 @@ def main(argv=None) -> int:
              "paged_launches", "dense_sched_launches", "mixed_launches", "verify_launches",
              "kv4_launches", "paged_kv4_ms", "paged_kv4_bound_ms",
              "ideal_ms", "int_mm_ms", "quantized_ms", "quantized_bound_ms",
-             "int_mm_loop_ms", "dh256", "griffin_launches")
+             "int_mm_loop_ms", "dh256", "dh96", "griffin_launches")
     print(json.dumps({"kernels": [{**{k: e.get(k) for k in keys},
                                    **{k: e[k] for k in extra if k in e}}
                                   for e in entries.values()]}))
@@ -3962,28 +4015,53 @@ def griffin_launches(entries, name: str, what: str, n: int) -> None:
         entries[name].setdefault("griffin_launches", {})[what] = n
 
 
-def fidelity_run(cfg, params, batch, label: str, linears: int) -> dict:
-    """One paper-fidelity request (prompt 128, 4 new tokens): every PIM
-    linear through the 6-bit ADC (kernel 3) and behavioral attention,
-    whose LUT softmax is kernel 4 at head_dim 256; `linears` PIM linears
-    a forward, one kernel 4 launch per attention layer and forward."""
+def fidelity_run(cfg, params, batch, label: str, linears: int,
+                 prefill_rows: tuple = ()) -> dict:
+    """One paper-fidelity request (the batch's prompt, 4 new tokens): every
+    PIM linear through the 6-bit ADC (kernel 3) and behavioral attention,
+    whose LUT softmax is kernel 4 at the model's head_dim; `linears` PIM
+    linears a forward, and in the prefill alone one more of each of
+    `prefill_rows`' M rows first (a VLM's image projection); one kernel 4
+    launch per attention layer and forward.  Kernel 3's launches of the
+    prefill's first layer (and its prefill-only linears) and of the first
+    decode forward's are held against the plain version bit for bit."""
     pcfg = dataclasses.replace(cfg, attn_impl="behavioral",
                                pim=dataclasses.replace(cfg.pim, adc_mode="quantized"))
     model = build_model(pcfg)
     n_attn = sum(k.startswith("attn") for k in
                  (cfg.block_pattern * cfg.num_layers)[:cfg.num_layers])
-    T, P = 4, batch["tokens"].shape[1]
+    B, P = batch["tokens"].shape
+    T, first, pre = 4, LINEARS_PER_LAYER, len(prefill_rows)
+
+    def pick(name, i):
+        if i < pre:
+            return f"prefill-only linear {i}"
+        if i < pre + first:
+            return f"prefill linear {i - pre}"
+        if 0 <= i - pre - linears < first:
+            return f"decode forward 2 linear {i - pre - linears}"
+        return None
+
+    rows = {**{f"prefill-only linear {i}": m for i, m in enumerate(prefill_rows)},
+            **{f"prefill linear {i}": B * P for i in range(first)},
+            **{f"decode forward 2 linear {i}": B for i in range(first)}}
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
-    with plain_calls() as n_plain:
+    with plain_calls() as n_plain, recorded(
+            pick, {"pim_matmul": ADC_TARGETS["pim_matmul"]}) as kept:
         t0 = time.perf_counter()
         toks = serve_lib.generate(model, params, batch, T, P + T)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {k: n for k, n in _build.LAUNCHES.items() if n}
-    want = {"pim_matmul": linears * T, "lut_softmax": n_attn * T}
+    want = {"pim_matmul": linears * T + pre, "lut_softmax": n_attn * T}
     check(not n_plain, f"{label} paper fidelity: no plain-version call ({n_plain})")
     check(launches == want, f"{label} paper fidelity: launches {launches} == {want}")
+    replay_adc(f"{label} paper fidelity", kept, rows)
+    print(f"  {label} paper fidelity: kernel 3 == plain bit for bit at "
+          f"{sorted({(tuple(a[0].shape), tuple(a[1].shape)) for _, a, _ in kept.values()})}",
+          flush=True)
+    del kept
     check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
           f"{label} paper fidelity: tokens in the vocabulary")
     print(f"  paper fidelity ({label}): prompt {P}, {T} new tokens in {wall:.2f} s, "
@@ -4186,9 +4264,9 @@ def recurrentgemma_serve(entries, compare) -> dict:
     out["long"] = dict(prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_ms,
                        tokens_per_s=Bs * T / wall, launches=launches)
     griffin_launches(entries, "lut_softmax", "recurrentgemma-9b long, ring decode",
-                     launches["lut_softmax"])
+                 launches["lut_softmax"])
     griffin_launches(entries, "pim_attention", "recurrentgemma-9b long, windowed prefill",
-                     launches["pim_attention"])
+                 launches["pim_attention"])
     # a served ring-decode launch of kernel 4 (its broadcast slot mask read
     # in place) against the plain version, bit for bit
     with recorded(lambda n, i: "ring decode, first attention layer" if i == 0 else None,
@@ -4254,7 +4332,7 @@ def recurrentgemma_serve(entries, compare) -> dict:
           f"{Bc * T / wall:.1f} tokens/s, {wall:.2f} s; launches {launches}", flush=True)
     out["classic"] = dict(tokens_per_s=Bc * T / wall, wall_s=wall, launches=launches)
     griffin_launches(entries, "pim_decode", "recurrentgemma-9b classic, windowed",
-                     launches["pim_decode"])
+                 launches["pim_decode"])
     out["profile"] = profile_cut(model, params, batch, PROFILED_TOKENS, Pc + T,
                                  f"recurrentgemma-9b request cut to {PROFILED_TOKENS} "
                                  "new tokens", entries, ATTENTION_KERNELS)
@@ -4270,6 +4348,122 @@ def griffin_phase(entries, compare, results) -> None:
     results["griffin"] = {"gemma-7b": gemma_serve(entries, compare)}
     torch.cuda.empty_cache()
     results["griffin"]["recurrentgemma-9b"] = recurrentgemma_serve(entries, compare)
+
+
+# ---- 16. phi-3-vision-4.2b: head_dim 96 and the image projection -------------
+PHI3_PROMPT = 640    # the classic request's prompt: the 576 image patches and more
+PHI3_TRACE = 8       # requests of phase 7's trace through its Scheduler, each pool
+
+
+def phi3_phase(entries, compare, results) -> None:
+    """Phase 16, phi-3-vision-4.2b at full width and depth (32 layers,
+    d_model 3,072, 32/32 heads of 96, SwiGLU d_ff 8,192, vocab 32,064,
+    576 image patches through `img_proj`)."""
+    stamp("phase 16: phi-3-vision-4.2b")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("phi-3-vision-4.2b"), attn_impl="kernel",
+                              decode_block_k=PAGE)
+    model, params, out = load_model(cfg, "phi-3-vision-4.2b")
+    dev = model.device
+    L, V, Pn = cfg.num_layers, cfg.vocab_size, cfg.num_image_patches
+    Bs, P, T = 4, PHI3_PROMPT, 32
+    shape = types.SimpleNamespace(global_batch=Bs, seq_len=P)
+    batch = {k: torch.from_numpy(v) for k, v in data.make_batch(cfg, shape, 0).items()}
+    batch["tokens"] = batch["tokens"].long()
+    check(tuple(batch["image_embeds"].shape) == (Bs, Pn, cfg.d_model),
+          f"phi-3: make_batch gives ({Bs}, {Pn}, {cfg.d_model}) image embeddings")
+
+    # the image is live: the prefill's input embedding with and without it
+    with torch.inference_mode():
+        x_img = TT._embed_inputs(params, {k: v.to(dev) for k, v in batch.items()}, cfg)
+        x_txt = TT._embed_inputs(params, {"tokens": batch["tokens"].to(dev)}, cfg)
+    moved = (x_img != x_txt).any(dim=-1)
+    check(bool(moved[:, :Pn].all()) and not bool(moved[:, Pn:].any()),
+          f"phi-3: the image moves the prefill's input at every position < {Pn} and "
+          f"leaves every position >= {Pn} equal bit for bit")
+    del x_img, x_txt, moved
+
+    serve_lib.generate(model, params, batch, 2, P + T)           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve_lib.generate(model, params, batch, 1, P + T)           # prefill only
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+
+    def pick(name, i):
+        if name == "pim_attention" and i == 0:
+            return "prefill layer 0"
+        if name == "pim_decode" and i == 3 * L - 1:
+            return f"decode forward 4 layer {L - 1}"
+        return None
+
+    toks, launches, wall = classic_run(
+        model, params, batch, T, P + T, "phi-3-vision-4.2b classic request",
+        {"pim_attention": L, "pim_decode": (T - 1) * L}, pick, compare)
+    decode_ms = (wall - prefill_s) / (T - 1) * 1e3
+    print(f"  classic request (batch {Bs}, prompt {P} with {Pn} image patches, {T} new "
+          f"tokens): prefill {prefill_s * 1e3:.1f} ms, decode {decode_ms:.2f} ms/token, "
+          f"{Bs * T / wall:.1f} tokens/s; launches {launches}; first sequence "
+          f"{toks[0, :12].tolist()}", flush=True)
+    out["classic"] = dict(prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_ms,
+                          tokens_per_s=Bs * T / wall, launches=launches)
+    for name in ("pim_attention", "pim_decode"):
+        griffin_launches(entries, name, "phi-3-vision-4.2b classic", launches[name])
+    out["profile"] = profile_cut(model, params, batch, PROFILED_TOKENS, P + T,
+                                 f"phi-3-vision-4.2b request cut to {PROFILED_TOKENS} "
+                                 "new tokens", entries, ATTENTION_KERNELS)
+
+    # dense == paged on prompts of one page, text only (the Scheduler takes
+    # token lists, as the reference's does)
+    one_page = {"tokens": batch["tokens"][:, :PAGE]}
+    dense = serve_lib.generate(model, params, one_page, 32, PAGE + 32)
+    with plain_calls() as n_plain:
+        paged = serve_lib.generate(model, params, one_page, 32, PAGE + 32,
+                                   continuous_batching=True, page_size=PAGE)
+    check(not n_plain, f"phi-3 paged: no plain-version call ({n_plain})")
+    check(torch.equal(dense, paged), f"phi-3: prompts of one page ({PAGE} tokens), "
+          "32 new tokens: dense == paged token for token")
+
+    trace = sched_trace(V)[0][:PHI3_TRACE]
+    n_tok = sum(b for _, b in trace)
+    out["scheduler"] = {}
+    for kv_bits in (8, 4):
+        label = f"phi-3 Scheduler, kv{kv_bits} pool"
+        sched = serve_lib.Scheduler(model, params, page_size=PAGE, kv_bits=kv_bits,
+                                    **SCHED_KW)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        with plain_calls() as n_plain:
+            t0 = time.perf_counter()
+            streams = run_audited(sched, trace)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        check(not n_plain, f"{label}: no plain-version call ({n_plain})")
+        check(all(len(st) == b for st, (_, b) in zip(streams, trace))
+              and all(0 <= t < V for st in streams for t in st),
+              f"{label}: every request got its budget of in-vocabulary tokens")
+        check(len(sched.free_pages) == sched.num_pages - 1,
+              f"{label}: every page returned to the free list (audit() clean after "
+              "every step)")
+        check(launches.get("pim_attention", 0) > 0 and launches.get("pim_decode", 0) > 0,
+              f"{label}: kernels 1 and 2 launched ({launches})")
+        check(sched.cache["blocks"][0].k_q.shape[-1] == cfg.resolved_head_dim * kv_bits // 8,
+              f"{label}: pages hold {cfg.resolved_head_dim * kv_bits // 8} bytes a head "
+              "and token")
+        st = sched.stats
+        print(f"  Scheduler, {PHI3_TRACE} requests of phase 7's trace ({n_tok} tokens), "
+              f"kv{kv_bits}: {wall:.2f} s, {n_tok / wall:.1f} tokens/s, {st['steps']} "
+              f"steps, {st['model_steps']} forwards, peak pages {sched.peak_pages_in_use}, "
+              f"launches {launches}", flush=True)
+        out["scheduler"][f"kv{kv_bits}"] = dict(
+            wall_s=wall, tokens_per_s=n_tok / wall, steps=st["steps"],
+            model_steps=st["model_steps"], launches=launches)
+        del sched
+    out["paper_fidelity"] = fidelity_run(cfg, params, batch, "phi-3-vision-4.2b",
+                                         LINEARS_PER_LAYER * L, prefill_rows=(Bs * Pn,))
+    results["phi3"] = out
 
 
 if __name__ == "__main__":

@@ -5,6 +5,7 @@ from repro_torch.configs import (
     gemma_7b,
     internlm2_1_8b,
     mistral_large_123b,
+    phi_3_vision_4_2b,
     qwen2_72b,
     recurrentgemma_9b,
 )
@@ -20,6 +21,7 @@ _MODULES = {
     "dbrx-132b": dbrx_132b,
     "gemma-7b": gemma_7b,
     "recurrentgemma-9b": recurrentgemma_9b,
+    "phi-3-vision-4.2b": phi_3_vision_4_2b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

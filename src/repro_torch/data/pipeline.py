@@ -1,10 +1,12 @@
-"""Deterministic synthetic LM batches (numpy), a copy of the JAX package's
-`data/pipeline.py::lm_batch`: a fixed random Markov chain over the vocab,
-counter-based so that row r / time t depend only on (seed, step, r, t)."""
+"""Deterministic synthetic batches (numpy), a copy of the JAX package's
+`data/pipeline.py`: `lm_batch`, a fixed random Markov chain over the vocab,
+counter-based so that row r / time t depend only on (seed, step, r, t);
+`copy_batch`, a random prefix repeated; `make_batch`, a step's whole batch
+with the modality stubs (encoder frames, image patch embeddings)."""
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -47,3 +49,34 @@ def lm_batch(step: int, batch: int, seq: int, vocab: int, seed: int = 0,
         out[:, t] = s
         s = table[s, choices[:, t]]
     return out
+
+
+def copy_batch(step: int, batch: int, seq: int, vocab: int, seed: int = 0
+               ) -> np.ndarray:
+    """A random prefix of seq // 2 tokens in [2, vocab), then the prefix
+    repeated up to seq tokens."""
+    rng = np.random.RandomState((seed * 31 + step) % (2**31))
+    half = seq // 2
+    prefix = rng.randint(2, vocab, size=(batch, half)).astype(np.int32)
+    return np.concatenate([prefix, prefix[:, : seq - half]], axis=1)
+
+
+def make_batch(cfg, shape, step: int, seed: int = 0, kind: str = "lm"
+               ) -> Dict[str, np.ndarray]:
+    """The whole numpy batch of one step: (B, S) int32 "tokens" (B, S =
+    `shape.global_batch`, `shape.seq_len`) from `lm_batch` or, with kind
+    "copy", `copy_batch`; then, from one RandomState of (seed, step),
+    float32 "frames" (B, encoder_seq_len, d_model) for an encoder-decoder
+    config and "image_embeds" (B, num_image_patches, d_model) for a config
+    with image patches."""
+    B, S = shape.global_batch, shape.seq_len
+    fn = lm_batch if kind == "lm" else copy_batch
+    batch = {"tokens": fn(step, B, S, cfg.vocab_size, seed)}
+    rng = np.random.RandomState((seed * 17 + step) % (2**31))
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.randn(
+            B, cfg.encoder_seq_len, cfg.d_model).astype(np.float32)
+    if cfg.num_image_patches:
+        batch["image_embeds"] = rng.randn(
+            B, cfg.num_image_patches, cfg.d_model).astype(np.float32)
+    return batch

@@ -42,6 +42,13 @@
 //   CTA takes an SM (no register cap from a second one); a group of 16 q
 //   heads over one KV head (recurrentgemma-9b) takes 16 CTAs, each staging
 //   the group's K/V again.
+// * Head dim 96 (phi-3-vision-4.2b): three k32 MMA steps; a thread's PV
+//   tile is rows / 16 rows x 6 head dims, three float2 groups 32 dims apart
+//   (each V load feeds rows / 16 rows: fewer shared bytes a multiply-add
+//   than a 12-dim float4 tile, which was slower, tools/ablate_dh96_tile.py).
+//   A K/V slot row is 112 bytes (28 words): the eight 16-byte rows of an
+//   ldmatrix fall on words 0, 28, 24, ..., 4 mod 32, no bank conflict.
+//   4-bit rows are 48 bytes, unpacked into the levels of codes c and c + 48.
 // * Scores on s8 tensor cores: mma.sync m16n8k32, Q fragments in registers
 //   for the whole CTA, K fragments by ldmatrix from a staged tile; each
 //   warp owns one m16 tile and 8 / (rows / 16) n8 tiles of a 64-row stage.
@@ -183,7 +190,7 @@ __device__ __forceinline__ void stg(float* p, const float (&d)[N]) {
   }
 }
 
-// Two CTAs an SM where two fit (head_dim up to 128); at head_dim 256 a
+// Two CTAs an SM where two fit (head_dim up to 128, and 96); at head_dim 256 a
 // CTA's shared memory leaves room for one, and so its registers may too.
 template <int DH, int R>
 __global__ void __launch_bounds__(pim::kThreads, DH > 128 ? 1 : 2)
@@ -192,15 +199,19 @@ pim_attention_kernel(const Args a) {
   constexpr int NT = MT;                     // n8 tiles of a stage per warp
   constexpr int KS = DH / 32;                // k32 steps
   constexpr int ACC = R * DH / pim::kThreads;
-  constexpr int TD = ACC >= 32 ? 8 : (ACC >= 4 ? 4 : ACC);  // head dims a thread
+  constexpr int NG = DH % 3 == 0 ? 3 : (ACC >= 32 ? 2 : 1);  // vector groups, DH / NG apart
+  // dims per vector load: float2s at head_dim 96 (a 12-dim float4 tile took
+  // 1.36x the time at phi-3's prefill shape on an H100 80GB HBM3 at 700 W,
+  // tools/ablate_dh96_tile.py)
+  constexpr int TG = DH % 3 == 0 ? 2 : (ACC / NG >= 4 ? 4 : ACC / NG);
+  constexpr int TD = NG * TG;                // head dims a thread
   constexpr int TR = ACC / TD;               // rows a thread
-  constexpr int TG = TD > 4 ? 4 : TD;        // dims per vector load
-  constexpr int NG = TD / TG;                // vector groups, DH / NG apart
   constexpr int TDN = DH / TD;               // threads along the head dims
   constexpr int LD = slot_ld(DH);
   constexpr int CR = R + 2;                  // code row stride (spreads banks)
   static_assert(MT >= 1 && MT <= 8 && (8 % MT) == 0, "16..128 rows");
-  static_assert(TR * TD == ACC && (R / TR) * TDN == pim::kThreads, "PV tiling");
+  static_assert(TR * TD == ACC && (R / TR) * TDN == pim::kThreads && TG * TDN * NG == DH,
+                "PV tiling");
 
   extern __shared__ __align__(16) unsigned char smem[];
   const int bk = a.bk;
@@ -720,6 +731,7 @@ extern "C" int pim_attention_launch(
   switch (dh) {
     case 32: err = by_rows<32>(rows, a, grid, s); break;
     case 64: err = by_rows<64>(rows, a, grid, s); break;
+    case 96: err = by_rows<96>(rows, a, grid, s); break;
     case 128: err = by_rows<128>(rows, a, grid, s); break;
     case 256: err = by_rows<256>(rows, a, grid, s); break;
   }

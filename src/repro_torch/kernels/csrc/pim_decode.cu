@@ -45,6 +45,12 @@
 // * Head dim 256: a CTA over the whole head dim takes 185,488 bytes of
 //   shared memory at 8-row tiles (one CTA an SM, 255 registers allowed);
 //   a small grid's 32-dim slices take 115-128 KB.
+// * Head dim 96 (phi-3-vision-4.2b): three k32 MMA steps; over the whole
+//   head dim a lane sums 3 dims (its V bytes are not 4-aligned: v_scaled's
+//   scalar path), and a small int8 grid is cut into dsplit 3 slices of 32.
+//   A record is RT * 98 floats, a multiple of 16 bytes, as the combine's
+//   16-byte copies need.  4-bit rows (48 bytes) are unpacked into int8
+//   levels in the ring (codes c and c + 48) before any lane reads them.
 // * Staging: each unit's K stages, then its V stages, 128 rows each, by
 //   16-byte `cp.async.cg` copies into a 3-slot ring, two stages ahead of the
 //   one computed (4-bit KV is decoded to int8 levels by synchronous loads
@@ -816,6 +822,9 @@ extern "C" int pim_decode_launch(
     case 32: err = by_rows<32, 32>(rt, a, grid, s); break;
     case 64:
       err = dsplit == 1 ? by_rows<64, 64>(rt, a, grid, s) : by_rows<64, 32>(rt, a, grid, s);
+      break;
+    case 96:
+      err = dsplit == 1 ? by_rows<96, 96>(rt, a, grid, s) : by_rows<96, 32>(rt, a, grid, s);
       break;
     case 128:
       err = dsplit == 1 ? by_rows<128, 128>(rt, a, grid, s) : by_rows<128, 32>(rt, a, grid, s);

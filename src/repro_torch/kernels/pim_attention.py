@@ -41,7 +41,7 @@ THREADS = 256
 KV_ROWS = 64           # KV rows per cp.async stage
 STAGES = 3             # ring slots
 MAX_ACC = 32           # float32 accumulators a thread: rows * Dh <= 8192
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 
 
 def cdiv(a: int, b: int) -> int:

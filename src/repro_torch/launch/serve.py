@@ -6,9 +6,13 @@ KV cache, greedy by default.
 
 `--arch` takes every arch of `repro_torch.configs.ARCH_NAMES`: the attention
 stacks internlm2-1.8b, qwen2-72b, mistral-large-123b and gemma-7b, the MoE
-stacks deepseek-moe-16b and dbrx-132b, and the hybrid recurrentgemma-9b
-(RG-LRU and sliding-window attention; the classic path only) (`--smoke`
-for their small variants).
+stacks deepseek-moe-16b and dbrx-132b, the hybrid recurrentgemma-9b
+(RG-LRU and sliding-window attention; the classic path only) and the VLM
+phi-3-vision-4.2b (head_dim 96; the classic prefill also takes the batch's
+576 random image patch embeddings) (`--smoke` for their small variants).
+The batch is `data.make_batch(cfg, (batch, prompt_len), step 0)`, as the
+JAX package's CLI builds it: the tokens of `lm_batch`, and the modality
+stubs a config has.
 
 `--continuous-batching` serves the batch through the slot scheduler
 (`--max-batch-slots`, retirement at `--eos-id`); `--page-size N` puts the
@@ -43,6 +47,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+import types
 
 import torch
 
@@ -218,8 +223,11 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, kv_bits=args.kv_bits)
     model = build_model(cfg, args.device)
     params = model.init(seed=0)
-    tokens = data.lm_batch(0, args.batch, args.prompt_len, cfg.vocab_size)
-    batch = {"tokens": torch.from_numpy(tokens).long()}
+    shape = types.SimpleNamespace(global_batch=args.batch,
+                                  seq_len=args.prompt_len)
+    batch = {k: torch.from_numpy(v)
+             for k, v in data.make_batch(cfg, shape, 0).items()}
+    batch["tokens"] = batch["tokens"].long()
     max_len = args.prompt_len + args.new_tokens
 
     t0 = time.perf_counter()

@@ -1,5 +1,6 @@
 """Model assembly for attention, MoE and hybrid RG-LRU stacks: parameter
-init, the serve state and the serve forward.
+init, the serve state and the serve forward (with a VLM's image patch
+embeddings projected into the first positions of a prompt).
 
 Counterpart of the JAX package's `models/transformer.py` for serving:
 attention and MoE stacks on the classic dense cache, ragged slots and the
@@ -24,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as A
+from repro_torch.core import pim
 from repro_torch.models import blocks
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -34,8 +36,8 @@ SERVED_KINDS = ("attn", "attn_local", "moe", "rglru")
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves attention, sliding-window attention, MoE and RG-LRU
-    stacks; anything else raises, naming the ROADMAP item (§1) that ports
-    it."""
+    stacks, with image patch embeddings (the VLM stub); anything else
+    raises, naming the ROADMAP item (§1) that ports it."""
     unsupported = []
     kinds = set(cfg.block_pattern) - set(SERVED_KINDS)
     if kinds:
@@ -45,8 +47,6 @@ def check_supported(cfg: ModelConfig) -> None:
         unsupported.append("a moe block without experts")
     if cfg.is_encoder_decoder:
         unsupported.append("an encoder (item 7: whisper-tiny)")
-    if cfg.num_image_patches:
-        unsupported.append("image patches (item 7: phi-3-vision-4.2b)")
     if cfg.pos not in ("rope", "none"):
         unsupported.append(f"pos={cfg.pos!r} (item 7: whisper-tiny)")
     if unsupported:
@@ -133,7 +133,9 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     {"w"} drawn whole, N(0, scale^2), with zero biases, and passed through
     `deploy` when it is given, but a stack of experts (a `lead` of layer
     and expert axes), which `expert_linear(lead, d_in, d_out, scale)`
-    makes when it is given."""
+    makes when it is given.  A config with image patches also gets
+    `img_proj`, a (d_model, d_model) linear without bias, drawn after the
+    head table, so every other config's draws stay as they were."""
     check_supported(cfg)
     pat, R, tail = pattern_layout(cfg)
 
@@ -161,6 +163,9 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         params["unembed"] = {
             "table": normal((cfg.vocab_size, cfg.d_model), 0.02)}
+    if cfg.num_image_patches:
+        params["img_proj"] = linear((), cfg.d_model, cfg.d_model,
+                                    1.0 / cfg.d_model ** 0.5)
     params["blocks"] = tuple(blk(kind, lead=(R,)) for kind in pat)
     params["tail"] = tuple(
         blk(_moe_kind_for_layer(cfg, kind, R * len(pat) + i), lead=())
@@ -342,6 +347,26 @@ def _block_fwd_serve(kind: str, params, x, state, offset, cfg: ModelConfig,
                                        window=window, causal=causal, **kw)
 
 
+def _embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """The step's input embeddings (B, S, D) in the compute dtype.  Where the
+    config has image patches and the batch carries `image_embeds` (B, P0,
+    D), the patch embeddings, cast to the compute dtype, go through the
+    `img_proj` PIM linear and are added to the first P = min(P0, S)
+    positions of the step, as the reference's stub VLM fusion does: at
+    columns 0..P-1 of whatever step carries them, whatever its offset (the
+    classic path passes them to the prefill only)."""
+    x = L.embed_apply(params["embed"], batch["tokens"],
+                      getattr(torch, cfg.compute_dtype))
+    if cfg.num_image_patches and "image_embeds" in batch:
+        img = pim.pim_linear_apply(params["img_proj"],
+                                   batch["image_embeds"].to(x.dtype), cfg.pim,
+                                   cfg.pim_linears)
+        P = min(cfg.num_image_patches, x.shape[1])
+        x[:, :P] += img[:, :P]
+    return x
+
+
 def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
                   cfg: ModelConfig, seq_lens=None, pages=None,
                   decode_rows=None, logit_positions=None, verify_len: int = 1):
@@ -366,12 +391,13 @@ def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
     is then (B, P, V), column j of a row equal to the logits of the
     single-token step it replaces.  Every layer reuses the step's offsets,
     lengths and table as they are: callers bring them to the device once
-    per step.  A MoE arch's dense prefix layers run first."""
+    per step.  A MoE arch's dense prefix layers run first.  A batch may
+    carry `image_embeds` (see `_embed_inputs`)."""
     pat, R, tail = pattern_layout(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     ragged = isinstance(offset, torch.Tensor)
-    x = L.embed_apply(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
+    x = _embed_inputs(params, batch, cfg)
     kw = dict(seq_lens=seq_lens, pages=pages, decode_rows=decode_rows,
               verify_len=verify_len)
     for p, c in zip(params.get("dense_prefix", ()), cache.get("dense_prefix", ())):

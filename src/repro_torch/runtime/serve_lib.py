@@ -2457,7 +2457,8 @@ def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
              restore_from: Optional[str] = None) -> torch.Tensor:
     """Batched generation; returns (B, max_new_tokens) token ids.
 
-    Default: equal-length prefill, then one decode step per further token;
+    Default: equal-length prefill (with the batch's `image_embeds`, where
+    it carries them), then one decode step per further token (tokens only);
     greedy at temperature 0, else sampled (top_k- and / or top_p-truncated)
     with the threefry key `rng` (default `PRNGKey(0)`), split as the
     reference splits it: one subkey for the prefill's tokens, then one per
@@ -2538,8 +2539,12 @@ def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
         raise ValueError(f"prompt {S} + {max_new_tokens} new tokens do not fit "
                          f"a cache of {max_len}")
     cache = model.init_cache(B, max_len)
+    first = {"tokens": tokens}
+    if "image_embeds" in prompt_batch:          # the prefill only
+        first["image_embeds"] = torch.as_tensor(
+            prompt_batch["image_embeds"]).to(model.device)
     with torch.inference_mode():
-        logits, cache = model.forward_serve(params, {"tokens": tokens}, cache, 0)
+        logits, cache = model.forward_serve(params, first, cache, 0)
         key, sub = prng.split(rng)
         tok = sample_logits(logits, sub, temperature, top_k, top_p)
         out = [tok]

@@ -40,7 +40,7 @@ def one_thread():
 @pytest.mark.parametrize("kv_bits", [8, 4])
 @pytest.mark.parametrize("block_k", [256, 16], ids=["dense", "paged"])
 @pytest.mark.parametrize("q_per_kv", [1, 2, 4])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 96, 128])
 def test_launch_plan_covers_each_head_and_q_block_once(dh, q_per_kv, block_k,
                                                        kv_bits):
     dhk = dh if kv_bits == 8 else dh // 2
@@ -82,7 +82,7 @@ def test_launch_plan_at_the_served_shapes():
 
 
 @pytest.mark.parametrize("args", [
-    (96, 96, 32, 2, 256),     # head_dim outside 32 / 64 / 128
+    (80, 80, 32, 2, 256),     # head_dim outside 32 / 64 / 96 / 128 / 256
     (128, 48, 32, 2, 256),    # stored width neither int8 nor 4 bits
     (128, 128, 32, 2, 24),    # block_k neither 8 / 16 / 32 nor 64k
     (128, 128, 32, 2, 96),

@@ -77,7 +77,8 @@ def one_thread():
 @pytest.mark.parametrize("dh,block_k,paged", [(128, 256, False), (128, 16, True),
                                              (64, 32, False), (32, 64, True),
                                              (128, 8, True), (64, 48, False),
-                                             (128, 192, False)])
+                                             (128, 192, False), (96, 256, False),
+                                             (96, 16, True)])
 def test_launch_plan_covers_rows_and_fits(R, dh, block_k, paged):
     n_k = 256 if paged else 16
     plan = launch_plan(R, dh, dh, block_k, n_k, 32, paged, 132)
@@ -108,7 +109,7 @@ def test_launch_plan_at_the_served_shapes():
 
 
 @pytest.mark.parametrize("args", [
-    (2, 96, 96, 256, 16, 32, False, 132),     # head_dim outside 32 / 64 / 128
+    (2, 80, 80, 256, 16, 32, False, 132),     # head_dim outside 32 / 64 / 96 / 128 / 256
     (2, 128, 48, 256, 16, 32, False, 132),    # stored width neither int8 nor 4 bits
     (2, 128, 128, 0, 16, 32, False, 132),     # block_k not positive
     (2, 128, 128, -16, 16, 32, False, 132),

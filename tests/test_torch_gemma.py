@@ -4,7 +4,7 @@ reference's GELU, and kernels 1 and 2 at head_dim 256.
 SMOKE gemma-7b: 3 layers, d_model 96, 2/2 heads of 48, GeGLU d_ff 192,
 vocab 512, tied embeddings.  Parameters come from the reference's seeded
 `init` through `from_jax_params`, at the ideal ADC, on one torch thread.
-Head_dim 48 is not a head dim of the card's kernels (32, 64, 128, 256),
+Head_dim 48 is not a head dim of the card's kernels (32, 64, 96, 128, 256),
 so the kernel path runs at head_dim 64 on both sides; the behavioral path
 runs the published 48.  Bounds:
   * GELU: bf16 equal to `jax.nn.gelu` bit for bit on 200,000 inputs
@@ -295,7 +295,8 @@ def test_cuda_head_dim_256(cuda_device, heads):
 
 # sha256 (first 16 hex digits) of each earlier arch's SMOKE `init(seed=0)`
 # leaves, bytes, shapes and strides, in bf16 and float32 compute, as the
-# port drew them before the Griffin blocks joined `init`
+# port drew them before the Griffin blocks joined `init` (the Griffin archs
+# and phi-3-vision-4.2b as the port drew them once its `img_proj` joined)
 _EARLIER_INITS = {
     ("internlm2-1.8b", "bfloat16"): "337e97c6aba2aa35",
     ("internlm2-1.8b", "float32"): "10ef9f9792203e11",
@@ -305,6 +306,12 @@ _EARLIER_INITS = {
     ("dbrx-132b", "float32"): "87e54c7b36e958f5",
     ("qwen2-72b", "bfloat16"): "20962289157e0ebe",
     ("qwen2-72b", "float32"): "d5c6042a0f2fd8f5",
+    ("gemma-7b", "bfloat16"): "92dc50a31f29dcba",
+    ("gemma-7b", "float32"): "293b725ec306875c",
+    ("recurrentgemma-9b", "bfloat16"): "2e3b0bbc1718cde8",
+    ("recurrentgemma-9b", "float32"): "4e323de1aff5b8bd",
+    ("phi-3-vision-4.2b", "bfloat16"): "a3b3c9d8161bc88c",
+    ("phi-3-vision-4.2b", "float32"): "21970df66da4ed82",
 }
 
 

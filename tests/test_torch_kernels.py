@@ -249,12 +249,12 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv_bits", [8, 4])
 @pytest.mark.parametrize("heads", [(4, 2, 64), (4, 4, 32), (8, 2, 128), (2, 2, 256),
-                                   (16, 1, 256)],
+                                   (16, 1, 256), (2, 2, 96), (4, 1, 96)],
                          ids=["qpk2-dh64", "qpk1-dh32", "qpk4-dh128", "qpk1-dh256",
-                              "qpk16-dh256"])
+                              "qpk16-dh256", "qpk1-dh96", "qpk4-dh96"])
 def test_cuda_kernels_match_plain_versions(cuda_device, kv_bits, heads):
     """On the card: each CUDA kernel against its plain version, at head
-    dims 32-256 and groups of 1-16 q heads, over a kv_len (300) that is not a
+    dims 32-256 (96 too) and groups of 1-16 q heads, over a kv_len (300) that is not a
     multiple of the prefill kernel's 64-row stage, with a sequence that has
     no valid query (q_len 0), and prefill blocks of 8 (eight to a stage) and
     128 rows (two stages each), and decode at block_k 64 and at block

@@ -56,10 +56,28 @@ def chain_variants(cut: dict, chain, other: dict = None) -> dict:
     return out
 
 
-def build(source: str, variants: dict, signatures: dict, expand=lambda s: s) -> dict:
+def ptxas_entries(log: str) -> dict:
+    """{entry function: (registers, bytes of spill stores)} of an nvcc log
+    written under `-Xptxas -v`."""
+    out, entry, spill = {}, None, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry, spill = ln.split("'")[1], None
+        elif "bytes spill stores" in ln:
+            spill = int(ln.split("bytes stack frame, ")[1].split(" bytes spill stores")[0])
+        elif "Used" in ln and "registers" in ln and entry:
+            out[entry] = (int(ln.split("Used ")[1].split(" registers")[0]), spill)
+            entry = None
+    return out
+
+
+def build(source: str, variants: dict, signatures: dict, expand=lambda s: s,
+          entries: str = "") -> dict:
     """{variant: (loaded library, edited source)}: `source`.cu of csrc/
     with each variant's (old, new) edits, `expand` applied to each new
-    text; one nvcc per variant, all at once."""
+    text; one nvcc per variant, all at once.  The registers and spill
+    stores of each entry function whose mangled name holds `entries` are
+    printed."""
     src = open(os.path.join(CSRC, f"{source}.cu")).read()
     nvcc, procs = _build._nvcc(), {}
     for i, (name, edits) in enumerate(variants.items()):
@@ -88,6 +106,9 @@ def build(source: str, variants: dict, signatures: dict, expand=lambda s: s) -> 
         regs = [ln.split("Used ")[1].split(",")[0] for ln in log.splitlines()
                 if "Used" in ln and "registers" in ln]
         print(f"  built {name}: registers {regs}", flush=True)
+        for entry, (r, spill) in ptxas_entries(log).items():
+            if entries and entries in entry:
+                print(f"    {entry}: {r} registers, {spill} bytes spill stores", flush=True)
         lib = ctypes.CDLL(os.path.join(d, "lib.so"))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = list(argtypes)
