@@ -240,6 +240,24 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    int8 and a 4-bit pool with every page back, a paper-fidelity request
    with the image (4 new tokens: kernel 3 in every linear, `img_proj` at M
    2,304 included, kernel 4 at head_dim 96).
+17. whisper-tiny: (a) kernels 1 and 2 at its heads (6/6 of 64, batch 4)
+   against their plain versions and timed beside their bounds and
+   non-causal bf16 SDPA: kernel 1 not causal at Sq 32 and 448 over the
+   1,500-token cross cache, kernel 2 not causal over it at block_k 256
+   (int8 and 4-bit; the query's offset bounds nothing) and causal at
+   kv_len 4096; (b) whisper-tiny at published widths and full depth (4
+   encoder and 4 decoder layers, d_model 384, 6/6 heads of 64, GELU d_ff
+   1,536, layernorm, absolute positions, vocab 51,865), random weights from
+   seed 0, bf16, int8 KV, the kernel path: the encoder timed, the cross
+   K/V planes unchanged by decode steps, the classic request (batch 4,
+   1,500 frames and a 32-token prompt from `make_batch`, 96 new tokens: 4
+   + 4 kernel-1 launches a prefill, 4 + 4 kernel-2 launches a decode
+   forward, no plain-version call, a served launch of each of the four
+   attention dispatches replayed), its 8-token cut profiled; (c) the
+   request at the paper's fidelity (4 new tokens: kernel 3 in every
+   linear, the encoder's at M 6,000 included, kernel 4 on self rows and on
+   cross rows of 1,500 positions, launches counted and replayed bit for
+   bit), and the Scheduler refusing the arch.
 Phases 10-12 first run a row probe: RMSNorm, the bf16 unembed, the
 top-k / top-p truncation, its softmax and the Gumbel arg-max must give a
 row the same bits alone and among other rows (up to 40 = 8 slots x 5
@@ -277,6 +295,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import PIMConfig  # noqa: E402
 from repro_torch.core import attention as A  # noqa: E402
 from repro_torch.core.attention import expected_kv_block_iters  # noqa: E402
+from repro_torch.core.lut_softmax import build_exp_table, lut_softmax_codes  # noqa: E402
 from repro_torch.data import pipeline as data  # noqa: E402
 from repro_torch.core import pim as core_pim  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -303,7 +322,7 @@ F32_OPS = 67e12
 REL_TOL = 1e-5
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
 # what a phase needs run first: kernel entries (2, 8) or the small model (4)
 NEEDS = {3: {2}, 5: {4}, 6: {2}, 7: {2}, 9: {8}}
 
@@ -453,10 +472,16 @@ def event_timed(fn, iters: int, what: str) -> float:
 
 def device_ms(fn, iters: int, what: str = "a call's device work") -> float:
     """Summed device ms per call of `iters` calls of `fn`, profiled again
-    (`profiled_until`) while the profiler drops every event of a session,
-    or `event_timed` where no padded profile saw one."""
-    times = profiled_until(fn, iters, lambda t: per_call_ms(t, iters) > 0,
-                           f"every device event of {what}")
+    (`profiled_until`) while the profiler sees fewer device kernels than
+    calls (every call launches one at least; a session that dropped most
+    of its events once gave a bf16 SDPA yardstick of 0.1 us), or
+    `event_timed` where no padded profile saw them."""
+    def seen(t):
+        kernels = sum(n for k, (_, n) in t.items()
+                      if not k.startswith(("Memcpy", "Memset")))
+        return per_call_ms(t, iters) > 0 and kernels >= iters
+
+    times = profiled_until(fn, iters, seen, f"a device kernel of each call of {what}")
     if times is None:
         return event_timed(fn, iters, what)
     return per_call_ms(times, iters)
@@ -594,16 +619,18 @@ def decode_bound(kv_lens, q_lens, Sq: int, cfg):
     return attention_bound(nbytes, sum(H * ql * kv for kv, ql in live), Dh)
 
 
-def prefill_bound(offs, kv_lens, q_lens, Sq: int, cfg):
+def prefill_bound(offs, kv_lens, q_lens, Sq: int, causal: bool, cfg):
     """(ms, limit) of one pim_attention call at a served shape: bytes as
     `decode_bound`, against the causal pairs of each slot's valid query
     rows (row i at position offs + i sees min(kv_len, offs + i + 1)
-    keys, of them the last `cfg.window` in a windowed arch)."""
+    keys, of them the last `cfg.window` in a windowed arch), or, not
+    causal (cross-attention), all kv_len keys for every valid row."""
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     live = [(o, kv, min(ql, Sq)) for o, kv, ql in zip(offs, kv_lens, q_lens) if ql > 0]
     nbytes = (sum(kv for _, kv, _ in live) * Hkv * kv_token_bytes(cfg)
               + len(kv_lens) * H * Sq * (Dh + 4 + 4 * Dh))
-    pairs = sum(window_pairs(ql, o, kv, cfg.window) for o, kv, ql in live)
+    pairs = sum(window_pairs(ql, o, kv, cfg.window) if causal else ql * kv
+                for o, kv, ql in live)
     return attention_bound(nbytes, H * pairs, Dh)
 
 
@@ -611,7 +638,8 @@ def prefill_bound(offs, kv_lens, q_lens, Sq: int, cfg):
 def launch_shapes(cfg):
     """Within the block, both attention wrappers keep each launch's scalar
     table on the device (no host sync); after it, {wrapper: [([q_offset],
-    [kv_len], [q_len], Sq)]} of every launch, one slot per sequence."""
+    [kv_len], [q_len], Sq, causal)]} of every launch, one slot per
+    sequence."""
     mods = {"pim_attention": attn_k, "pim_decode": dec_k}
     seen = {name: [] for name in mods}
     for mod in mods.values():
@@ -623,12 +651,12 @@ def launch_shapes(cfg):
         for mod in mods.values():
             mod.SHAPES = None
     for name, launches in kept.items():
-        for scalars, (BH, Sq, _) in launches:
+        for scalars, (BH, Sq, _), causal in launches:
             off, kv, ql = scalars.tolist()
             B = BH // cfg.num_heads
             if len(kv) == 1:   # int lengths: one column for the batch
                 off, kv, ql = off * B, kv * B, ql * B
-            seen[name].append((off[:B], kv[:B], ql[:B], Sq))
+            seen[name].append((off[:B], kv[:B], ql[:B], Sq, causal))
 
 
 def served_attention(entries, label: str, report: dict, shapes, cfg) -> dict:
@@ -640,7 +668,7 @@ def served_attention(entries, label: str, report: dict, shapes, cfg) -> dict:
                               ("pim_decode", "pim_decode_kernel", 2)):
         if not shapes[name]:
             continue
-        bounds = [(prefill_bound(*s, cfg) if num == 1 else decode_bound(*s[1:], cfg))[0]
+        bounds = [(prefill_bound(*s, cfg) if num == 1 else decode_bound(*s[1:4], cfg))[0]
                   * 1e3 for s in shapes[name]]
         us = report["kernels"][kernel]["us_per_launch"]
         b_us = sum(bounds) / len(bounds)
@@ -1650,7 +1678,7 @@ def spec_scheduler(model, params, cfg, entries, compare, smi) -> dict:
     k = out["profile"]["kernels"]
     check(k["pim_attention_kernel"]["count"] == L and k["pim_decode_kernel"]["count"] == L,
           "the profiled step was one speculative forward")
-    check(all(sq == DRAFT + 1 for *_, sq in shapes["pim_decode"]),
+    check(all(sq == DRAFT + 1 for *_, sq, _ in shapes["pim_decode"]),
           f"the profiled step's kernel 2 launches carry verify rows of Sq {DRAFT + 1}")
     out["served"] = served_attention(entries, f"speculative step (Sq {DRAFT + 1})",
                                      out["profile"], shapes, cfg)
@@ -3300,6 +3328,8 @@ def main(argv=None) -> int:
         griffin_phase(entries, compare, results)
     if 16 in phases:
         phi3_phase(entries, compare, results)
+    if 17 in phases:
+        whisper_phase(dev, entries, compare, results)
     stamp(f"phases {sorted(phases)} done: every check passed")
     for name in max_err:
         if name in entries:
@@ -3319,7 +3349,7 @@ def main(argv=None) -> int:
              "paged_launches", "dense_sched_launches", "mixed_launches", "verify_launches",
              "kv4_launches", "paged_kv4_ms", "paged_kv4_bound_ms",
              "ideal_ms", "int_mm_ms", "quantized_ms", "quantized_bound_ms",
-             "int_mm_loop_ms", "dh256", "dh96", "griffin_launches")
+             "int_mm_loop_ms", "dh256", "dh96", "dh64", "griffin_launches")
     print(json.dumps({"kernels": [{**{k: e.get(k) for k in keys},
                                    **{k: e[k] for k in extra if k in e}}
                                   for e in entries.values()]}))
@@ -3623,7 +3653,7 @@ def moe_model(cfg, entries, compare, full: bool) -> dict:
     served = {}
     for kind, kernel, num in (("pim_attention", "pim_attention_kernel", 1),
                               ("pim_decode", "pim_decode_kernel", 2)):
-        bounds = [(prefill_bound(*s, cfg) if num == 1 else decode_bound(*s[1:], cfg))[0]
+        bounds = [(prefill_bound(*s, cfg) if num == 1 else decode_bound(*s[1:4], cfg))[0]
                   * 1e3 for s in attn_shapes[kind]]
         served[kind] = (report["kernels"][kernel]["us_per_launch"],
                         sum(bounds) / len(bounds))
@@ -4464,6 +4494,290 @@ def phi3_phase(entries, compare, results) -> None:
     out["paper_fidelity"] = fidelity_run(cfg, params, batch, "phi-3-vision-4.2b",
                                          LINEARS_PER_LAYER * L, prefill_rows=(Bs * Pn,))
     results["phi3"] = out
+
+
+# ---- 17. whisper-tiny: the encoder, cross-attention, head_dim 64 ------------
+WHISPER_PROMPT = 32     # the classic request's prompt tokens (beside 1,500 frames)
+WHISPER_TOKENS = 96     # and its new tokens
+ENC_LINEARS = 6         # PIM linears of an encoder layer: wq wk wv wo w_in w_out
+DEC_LINEARS = 8         # of a decoder layer and forward: wq wk wv wo, xattn wq wo,
+                        # w_in w_out (and its xattn wk / wv at the prefill)
+
+
+def whisper_kernels(dev, entries, compare) -> None:
+    """Phase 17 (a): kernels 1 and 2 at whisper-tiny's heads (6/6 of 64,
+    batch 4) against their plain versions, iteration maps against the
+    analytic count, each timed beside its bound and non-causal bf16 SDPA:
+    kernel 1 not causal, Sq 32 and 448 over the 1,500-token cross cache;
+    kernel 2 not causal over it at block_k 256 (six partitions, the last
+    of 220 rows), int8 and 4-bit, where the query's offset bounds nothing;
+    kernel 2 causal at kv_len 4096."""
+    cfg = get_config("whisper-tiny")
+    pim_cfg, lut_cfg = cfg.pim, cfg.lut
+    H, Dh, B, Se = cfg.num_heads, cfg.resolved_head_dim, 4, cfg.encoder_seq_len
+    gen = torch.Generator(device=dev).manual_seed(17)
+    kw = dict(pim_cfg=pim_cfg, lut_cfg=lut_cfg, return_iters=True)
+    timed = {}
+
+    def operands(Sq, Sk, kv_bits=8):
+        q = torch.randn(B, Sq, H, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
+        k = torch.randn(B, Sk, H, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
+        v = torch.randn(B, Sk, H, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
+        cache = A.init_kv_cache(B, Sk, H, Dh, kv_bits=kv_bits, device=dev)
+        A.cache_write(cache, k, v, 0, pim_cfg)
+        kf = torch.randn(B, H, Sk, Dh, generator=gen, device=dev, dtype=torch.bfloat16)
+        return q, kf, ops.kernel_attention_layout(q, cache, pim_cfg.input_bits)
+
+    def report(key, t, nbytes, pairs):
+        t["bound_ms"], t["bound_by"] = attention_bound(nbytes, pairs, Dh)
+        timed[key] = t
+        print(f"  {key}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, sdpa bf16 "
+              f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['ms']:.1%} of it", flush=True)
+
+    print(f"kernels vs plain versions at whisper-tiny's heads ({H}/{H} of {Dh}):",
+          flush=True)
+    for Sq in (32, 448):
+        q, kf, opnd = operands(Sq, Se)
+        name = f"prefill Dh{Dh} cross Sq{Sq} over {Se}, not causal"
+        got = pim_attention(*opnd, 0, Se, causal=False, **kw)
+        compare(name, got, pim_attention_plain(*opnd, 0, Se, causal=False, **kw))
+        exp = expected_kv_block_iters(Sq, Se, 0, 32, 256, causal=False)
+        check(bool((got[1].sum(dim=1) == exp).all()),
+              f"{name}: iterations per head == expected_kv_block_iters ({exp})")
+        t = timed_call(
+            lambda: pim_attention(*opnd, 0, Se, pim_cfg, lut_cfg, causal=False),
+            lambda: pim_attention_plain(*opnd, 0, Se, pim_cfg, lut_cfg, causal=False),
+            lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kf, kf),
+            "pim_attention_kernel", 20)
+        report(f"prefill 6/6 Sq{Sq} over {Se}, not causal", t,
+               sum(x.numel() * x.element_size() for x in opnd) + B * H * Sq * Dh * 4,
+               B * H * Sq * Se)
+    kwd = dict(kw, block_k=256)
+    for kv_bits in (8, 4):
+        q, kf, opnd = operands(1, Se, kv_bits)
+        name = f"decode Dh{Dh} cross over {Se} kv{kv_bits}, not causal"
+        got = pim_decode(*opnd, 0, Se, causal=False, **kwd)
+        compare(name, got, pim_decode_plain(*opnd, 0, Se, causal=False, **kwd))
+        exp = expected_kv_block_iters(1, Se, 0, 1, 256, causal=False)
+        check(bool((got[1].sum(dim=1) == exp).all()) and exp == 6,
+              f"{name}: partitions per KV head == expected_kv_block_iters ({exp})")
+        at = pim_decode(*opnd, WHISPER_PROMPT + 7, Se, causal=False, **kwd)
+        check(torch.equal(at[0], got[0]) and torch.equal(at[1], got[1]),
+              f"{name}: a query offset of {WHISPER_PROMPT + 7} gives the same bits "
+              "(it bounds nothing)")
+        plan = dec_k._checked_plan(1, Dh, Dh * kv_bits // 8, 256, 6, B * H, False,
+                                   dev.index or 0)
+        t = timed_call(
+            lambda: pim_decode(*opnd, 0, Se, pim_cfg, lut_cfg, causal=False, block_k=256),
+            lambda: pim_decode_plain(*opnd, 0, Se, pim_cfg, lut_cfg, causal=False,
+                                     block_k=256),
+            lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kf, kf),
+            "pim_decode_kernel", 50)
+        t["grid"] = dict(rows=plan.rows, dsplit=plan.dsplit, chunks=plan.chunks)
+        report(f"decode 6/6 over {Se} kv{kv_bits}, not causal", t,
+               B * H * Se * (2 * Dh * kv_bits // 8 + 8) + B * H * (Dh + 4 + 4 * Dh),
+               B * H * Se)
+    kv = 4096
+    q, kf, opnd = operands(1, kv)
+    name = f"decode Dh{Dh} 6/6 kv_len {kv}, causal"
+    got = pim_decode(*opnd, kv - 1, kv, **kwd)
+    compare(name, got, pim_decode_plain(*opnd, kv - 1, kv, **kwd))
+    exp = expected_kv_block_iters(1, kv, kv - 1, 1, 256, kv_valid_len=kv)
+    check(bool((got[1].sum(dim=1) == exp).all()),
+          f"{name}: partitions per KV head == expected_kv_block_iters ({exp})")
+    t = timed_call(lambda: pim_decode(*opnd, kv - 1, kv, pim_cfg, lut_cfg, block_k=256),
+                   lambda: pim_decode_plain(*opnd, kv - 1, kv, pim_cfg, lut_cfg,
+                                            block_k=256),
+                   lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kf, kf),
+                   "pim_decode_kernel", 50)
+    report(f"decode 6/6 kv_len {kv}, causal", t,
+           B * H * kv * (2 * Dh + 8) + B * H * (Dh + 4 + 4 * Dh), B * H * kv)
+    for name, prefix in (("pim_attention", "prefill"), ("pim_decode", "decode")):
+        if name in entries:
+            entries[name]["dh64"] = {k: v for k, v in timed.items() if k.startswith(prefix)}
+
+
+def cross_planes(cache) -> list:
+    """Copies of every cross-attention layer's cross K/V planes."""
+    return [getattr(st["cross"], f).clone() for st in cache["blocks"]
+            for f in ("k_q", "v_q", "k_scale", "v_scale")]
+
+
+def softmax_sum_gap(args) -> dict:
+    """Kernel 4 at a served launch beside the reference's order: its codes
+    (an integer sum of a row's exps) against `lut_softmax_codes` (the
+    reference's float32 sum, which is exact below 2^24), and the largest
+    row sum of exps."""
+    scores, mask, lut = args
+    codes = sm_k.lut_softmax(scores, mask, lut)
+    ref = lut_softmax_codes(scores, lut, mask=mask.expand(scores.shape))
+    s = torch.where(mask, scores.to(torch.int32), -(1 << 24))
+    table, _ = build_exp_table(lut, scores.device)
+    e = torch.where(mask, table[torch.clamp(s.amax(-1, keepdim=True) - s, 0, 255).long()], 0)
+    return dict(codes_differing=int((codes != ref).sum()), codes=codes.numel(),
+                max_row_sum=int(e.long().sum(-1).max()))
+
+
+def whisper_fidelity(cfg, params, batch, out) -> None:
+    """Phase 17 (c): the classic request cut to 4 new tokens at the paper's
+    fidelity: every PIM linear through the 6-bit ADC (kernel 3), the
+    encoder's at M = B x 1,500 included, and behavioral attention, whose LUT
+    softmax is kernel 4 on self rows and on cross rows of 1,500 positions.
+    Launch counts from the code: the encoder's ENC_LINEARS a layer and each
+    decoder layer's xattn wk / wv at the prefill, DEC_LINEARS a decoder
+    layer and forward; two kernel 4 launches a decoder layer and forward.
+    Kernel 3's launches of the encoder's first layer, the prefill's first
+    decoder layer and the first decode forward's first layer, and kernel 4's
+    of both attentions of the first layer at the prefill and the first
+    decode forward, held against the plain versions bit for bit; kernel 4
+    on the cross rows beside the reference's float32 sum (`softmax_sum_gap`)."""
+    pcfg = dataclasses.replace(cfg, attn_impl="behavioral",
+                               pim=dataclasses.replace(cfg.pim, adc_mode="quantized"))
+    model = build_model(pcfg)
+    L, n_enc, Se = cfg.num_layers, cfg.num_encoder_layers, cfg.encoder_seq_len
+    B, P = batch["tokens"].shape
+    T = 4
+    pre = ENC_LINEARS * n_enc + (DEC_LINEARS + 2) * L   # the prefill's linears
+
+    def pick(name, i):
+        if name == "pim_matmul":
+            if i < ENC_LINEARS:
+                return f"encoder layer 0 linear {i}"
+            j = i - ENC_LINEARS * n_enc
+            if 0 <= j < DEC_LINEARS + 2:
+                return f"prefill decoder layer 0 linear {j}"
+            if 0 <= i - pre < DEC_LINEARS:
+                return f"decode forward 2 layer 0 linear {i - pre}"
+            return None
+        return {0: "prefill self attention", 1: "prefill cross attention",
+                2 * L: "decode forward 2 self attention",
+                2 * L + 1: "decode forward 2 cross attention"}.get(i)
+
+    # the decoder layer's M: its own rows, but B x Se for xattn wk / wv (4, 5)
+    rows = {**{f"encoder layer 0 linear {i}": B * Se for i in range(ENC_LINEARS)},
+            **{f"prefill decoder layer 0 linear {j}": B * Se if j in (4, 5) else B * P
+               for j in range(DEC_LINEARS + 2)},
+            **{f"decode forward 2 layer 0 linear {j}": B for j in range(DEC_LINEARS)},
+            "prefill self attention": B * P, "prefill cross attention": B * P,
+            "decode forward 2 self attention": B, "decode forward 2 cross attention": B}
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    with plain_calls() as n_plain, recorded(pick, ADC_TARGETS) as kept:
+        t0 = time.perf_counter()
+        toks = serve_lib.generate(model, params, batch, T, P + T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    want = {"pim_matmul": pre + (T - 1) * DEC_LINEARS * L, "lut_softmax": 2 * L * T}
+    check(not n_plain, f"whisper-tiny paper fidelity: no plain-version call ({n_plain})")
+    check(launches == want, f"whisper-tiny paper fidelity: launches {launches} == {want}")
+    gap = softmax_sum_gap(kept["prefill cross attention"][1])
+    check(tuple(kept["prefill cross attention"][1][0].shape[-1:]) == (Se,),
+          f"whisper-tiny paper fidelity: kernel 4 served cross rows of {Se} positions")
+    replay_adc("whisper-tiny paper fidelity", kept, rows)
+    check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          "whisper-tiny paper fidelity: tokens in the vocabulary")
+    print(f"  paper fidelity (whisper-tiny): prompt {P} with {Se} frames, {T} new tokens "
+          f"in {wall:.2f} s, launches {launches}; kernel 3 == plain bit for bit at M "
+          f"{sorted({int(a[0].shape[0]) for n, a, _ in kept.values() if n == 'pim_matmul'})}"
+          f"; kernel 4 on the prefill's cross rows: largest row sum of exps "
+          f"{gap['max_row_sum']:,} ({gap['max_row_sum'] / 2 ** 24:.2f} x 2^24), "
+          f"{gap['codes_differing']} of {gap['codes']:,} codes differ from a float32 "
+          f"sum's; first sequence {toks[0].tolist()}", flush=True)
+    out["paper_fidelity"] = dict(wall_s=wall, launches=launches, cross_softmax=gap)
+
+
+def whisper_phase(dev, entries, compare, results) -> None:
+    """Phase 17, whisper-tiny at full width and depth (4 encoder and 4
+    decoder layers, d_model 384, 6/6 heads of 64, GELU d_ff 1,536,
+    layernorm, absolute positions, vocab 51,865, 1,500 frames)."""
+    stamp("phase 17 (a): kernels 1 and 2 at whisper-tiny's heads")
+    whisper_kernels(dev, entries, compare)
+    stamp("phase 17 (b): whisper-tiny")
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("whisper-tiny"), attn_impl="kernel")
+    model, params, out = load_model(cfg, "whisper-tiny")
+    L, V, Se = cfg.num_layers, cfg.vocab_size, cfg.encoder_seq_len
+    Bs, P, T = 4, WHISPER_PROMPT, WHISPER_TOKENS
+    max_len = P + T
+    shape = types.SimpleNamespace(global_batch=Bs, seq_len=P)
+    batch = {k: torch.from_numpy(v) for k, v in data.make_batch(cfg, shape, 0).items()}
+    batch["tokens"] = batch["tokens"].long()
+    check(tuple(batch["frames"].shape) == (Bs, Se, cfg.d_model),
+          f"whisper-tiny: make_batch gives ({Bs}, {Se}, {cfg.d_model}) frames")
+    dbatch = {k: v.to(dev) for k, v in batch.items()}
+
+    # the encoder alone, and the cross planes across decode steps
+    with torch.inference_mode():
+        enc = TT.encode(params, dbatch["frames"], cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = TT.encode(params, dbatch["frames"], cfg)
+        torch.cuda.synchronize()
+        enc_wall = time.perf_counter() - t0
+        check(tuple(enc.shape) == (Bs, Se, cfg.d_model) and bool(torch.isfinite(enc).all()),
+              f"whisper-tiny: the encoder's output is ({Bs}, {Se}, {cfg.d_model}), finite")
+        enc_dev = device_ms(lambda: TT.encode(params, dbatch["frames"], cfg), 3,
+                            "the whisper-tiny encoder")
+        del enc
+        cache = model.init_cache(Bs, max_len)
+        logits, cache = model.forward_serve(params, dbatch, cache, 0)
+        before = cross_planes(cache)
+        for t in range(8):
+            logits, cache = model.forward_serve(
+                params, {"tokens": logits.argmax(-1)[:, None]}, cache, P + t)
+        after = cross_planes(cache)
+    check(all(torch.equal(a, b) for a, b in zip(before, after))
+          and all(st["cross"].length == Se and st["self"].length == P + 8
+                  for st in cache["blocks"]),
+          f"whisper-tiny: the cross K/V planes written at the prefill are unchanged by 8 "
+          f"decode steps (cross length {Se}, self length {P + 8})")
+    del cache, before, after
+    print(f"  encoder ({Bs} x {Se} frames, {cfg.num_encoder_layers} layers): wall "
+          f"{enc_wall * 1e3:.2f} ms, device {enc_dev:.3f} ms", flush=True)
+
+    serve_lib.generate(model, params, batch, 2, max_len)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve_lib.generate(model, params, batch, 1, max_len)          # prefill only
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+
+    def pick(name, i):
+        first = 2 * (2 * L)        # decode forward 4's first layer (2L launches a forward)
+        return {("pim_attention", 0): "self prefill layer 0",
+                ("pim_attention", 1): "cross prefill layer 0",
+                ("pim_decode", first): "self decode forward 4 layer 0",
+                ("pim_decode", first + 1): "cross decode forward 4 layer 0"}.get((name, i))
+
+    toks, launches, wall = classic_run(
+        model, params, batch, T, max_len, "whisper-tiny classic request",
+        {"pim_attention": 2 * L, "pim_decode": (T - 1) * 2 * L}, pick, compare)
+    decode_ms = (wall - prefill_s) / (T - 1) * 1e3
+    print(f"  classic request (batch {Bs}, {Se} frames, prompt {P}, {T} new tokens): "
+          f"prefill {prefill_s * 1e3:.1f} ms, decode {decode_ms:.2f} ms/token, "
+          f"{Bs * T / wall:.1f} tokens/s; launches {launches}; first sequence "
+          f"{toks[0, :12].tolist()}", flush=True)
+    out["encoder"] = dict(wall_ms=enc_wall * 1e3, device_ms=enc_dev)
+    out["classic"] = dict(prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_ms,
+                          tokens_per_s=Bs * T / wall, launches=launches)
+    for name in ("pim_attention", "pim_decode"):
+        griffin_launches(entries, name, "whisper-tiny classic", launches[name])
+    out["profile"] = profile_cut(model, params, batch, PROFILED_TOKENS, max_len,
+                                 f"whisper-tiny request cut to {PROFILED_TOKENS} new "
+                                 "tokens", entries, ATTENTION_KERNELS)
+    stamp("phase 17 (c): whisper-tiny at the paper's fidelity")
+    whisper_fidelity(cfg, params, batch, out)
+    try:
+        serve_lib.Scheduler(model, params, page_size=PAGE, **SCHED_KW)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused and not serve_lib.scheduler_supported(cfg),
+          "whisper-tiny: the Scheduler refuses the encoder-decoder arch, as the "
+          "reference's does")
+    results["whisper"] = out
 
 
 if __name__ == "__main__":

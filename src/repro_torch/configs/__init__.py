@@ -8,6 +8,7 @@ from repro_torch.configs import (
     phi_3_vision_4_2b,
     qwen2_72b,
     recurrentgemma_9b,
+    whisper_tiny,
 )
 from repro_torch.configs.base import (  # noqa: F401
     LUTSoftmaxConfig, ModelConfig, MoEConfig, PIMConfig,
@@ -22,6 +23,7 @@ _MODULES = {
     "gemma-7b": gemma_7b,
     "recurrentgemma-9b": recurrentgemma_9b,
     "phi-3-vision-4.2b": phi_3_vision_4_2b,
+    "whisper-tiny": whisper_tiny,
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -106,7 +106,8 @@ class ModelConfig:
         counts every routed and shared expert and the router, a dense
         prefix layer its MLP, and an RG-LRU layer, as the reference counts
         it, its x / gate / out projections, conv and two gate vectors and
-        its MLP (the reference leaves out its (w, w) gate matrices)."""
+        its MLP (the reference leaves out its (w, w) gate matrices), and an
+        encoder-decoder's encoder and cross attention."""
         d, h = self.d_model, self.resolved_head_dim
         attn = d * h * self.num_heads + 2 * d * h * self.num_kv_heads \
             + h * self.num_heads * d
@@ -125,6 +126,12 @@ class ModelConfig:
                  + n_rglru * rglru + self.vocab_size * d)
         if not self.tie_embeddings:
             total += self.vocab_size * d
+        if self.is_encoder_decoder:
+            # the encoder's layers (a 2-matrix MLP) and each decoder
+            # layer's cross attention with its norm, as the reference
+            # counts them (it leaves out the position tables)
+            total += self.num_encoder_layers * (attn + 2 * d * self.d_ff + 2 * d)
+            total += self.num_layers * (attn + 2 * d)
         return total
 
 

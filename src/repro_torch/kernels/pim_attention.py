@@ -116,8 +116,9 @@ def launch_plan(dh: int, dhk: int, block_q: int, q_per_kv: int,
 
 
 # When a list, every launch appends its (3, nb) int32 scalar table on the
-# device (q_offset, kv_len, q_len) and q's (BH, Sq, Dh): the served shapes
-# of a run, read after it without a host sync during it.
+# device (q_offset, kv_len, q_len), q's (BH, Sq, Dh) and whether it is
+# causal: the served shapes of a run, read after it without a host sync
+# during it.
 SHAPES: Optional[list] = None
 
 
@@ -423,5 +424,5 @@ def _launch(q_q, q_scale, k_q, k_scale, v_q, v_scale, page_table, scalars,
     _build.check(err, "pim_attention launch")
     _build.LAUNCHES["pim_attention"] += 1
     if SHAPES is not None:
-        SHAPES.append((scalars, tuple(q_q.shape)))
+        SHAPES.append((scalars, tuple(q_q.shape), bool(causal)))
     return out, iters

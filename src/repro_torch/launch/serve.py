@@ -7,9 +7,12 @@ KV cache, greedy by default.
 `--arch` takes every arch of `repro_torch.configs.ARCH_NAMES`: the attention
 stacks internlm2-1.8b, qwen2-72b, mistral-large-123b and gemma-7b, the MoE
 stacks deepseek-moe-16b and dbrx-132b, the hybrid recurrentgemma-9b
-(RG-LRU and sliding-window attention; the classic path only) and the VLM
+(RG-LRU and sliding-window attention; the classic path only), the VLM
 phi-3-vision-4.2b (head_dim 96; the classic prefill also takes the batch's
-576 random image patch embeddings) (`--smoke` for their small variants).
+576 random image patch embeddings) and the encoder-decoder whisper-tiny
+(the classic prefill encodes the batch's 1,500 random frame embeddings;
+the classic path only: `--continuous-batching` raises, as the reference's
+does) (`--smoke` for their small variants).
 The batch is `data.make_batch(cfg, (batch, prompt_len), step 0)`, as the
 JAX package's CLI builds it: the tokens of `lm_batch`, and the modality
 stubs a config has.

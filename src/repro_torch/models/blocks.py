@@ -1,10 +1,13 @@
 """The serve-path blocks: attention (`attn`; `attn_local`, its sliding-
 window form; `moe`, the same block with a Mixture-of-Experts FFN in place
-of the MLP) and Griffin's RG-LRU recurrence (`rglru`).
+of the MLP), Griffin's RG-LRU recurrence (`rglru`), and whisper's
+bidirectional encoder block (`enc_attn`) and cross-attention decoder block
+(`xattn`).
 
-Counterpart of the attention and RG-LRU blocks of the JAX package's
-`models/blocks.py`; attention on three storages: the classic dense cache (scalar offset), ragged dense
-slots and the paged pool (per-row offsets).  Serve-path attention runs the
+Counterpart of the attention, cross-attention and RG-LRU blocks of the JAX
+package's `models/blocks.py`; attention on three storages: the classic
+dense cache (scalar offset), ragged dense slots and the paged pool (per-row
+offsets).  Serve-path attention runs the
 paper's PIM pipeline, either the behavioral two-pass
 (`cfg.attn_impl == "behavioral"`) or the fused kernels (`"kernel"`), and
 serves mixed prefill+decode steps and speculative verify rows.
@@ -212,6 +215,71 @@ def attn_block_fwd_serve(params, x: torch.Tensor, cache, offset,
     o = pim.pim_linear_apply(params["attn"]["wo"], o.reshape(B, S, -1),
                              cfg.pim, cfg.pim_linears)
     x = x + o
+    h = L.norm_apply(params["norm2"], x, cfg.norm)
+    return x + _ffn(params, h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# whisper: the encoder block and the cross-attention decoder block
+# ---------------------------------------------------------------------------
+def attn_block_fwd_encode(params, x: torch.Tensor,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """One encoder block over the whole (B, Se, D) sequence: the
+    reference's `attn_block_fwd_train(causal=False)`, forward only.  Its
+    attention is `fp_attention` (float32 softmax, no KV cache), which is
+    plain arithmetic in the reference too, outside every Pallas kernel."""
+    B, S, _ = x.shape
+    h = L.norm_apply(params["norm1"], x, cfg.norm)
+    q, k, v = _qkv(params["attn"], h, cfg, torch.arange(S, device=x.device))
+    o = A.fp_attention(q, k, v, q_offset=0, causal=False)
+    x = x + pim.pim_linear_apply(params["attn"]["wo"], o.reshape(B, S, -1),
+                                 cfg.pim, cfg.pim_linears)
+    h = L.norm_apply(params["norm2"], x, cfg.norm)
+    return x + _ffn(params, h, cfg)
+
+
+def xattn_block_fwd_serve(params, x: torch.Tensor, state, offset: int,
+                          cfg: ModelConfig, enc_out=None) -> torch.Tensor:
+    """Prefill or decode of one decoder block of whisper, classic path:
+    causal self-attention over `state["self"]` (written at offset), then
+    cross-attention of the `norm_x`-normed stream over `state["cross"]`
+    (query offset 0, not causal: every encoder position is visible), then
+    the MLP.  Both caches are updated in place.
+
+    The cross K/V are the encoder output `enc_out` (B, Se, D) through the
+    `xattn` wk / wv linears, quantized and written at position 0 of the
+    cross cache, when the step carries it: the classic path's prefill.
+    The reference passes `enc_out` to every decode step too and re-projects
+    and re-writes the same K/V there; the write is deterministic, so its
+    codes and scales are those of the prefill's, and the port writes them
+    once and lets decode steps read them.  A step without `enc_out` over a
+    cross cache that was never written raises."""
+    B, S, _ = x.shape
+    p, en, dh = cfg.pim, cfg.pim_linears, cfg.resolved_head_dim
+    h = L.norm_apply(params["norm1"], x, cfg.norm)
+    q, k, v = _qkv(params["attn"], h, cfg,
+                   offset + torch.arange(S, device=x.device))
+    A.cache_write(state["self"], k, v, offset, p)
+    o = _serve_attend(q, state["self"], offset, cfg, 0, True)
+    x = x + pim.pim_linear_apply(params["attn"]["wo"], o.reshape(B, S, -1),
+                                 p, en)
+    cross = state["cross"]
+    if enc_out is not None:
+        Se = enc_out.shape[1]
+        kx = pim.pim_linear_apply(params["xattn"]["wk"], enc_out, p, en
+                                  ).reshape(B, Se, cfg.num_kv_heads, dh)
+        vx = pim.pim_linear_apply(params["xattn"]["wv"], enc_out, p, en
+                                  ).reshape(B, Se, cfg.num_kv_heads, dh)
+        A.cache_write(cross, kx, vx, 0, p)
+    elif not cross.length:
+        raise ValueError("a cross-attention cache is written by a step that "
+                         "carries the batch's frames (the prefill)")
+    h = L.norm_apply(params["norm_x"], x, cfg.norm)
+    qx = pim.pim_linear_apply(params["xattn"]["wq"], h, p, en
+                              ).reshape(B, S, cfg.num_heads, dh)
+    ox = _serve_attend(qx, cross, 0, cfg, 0, False)
+    x = x + pim.pim_linear_apply(params["xattn"]["wo"], ox.reshape(B, S, -1),
+                                 p, en)
     h = L.norm_apply(params["norm2"], x, cfg.norm)
     return x + _ffn(params, h, cfg)
 

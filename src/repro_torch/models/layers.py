@@ -1,11 +1,15 @@
-"""Shared model layers: norms, embeddings, RoPE and the MLP (through PIM
-linears).  Counterpart of the JAX package's `models/layers.py`; parameters
-are plain dicts of tensors in the same tree layout."""
+"""Shared model layers: norms, embeddings, RoPE, sinusoidal positions and
+the MLP (through PIM linears).  Counterpart of the JAX package's
+`models/layers.py`; parameters are plain dicts of tensors in the same tree
+layout."""
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import functools
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -90,6 +94,73 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     y = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return y.to(x.dtype)
+
+
+# The f32 constants of XLA's CPU exp (clamp bounds, log2(e), ln 2 in two
+# parts, the polynomial's coefficients from the cubic term up)
+_EXP_LO, _EXP_HI = np.float32(-87.8), np.float32(88.8)
+_LOG2E, _LN2_HI, _LN2_LO = np.float32(1.44269502), np.float32(0.693359375), \
+    np.float32(-2.12194442e-4)
+_EXP_POLY = tuple(np.float32(c) for c in (
+    1.98756912e-4, 1.39819994e-3, 8.33345205e-3, 4.16657962e-2, 1.66666657e-1,
+    0.5))
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """a * b + c on float32 values, rounded once (the product is exact in
+    float64, the sum rounded to float64 and then to float32)."""
+    f = np.float64
+    return (np.asarray(a, f) * np.asarray(b, f) + np.asarray(c, f)
+            ).astype(np.float32)
+
+
+def _xla_exp(x: np.ndarray) -> np.ndarray:
+    """exp of float32 x as the reference's XLA computes it on an x86-64
+    CPU: 2^m * p(r), r = x - m ln 2 (m = floor(x log2 e + 1/2)), the
+    polynomial by fused multiply-adds, subnormal results flushed to 0.
+    torch's and numpy's exp differ from it by an ulp now and then (21 of
+    whisper-tiny's 192 inverse frequencies)."""
+    x = np.clip(np.asarray(x, np.float32), _EXP_LO, _EXP_HI)
+    m = np.clip(np.floor(_fma(x, _LOG2E, 0.5)), -127, 127).astype(np.float32)
+    r = _fma(-m, _LN2_LO, _fma(-m, _LN2_HI, x))
+    p = _EXP_POLY[0]
+    for c in _EXP_POLY[1:]:
+        p = _fma(p, r, c)
+    p = _fma(p, r * r, r) + np.float32(1.0)
+    y = p * ((m.astype(np.int32) + 127) << 23).view(np.float32)
+    return np.where(np.abs(y) < np.finfo(np.float32).tiny, np.float32(0), y)
+
+
+@functools.lru_cache(maxsize=None)
+def _libm_f32(name: str):
+    """The C library's float32 `sinf` / `cosf`, which the reference's XLA
+    calls for sin and cos on the CPU (torch's and numpy's differ from them
+    in 2-13 % of whisper-tiny's table); a numpy ufunc."""
+    fn = getattr(ctypes.CDLL(ctypes.util.find_library("m")), name)
+    fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    return np.frompyfunc(fn, 1, 1)
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoid_table(seq: int, d: int) -> np.ndarray:
+    pos = np.arange(seq, dtype=np.float32)[:, None]
+    step = np.log(np.float32(10000.0)) * np.float32(-1.0) / np.float32(d)
+    arg = pos * _xla_exp(np.arange(0, d, 2, dtype=np.float32) * step)
+    pe = np.zeros((seq, d), np.float32)
+    pe[:, 0::2] = _libm_f32("sinf")(arg).astype(np.float32)
+    pe[:, 1::2] = _libm_f32("cosf")(arg).astype(np.float32)
+    pe.flags.writeable = False
+    return pe
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """The (seq, d) float32 sinusoid table of the reference's encoder:
+    sin(p w_i) at even columns and cos(p w_i) at odd ones, w_i =
+    exp(-2i ln(10^4) / d), bit for bit the reference's on the CPU (its
+    exp, sinf and cosf, `_xla_exp` and `_libm_f32`).  Built once per
+    shape on the host (about 0.2 s at whisper-tiny's 1,500 x 384), then
+    copied to `device`."""
+    return torch.from_numpy(_sinusoid_table(seq, d).copy()).to(device)
 
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)

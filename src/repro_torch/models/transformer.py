@@ -1,19 +1,21 @@
-"""Model assembly for attention, MoE and hybrid RG-LRU stacks: parameter
-init, the serve state and the serve forward (with a VLM's image patch
-embeddings projected into the first positions of a prompt).
+"""Model assembly for attention, MoE, hybrid RG-LRU and encoder-decoder
+stacks: parameter init, the serve state and the serve forward (with a
+VLM's image patch embeddings projected into the first positions of a
+prompt, and an encoder-decoder's frames encoded at its prefill).
 
 Counterpart of the JAX package's `models/transformer.py` for serving:
 attention and MoE stacks on the classic dense cache, ragged slots and the
 paged pool; sliding-window attention (`attn_local`, ring caches past the
-window) and RG-LRU blocks on the classic path.  Parameters keep the
-reference's tree: `"blocks"` is a tuple with one stack per block-pattern
-position, each leaf carrying a leading layer-repetition axis; `"tail"`
-holds the unrolled remainder and, for a MoE arch with dense leading layers
-(deepseek-moe), `"dense_prefix"` those layers, which run first.  The
-reference scans over the layer axis; here it is a Python loop over layer
-views.  Serve-state trees carry the same keys; leaves under "blocks" have
-the layer axis first (batch or page axis 1), those under "tail" and
-"dense_prefix" do not (axis 0).
+window), RG-LRU blocks and whisper's cross-attention decoder blocks
+(`xattn`, with the bidirectional encoder `encode`) on the classic path.
+Parameters keep the reference's tree: `"blocks"` is a tuple with one stack
+per block-pattern position, each leaf carrying a leading layer-repetition
+axis; `"tail"` holds the unrolled remainder and, for a MoE arch with dense
+leading layers (deepseek-moe), `"dense_prefix"` those layers, which run
+first.  The reference scans over the layer axis; here it is a Python loop
+over layer views.  Serve-state trees carry the same keys; leaves under
+"blocks" have the layer axis first (batch or page axis 1), those under
+"tail" and "dense_prefix" do not (axis 0).
 """
 from __future__ import annotations
 
@@ -31,24 +33,26 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 
 
-SERVED_KINDS = ("attn", "attn_local", "moe", "rglru")
+SERVED_KINDS = ("attn", "attn_local", "moe", "rglru", "xattn", "enc_attn")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves attention, sliding-window attention, MoE and RG-LRU
-    stacks, with image patch embeddings (the VLM stub); anything else
-    raises, naming the ROADMAP item (§1) that ports it."""
+    """The port serves attention, sliding-window attention, MoE, RG-LRU and
+    cross-attention decoder stacks, with image patch embeddings (the VLM
+    stub) or an encoder over frame embeddings (the audio stub), and rope,
+    absolute or no positions; anything else raises, naming the ROADMAP
+    item (§1) that ports it."""
     unsupported = []
     kinds = set(cfg.block_pattern) - set(SERVED_KINDS)
     if kinds:
         unsupported.append(f"block kinds {sorted(kinds)} (item 7: xlstm-1.3b's "
-                           "mlstm / slstm, whisper-tiny's xattn / enc_attn)")
+                           "mlstm / slstm)")
     if "moe" in cfg.block_pattern and not cfg.moe.num_experts:
         unsupported.append("a moe block without experts")
-    if cfg.is_encoder_decoder:
-        unsupported.append("an encoder (item 7: whisper-tiny)")
-    if cfg.pos not in ("rope", "none"):
-        unsupported.append(f"pos={cfg.pos!r} (item 7: whisper-tiny)")
+    if cfg.is_encoder_decoder and "xattn" not in cfg.block_pattern:
+        unsupported.append("an encoder without cross-attention blocks")
+    if cfg.pos not in ("rope", "absolute", "none"):
+        unsupported.append(f"pos={cfg.pos!r}")
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: the port does not serve {', '.join(unsupported)} yet")
@@ -75,17 +79,33 @@ def _moe_kind_for_layer(cfg: ModelConfig, kind: str, layer_idx: int) -> str:
     return kind
 
 
+def _norm_init(ones, cfg: ModelConfig, lead=()):
+    """A norm's {"scale"} (ones), and for a layernorm its {"bias"} (zeros)."""
+    p = {"scale": ones(lead + (cfg.d_model,))}
+    if cfg.norm == "layernorm":
+        p["bias"] = ones(lead + (cfg.d_model,)).zero_()
+    return p
+
+
 def _block_init(kind: str, normal, ones, linear, expert_linear,
                 cfg: ModelConfig, lead):
     """One block, or a stack of them (`lead` the layer axis).  An attention
-    block (`attn`, `attn_local`) carries an MLP, a `moe` one a MoE FFN in
-    its place; the FFN is drawn before the attention, as every earlier
-    slice drew it (the weights of a seed stay those of earlier runs)."""
+    block (`attn`, `attn_local`, the encoder's `enc_attn`) carries an MLP,
+    a `moe` one a MoE FFN in its place; the FFN is drawn before the
+    attention, as every earlier slice drew it (the weights of a seed stay
+    those of earlier runs).  A cross-attention block (`xattn`) also carries
+    `norm_x` and the `xattn` linears, drawn last."""
     d, dh, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
 
     def lin(d_in, d_out, bias=False):
         return linear(lead, d_in, d_out, 1.0 / d_in ** 0.5, bias)
+
+    def attn():
+        return {"wq": lin(d, nq * dh, cfg.qkv_bias),
+                "wk": lin(d, nkv * dh, cfg.qkv_bias),
+                "wv": lin(d, nkv * dh, cfg.qkv_bias),
+                "wo": lin(nq * dh, d)}
 
     def mlp():
         m = {"w_in": lin(d, f), "w_out": lin(f, d)}
@@ -99,15 +119,16 @@ def _block_init(kind: str, normal, ones, linear, expert_linear,
         ffn = {"moe": M.moe_ffn_init(normal, cfg, lead, expert_linear)}
     else:
         ffn = {"mlp": mlp()}
-    return {
-        "norm1": {"scale": ones(lead + (d,))},
-        "attn": {"wq": lin(d, nq * dh, cfg.qkv_bias),
-                 "wk": lin(d, nkv * dh, cfg.qkv_bias),
-                 "wv": lin(d, nkv * dh, cfg.qkv_bias),
-                 "wo": lin(nq * dh, d)},
-        "norm2": {"scale": ones(lead + (d,))},
+    p = {
+        "norm1": _norm_init(ones, cfg, lead),
+        "attn": attn(),
+        "norm2": _norm_init(ones, cfg, lead),
         **ffn,
     }
+    if kind == "xattn":
+        p["norm_x"] = _norm_init(ones, cfg, lead)
+        p["xattn"] = attn()
+    return p
 
 
 def _rglru_init(normal, ones, lin, mlp, cfg: ModelConfig, lead):
@@ -135,7 +156,11 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     and expert axes), which `expert_linear(lead, d_in, d_out, scale)`
     makes when it is given.  A config with image patches also gets
     `img_proj`, a (d_model, d_model) linear without bias, drawn after the
-    head table, so every other config's draws stay as they were."""
+    head table; one with absolute positions `pos_embed`, a float32
+    (max_seq_len, d_model) table N(0, 0.02^2) drawn there too; an
+    encoder-decoder `enc_blocks` (a stack of num_encoder_layers `enc_attn`
+    blocks) and `enc_norm`, drawn last.  So every other config's draws stay
+    as they were."""
     check_supported(cfg)
     pat, R, tail = pattern_layout(cfg)
 
@@ -163,6 +188,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         params["unembed"] = {
             "table": normal((cfg.vocab_size, cfg.d_model), 0.02)}
+    if cfg.pos == "absolute":
+        params["pos_embed"] = normal((cfg.max_seq_len, cfg.d_model), 0.02)
     if cfg.num_image_patches:
         params["img_proj"] = linear((), cfg.d_model, cfg.d_model,
                                     1.0 / cfg.d_model ** 0.5)
@@ -173,7 +200,10 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     if cfg.num_dense_layers and "moe" in pat:
         params["dense_prefix"] = tuple(
             blk("attn", lead=()) for _ in range(cfg.num_dense_layers))
-    params["final_norm"] = {"scale": ones((cfg.d_model,))}
+    params["final_norm"] = _norm_init(ones, cfg)
+    if cfg.is_encoder_decoder:
+        params["enc_blocks"] = blk("enc_attn", lead=(cfg.num_encoder_layers,))
+        params["enc_norm"] = _norm_init(ones, cfg)
     return params
 
 
@@ -182,9 +212,11 @@ def _state_init(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                 page_size: int = 0, num_pages: int = 0):
     """One layer's serve state, or a stack of them (`layers`): a KV cache
     (dense, ragged or a paged pool) for an attention kind, {"h", "conv"}
-    for an RG-LRU block.  A sliding-window layer whose context outgrows
-    its window (max_len > window) gets a ring of `window` slots, always
-    int8, as the reference's."""
+    for an RG-LRU block, {"self", "cross"} for a cross-attention block: a
+    cache of max_len tokens and one of encoder_seq_len, both int8 whatever
+    cfg.kv_bits says, as the reference's.  A sliding-window layer whose
+    context outgrows its window (max_len > window) gets a ring of `window`
+    slots, always int8, as the reference's."""
     dh = cfg.resolved_head_dim
     if page_size:
         if kind not in ("attn", "moe"):
@@ -193,6 +225,14 @@ def _state_init(kind: str, cfg: ModelConfig, batch: int, max_len: int,
         return A.init_paged_kv_cache(num_pages, page_size, cfg.num_kv_heads,
                                      dh, kv_bits=cfg.kv_bits, device=device,
                                      layers=layers)
+    if kind == "xattn":
+        if ragged:
+            raise NotImplementedError("cross-attention layers serve the "
+                                      "classic path only")
+        return {name: A.init_kv_cache(batch, n, cfg.num_kv_heads, dh,
+                                      device=device, layers=layers)
+                for name, n in (("self", max_len),
+                                ("cross", max(cfg.encoder_seq_len, 1)))}
     lead = () if layers is None else (layers,)
     if kind == "rglru":
         w = cfg.lru_width or cfg.d_model
@@ -336,10 +376,13 @@ def _index(tree, r: int):
 
 
 def _block_fwd_serve(kind: str, params, x, state, offset, cfg: ModelConfig,
-                     **kw) -> torch.Tensor:
-    if kind == "rglru":
+                     enc_out=None, **kw) -> torch.Tensor:
+    if kind in ("rglru", "xattn"):
         if kw["seq_lens"] is not None or kw["pages"] is not None:
-            raise NotImplementedError("RG-LRU layers serve the classic path only")
+            raise NotImplementedError(f"{kind} layers serve the classic path only")
+        if kind == "xattn":
+            return blocks.xattn_block_fwd_serve(params, x, state, offset, cfg,
+                                                enc_out=enc_out)
         return blocks.rglru_block_fwd_serve(params, x, state, cfg)
     window = cfg.window if kind == "attn_local" else 0
     causal = True if kind == "attn_local" else cfg.causal
@@ -347,17 +390,32 @@ def _block_fwd_serve(kind: str, params, x, state, offset, cfg: ModelConfig,
                                        window=window, causal=causal, **kw)
 
 
-def _embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
-                  ) -> torch.Tensor:
-    """The step's input embeddings (B, S, D) in the compute dtype.  Where the
-    config has image patches and the batch carries `image_embeds` (B, P0,
-    D), the patch embeddings, cast to the compute dtype, go through the
-    `img_proj` PIM linear and are added to the first P = min(P0, S)
-    positions of the step, as the reference's stub VLM fusion does: at
-    columns 0..P-1 of whatever step carries them, whatever its offset (the
-    classic path passes them to the prefill only)."""
+def _embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  offset=0) -> torch.Tensor:
+    """The step's input embeddings (B, S, D) in the compute dtype.  With
+    absolute positions the rows of the float32 `pos_embed` table at the
+    step's positions, cast to the compute dtype, are added: rows [offset,
+    offset + S) for an int offset, the start clamped into the table as the
+    reference's `dynamic_slice` clamps it; for (B,) offsets row b's
+    positions offset_b + j, each clamped into the table.  Where the config
+    has image patches and the batch carries `image_embeds` (B, P0, D), the
+    patch embeddings, cast to the compute dtype, go through the `img_proj`
+    PIM linear and are added to the first P = min(P0, S) positions of the
+    step, as the reference's stub VLM fusion does: at columns 0..P-1 of
+    whatever step carries them, whatever its offset (the classic path
+    passes them to the prefill only)."""
     x = L.embed_apply(params["embed"], batch["tokens"],
                       getattr(torch, cfg.compute_dtype))
+    if cfg.pos == "absolute":
+        table = params["pos_embed"]
+        T, S = table.shape[0], x.shape[1]
+        if isinstance(offset, torch.Tensor):
+            ar = torch.arange(S, device=offset.device)
+            pe = table[torch.clamp(offset.long()[:, None] + ar, 0, T - 1)]
+        else:
+            start = min(max(int(offset), 0), T - S)
+            pe = table[start:start + S]
+        x = x + pe.to(x.dtype)
     if cfg.num_image_patches and "image_embeds" in batch:
         img = pim.pim_linear_apply(params["img_proj"],
                                    batch["image_embeds"].to(x.dtype), cfg.pim,
@@ -365,6 +423,20 @@ def _embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
         P = min(cfg.num_image_patches, x.shape[1])
         x[:, :P] += img[:, :P]
     return x
+
+
+def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder: (B, Se, D) frame embeddings (the conv stem's stub) cast
+    to the compute dtype, plus the sinusoid table in that dtype, through
+    the `enc_blocks` stack (bidirectional attention blocks) and
+    `enc_norm`; (B, Se, D) out.  As the reference's `encode`."""
+    x = frames.to(getattr(torch, cfg.compute_dtype))
+    x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                   x.device).to(x.dtype)
+    for r in range(cfg.num_encoder_layers):
+        x = blocks.attn_block_fwd_encode(_index(params["enc_blocks"], r), x,
+                                         cfg)
+    return L.norm_apply(params["enc_norm"], x, cfg.norm)
 
 
 def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
@@ -392,12 +464,20 @@ def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
     single-token step it replaces.  Every layer reuses the step's offsets,
     lengths and table as they are: callers bring them to the device once
     per step.  A MoE arch's dense prefix layers run first.  A batch may
-    carry `image_embeds` (see `_embed_inputs`)."""
+    carry `image_embeds` (see `_embed_inputs`), and an encoder-decoder's
+    `frames` (B, Se, D): the step then encodes them and every
+    cross-attention layer writes its cross K/V from the encoder output
+    (the classic path passes them to the prefill; later steps read the
+    cross caches as written).  A layer's self cache then holds offset + S
+    tokens, its cross cache Se."""
     pat, R, tail = pattern_layout(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     ragged = isinstance(offset, torch.Tensor)
-    x = _embed_inputs(params, batch, cfg)
+    x = _embed_inputs(params, batch, cfg, offset)
+    enc_out = None
+    if cfg.is_encoder_decoder and "frames" in batch:
+        enc_out = encode(params, batch["frames"], cfg)
     kw = dict(seq_lens=seq_lens, pages=pages, decode_rows=decode_rows,
               verify_len=verify_len)
     for p, c in zip(params.get("dense_prefix", ()), cache.get("dense_prefix", ())):
@@ -406,13 +486,19 @@ def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
         for j, kind in enumerate(pat):
             x = _block_fwd_serve(kind, _index(params["blocks"][j], r), x,
                                  _index(cache["blocks"][j], r), offset, cfg,
-                                 **kw)
+                                 enc_out=enc_out, **kw)
     for i, kind in enumerate(tail):
         x = _block_fwd_serve(_moe_kind_for_layer(cfg, kind, R * len(pat) + i),
                              params["tail"][i], x, cache["tail"][i], offset,
-                             cfg, **kw)
+                             cfg, enc_out=enc_out, **kw)
     if pages is None:
         for c in _caches(cache):
+            if isinstance(c, dict) and "cross" in c:
+                # a cross-attention layer: the cross cache holds the
+                # encoder's Se rows once written, the self cache the rest
+                if enc_out is not None:
+                    c["cross"].length = enc_out.shape[1]
+                c = c["self"]
             if not isinstance(c, A.KVCache):
                 continue            # an RG-LRU state has no length
             max_len = c.k_q.shape[-2]

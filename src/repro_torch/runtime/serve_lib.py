@@ -2457,8 +2457,10 @@ def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
              restore_from: Optional[str] = None) -> torch.Tensor:
     """Batched generation; returns (B, max_new_tokens) token ids.
 
-    Default: equal-length prefill (with the batch's `image_embeds`, where
-    it carries them), then one decode step per further token (tokens only);
+    Default: equal-length prefill (with the batch's `image_embeds` or an
+    encoder-decoder's `frames`, where it carries them: the cross K/V are
+    written there once), then one decode step per further token (tokens
+    only);
     greedy at temperature 0, else sampled (top_k- and / or top_p-truncated)
     with the threefry key `rng` (default `PRNGKey(0)`), split as the
     reference splits it: one subkey for the prefill's tokens, then one per
@@ -2540,9 +2542,9 @@ def generate(model: Model, params, prompt_batch: Dict[str, torch.Tensor],
                          f"a cache of {max_len}")
     cache = model.init_cache(B, max_len)
     first = {"tokens": tokens}
-    if "image_embeds" in prompt_batch:          # the prefill only
-        first["image_embeds"] = torch.as_tensor(
-            prompt_batch["image_embeds"]).to(model.device)
+    for k in ("image_embeds", "frames"):        # the prefill only
+        if k in prompt_batch:
+            first[k] = torch.as_tensor(prompt_batch[k]).to(model.device)
     with torch.inference_mode():
         logits, cache = model.forward_serve(params, first, cache, 0)
         key, sub = prng.split(rng)

@@ -81,6 +81,20 @@ def test_launch_plan_at_the_served_shapes():
     assert (p.rows, p.heads_per_cta, p.splits) == (128, 4, 1)
 
 
+def test_launch_plan_at_whispers_shapes():
+    """whisper-tiny (6/6 heads of 64): its self and cross prefills take one
+    CTA of 32 rows a head and q block; the 1,500-row cross cache is walked
+    in five whole 256-row units and one of 220 rows (four 64-row stages,
+    the last holding 28)."""
+    p = launch_plan(64, 64, 32, 1, 256)
+    assert (p.rows, p.heads_per_cta, p.splits) == (32, 1, 1)
+    assert (p.unit_rows, p.blocks_per_unit) == (256, 1)
+    assert cdiv(1500, p.unit_rows) == 6 and 1500 - 5 * 256 == 220
+    assert cdiv(220, KV_ROWS) == 4 and 220 - 3 * KV_ROWS == 28
+    p = launch_plan(64, 32, 32, 1, 256)         # the same over 4-bit K/V
+    assert (p.rows, p.heads_per_cta, p.splits) == (32, 1, 1)
+
+
 @pytest.mark.parametrize("args", [
     (80, 80, 32, 2, 256),     # head_dim outside 32 / 64 / 96 / 128 / 256
     (128, 48, 32, 2, 256),    # stored width neither int8 nor 4 bits
@@ -177,3 +191,44 @@ def test_staged_update_equals_per_block_steps(bk):
         m = m_new
     assert torch.equal(m_s, m) and torch.equal(den_s, den)
     assert len(steps) > n_blocks // 4
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cuda_device():
+    """Decided when the test runs, never at import, so that every worker
+    collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4])
+@pytest.mark.parametrize("Sq", [32, 100])
+def test_cuda_prefill_non_causal_at_the_cross_shape(cuda_device, kv_bits, Sq):
+    """whisper's cross-attention prefill on the card: 6/6 heads of 64, queries
+    at offset 0 over a 1,500-token cache, not causal: against the plain
+    version (REL_TOL 1e-5 of max|plain|), every q block running all six
+    256-row blocks; the offset bounds nothing (offset 700 gives the same
+    bits)."""
+    from repro_torch.configs.base import PIMConfig
+    from repro_torch.core import attention as TA
+    from repro_torch.kernels import ops as TO
+    from repro_torch.kernels.pim_attention import pim_attention, pim_attention_plain
+
+    B, H, Dh, Sk = 2, 6, 64, 1500
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq + kv_bits)
+    q, k, v = (torch.randn(B, n, H, Dh, generator=gen, device=cuda_device) * 0.5
+               for n in (Sq, Sk, Sk))
+    cache = TA.init_kv_cache(B, Sk, H, Dh, kv_bits=kv_bits, device=cuda_device)
+    TA.cache_write(cache, k, v, 0, PIMConfig())
+    ops = TO.kernel_attention_layout(q, cache)
+    kw = dict(causal=False, return_iters=True)
+    o_k, it_k = pim_attention(*ops, 0, Sk, **kw)
+    o_p, it_p = pim_attention_plain(*ops, 0, Sk, **kw)
+    assert float((o_k - o_p).abs().max()) <= 1e-5 * float(o_p.abs().max())
+    assert torch.equal(it_k, it_p) and bool((it_k == 6).all())
+    assert torch.equal(pim_attention(*ops, 700, Sk, causal=False), o_k)

@@ -256,7 +256,7 @@ def test_combine_over_needed_partitions_equals_combine_plain(seed):
 # the PV order
 # ---------------------------------------------------------------------------
 def replay_decode(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_pos, kv_len,
-                  q_len, bk, window=0, page_table=None):
+                  q_len, bk, window=0, page_table=None, causal=True):
     """The kernel's arithmetic in torch: per partition the plain version's
     codes, maxima, exps and den; acc with the keys split over warps (16
     keys a warp in each 128-row stage; a short block takes bk / 16 warps),
@@ -282,7 +282,7 @@ def replay_decode(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_pos, kv_len,
     vdeq = vv.float() * vs[..., None]
     sc = scalars.long()[:, seq]
     qp, kvl, ql = sc[0], sc[1], sc[2]
-    lo, hi = needed_range(qp, kvl, ql, Sq, bk, n_k, True, window)
+    lo, hi = needed_range(qp, kvl, ql, Sq, bk, n_k, causal, window)
     k_idx = torch.arange(n_k)
     needed = alloc & (k_idx >= lo[:, None]) & (k_idx <= hi[:, None])
     k_pos = (k_idx[:, None] * bk + torch.arange(bk))[None]
@@ -310,8 +310,9 @@ def replay_decode(q_q, q_scale, k_q, k_scale, v_q, v_scale, q_pos, kv_len,
                                         * (1.0 / Dh ** 0.5) / LUT.score_scale),
                             -qmax - 1.0, qmax)
         pos = (qp + l)[:, None, None]
-        mask = ((k_pos < kvl[:, None, None]) & (l < torch.clamp(ql, max=Sq))[:, None, None]
-                & (k_pos <= pos))
+        mask = (k_pos < kvl[:, None, None]) & (l < torch.clamp(ql, max=Sq))[:, None, None]
+        if causal:
+            mask = mask & (k_pos <= pos)
         if window:
             mask = mask & (k_pos > pos - window)
         codes = torch.where(mask, codes, _NEG)
@@ -376,6 +377,62 @@ def test_pv_key_split_order_within_rel_of_plain(bk, window, kv_bits):
         o_1 = replay_decode(*q1, *dense[2:], offs + l, lens_t,
                             (ql > l).to(torch.int32), bk, window)
         assert torch.equal(o_r[:, l][valid[:, l, 0]], o_1[:, 0][valid[:, l, 0]])
+
+
+@pytest.mark.parametrize("bk", [256, 64, 48])
+def test_pv_key_split_non_causal_within_rel_of_plain(bk):
+    """Cross-attention decode: head_dim 64, queries at offset 0 over caches
+    of 333 and 300 tokens (partial last partitions), not causal: the
+    kernel's PV order within REL of the plain version, every partition
+    below kv_len needed."""
+    B, H, Hkv, Dh = 2, 2, 2, 64
+    lens = [333, 300]
+    dense, _, _, lens_t = _operands(bk + 7, B, 1, H, Hkv, Dh, lens)
+    ql, zeros = torch.ones(B, dtype=torch.int32), torch.zeros(B, dtype=torch.int32)
+    o_r = replay_decode(*dense, zeros, lens_t, ql, bk, causal=False)
+    o_p, iters = pim_decode_plain(*dense, zeros, lens_t, block_k=bk, causal=False,
+                                  return_iters=True)
+    assert float((o_r - o_p).abs().max()) <= REL * float(o_p.abs().max())
+    want = [cdiv(n, bk) for n in lens for _ in range(Hkv)]
+    assert iters.sum(dim=1).tolist() == want
+
+
+def test_launch_plan_at_whispers_shapes():
+    """whisper-tiny (6/6 heads of 64, batch 4): the cross decode over 1,500
+    rows at block_k 256 (6 partitions, the last of 220 rows) takes one CTA
+    a partition; the classic self decode (a cache of 128) spreads the small
+    grid over two 32-dim slices."""
+    p = launch_plan(1, 64, 64, 256, cdiv(1500, 256), 24, False, 132)
+    assert (p.rows, p.row_tiles, p.dsplit, p.chunks) == (2, 1, 1, 6)
+    assert cta_runs(0, 5, 256, p.chunks) == [(u, u + 1) for u in range(6)]
+    p = launch_plan(1, 64, 64, 256, 1, 24, False, 132)
+    assert (p.rows, p.row_tiles, p.dsplit, p.chunks) == (2, 1, 2, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_cuda_decode_non_causal_at_the_cross_shape(kv_bits):
+    """whisper's cross-attention decode on the card: 6/6 heads of 64, the
+    query at offset 0 (and at 700: it bounds nothing) over 1,500 tokens at
+    block_k 256, not causal: against the plain version (REL), all six
+    partitions run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.pim_decode import pim_decode
+    dev = torch.device("cuda", 0)
+    B, H, Dh, Sk = 4, 6, 64, 1500
+    gen = torch.Generator(device=dev).manual_seed(kv_bits)
+    q, k, v = (torch.randn(B, n, H, Dh, generator=gen, device=dev) * 0.5
+               for n in (1, Sk, Sk))
+    cache = TA.init_kv_cache(B, Sk, H, Dh, kv_bits=kv_bits, device=dev)
+    TA.cache_write(cache, k, v, 0, PIMConfig())
+    ops = TO.kernel_attention_layout(q, cache)
+    kw = dict(causal=False, block_k=256, return_iters=True)
+    o_k, it_k = pim_decode(*ops, 0, Sk, **kw)
+    o_p, it_p = pim_decode_plain(*ops, 0, Sk, **kw)
+    assert float((o_k - o_p).abs().max()) <= REL * float(o_p.abs().max())
+    assert torch.equal(it_k, it_p) and bool((it_k == 1).all())
+    assert torch.equal(pim_decode(*ops, 700, Sk, causal=False, block_k=256), o_k)
 
 
 @pytest.mark.parametrize("Sq", [1, 4])

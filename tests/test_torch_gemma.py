@@ -296,7 +296,8 @@ def test_cuda_head_dim_256(cuda_device, heads):
 # sha256 (first 16 hex digits) of each earlier arch's SMOKE `init(seed=0)`
 # leaves, bytes, shapes and strides, in bf16 and float32 compute, as the
 # port drew them before the Griffin blocks joined `init` (the Griffin archs
-# and phi-3-vision-4.2b as the port drew them once its `img_proj` joined)
+# and phi-3-vision-4.2b as the port drew them once its `img_proj` joined,
+# whisper-tiny once its encoder, positions and cross attention joined)
 _EARLIER_INITS = {
     ("internlm2-1.8b", "bfloat16"): "337e97c6aba2aa35",
     ("internlm2-1.8b", "float32"): "10ef9f9792203e11",
@@ -312,6 +313,8 @@ _EARLIER_INITS = {
     ("recurrentgemma-9b", "float32"): "4e323de1aff5b8bd",
     ("phi-3-vision-4.2b", "bfloat16"): "a3b3c9d8161bc88c",
     ("phi-3-vision-4.2b", "float32"): "21970df66da4ed82",
+    ("whisper-tiny", "bfloat16"): "b09b99ed3c98d4b4",
+    ("whisper-tiny", "float32"): "6b7ddca4add7818a",
 }
 
 

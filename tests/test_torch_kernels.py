@@ -73,19 +73,27 @@ def one_thread():
 # prefill kernel
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("case", [
-    # (Sq, max_len, kv_len, q_offset, q_len, window, kv_bits)
+    # (Sq, max_len, kv_len, q_offset, q_len, window, kv_bits[, causal, Dh])
     (40, 64, 40, 0, None, 0, 8),                 # causal, padded q blocks
     (40, 64, 40, 0, None, 20, 8),                # sliding window
     (24, 64, 40, 16, None, 0, 8),                # kv_len < Sk, offset > 0
     (40, 64, 40, [0, 5], [40, 17], 0, 8),        # ragged q_len / offsets
     (40, 64, 40, 0, None, 0, 4),                 # 4-bit KV
+    # cross-attention: not causal over a cache of 40 (2.5 blocks of 16),
+    # queries at offset 0 (whisper's), or at 30 (offset bounds nothing)
+    (24, 40, 40, 0, None, 0, 8, False, 64),
+    (8, 40, 40, 30, None, 0, 8, False, 32),
+    (24, 40, 40, 0, None, 0, 4, False, 64),
+    (24, 64, 40, 16, None, 0, 8, True, 64),      # causal at head_dim 64
 ])
 def test_prefill_plain_matches_pallas(case):
-    Sq, max_len, kv_len, off, ql, window, kv_bits = case
-    B, H, Hkv, Dh = 2, 4, 2, 32
-    _, jc, tc, jl, tl = _setup(sum(map(int, np.ravel([Sq, kv_len, window]))),
-                               B, Sq, max_len, kv_len, H, Hkv, Dh, kv_bits)
-    kw = dict(window=window, block_q=16, block_k=16, return_iters=True)
+    Sq, max_len, kv_len, off, ql, window, kv_bits, *rest = case
+    causal, Dh = rest or (True, 32)
+    B, H, Hkv = 2, 4, 2
+    seed = sum(map(int, np.ravel([Sq, kv_len, window]))) + (Dh if rest else 0)
+    _, jc, tc, jl, tl = _setup(seed, B, Sq, max_len, kv_len, H, Hkv, Dh, kv_bits)
+    kw = dict(window=window, block_q=16, block_k=16, causal=causal,
+              return_iters=True)
     jq = None if ql is None else jnp.asarray(ql, jnp.int32)
     tq = None if ql is None else torch.tensor(ql)
     oj, ij = pim_attention_pallas(*jl, jnp.asarray(off, jnp.int32), jc.length,
@@ -115,19 +123,26 @@ def test_prefill_pruned_equals_unpruned_bit_for_bit(window):
 # split-K decode kernel
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("case", [
-    # (Sq, kv_len, q_offset, q_len, window, kv_bits)
+    # (Sq, kv_len, q_offset, q_len, window, kv_bits[, causal, Dh, max_len])
     (1, 90, 89, None, 0, 8),
     (3, 90, [88, 87], [2, 3], 0, 8),             # verify rows, ragged
     (1, 90, 89, [1, 0], 0, 8),                   # a q_len 0 row
     (1, 90, 89, None, 40, 8),                    # sliding window
     (3, 90, 87, None, 0, 4),                     # verify rows at 4 bits
+    # cross-attention: not causal over a cache of 90 (2 blocks of 32 and
+    # one of 26), the query at offset 0 (whisper's), or at 5 (bounds nothing)
+    (1, 90, 0, None, 0, 8, False, 64, 90),
+    (1, 90, 5, None, 0, 8, False, 32, 90),
+    (1, 90, 0, None, 0, 4, False, 64, 90),
+    (1, 90, 89, None, 0, 8, True, 64, 128),      # causal at head_dim 64
 ])
 def test_decode_plain_matches_pallas(case):
-    Sq, kv_len, off, ql, window, kv_bits = case
-    B, max_len, H, Hkv, Dh = 2, 128, 4, 2, 32
-    _, jc, tc, jl, tl = _setup(kv_len + Sq + window, B, Sq, max_len, kv_len,
-                               H, Hkv, Dh, kv_bits)
-    kw = dict(window=window, block_k=32, return_iters=True)
+    Sq, kv_len, off, ql, window, kv_bits, *rest = case
+    causal, Dh, max_len = rest or (True, 32, 128)
+    B, H, Hkv = 2, 4, 2
+    _, jc, tc, jl, tl = _setup(kv_len + Sq + window + (Dh if rest else 0), B, Sq,
+                               max_len, kv_len, H, Hkv, Dh, kv_bits)
+    kw = dict(window=window, block_k=32, causal=causal, return_iters=True)
     jq = None if ql is None else jnp.asarray(ql, jnp.int32)
     tq = None if ql is None else torch.tensor(ql)
     oj, ij = pim_decode_pallas(*jl, jnp.asarray(off, jnp.int32), jc.length,

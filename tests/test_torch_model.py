@@ -204,16 +204,17 @@ def test_entry_points_without_a_device_raise(monkeypatch, jax_params):
 
 
 def test_unported_features_raise():
-    """What is still unported raises: xLSTM blocks, whisper-tiny's config,
+    """What is still unported raises: xLSTM blocks, xlstm-1.3b's config,
     and a sliding window on the paged or ragged path (the reference has
-    none there either).  Windows on the classic path and gemma-7b /
-    recurrentgemma-9b are ported (tests/test_torch_griffin.py,
-    tests/test_torch_gemma.py)."""
+    none there either).  Windows on the classic path, gemma-7b /
+    recurrentgemma-9b and whisper-tiny are ported
+    (tests/test_torch_griffin.py, tests/test_torch_gemma.py,
+    tests/test_torch_whisper.py)."""
     cfg = get_config(ARCH, smoke=True)
     with pytest.raises(NotImplementedError):
         build_model(dataclasses.replace(cfg, block_pattern=("attn", "mlstm")), "cpu")
     with pytest.raises(KeyError):
-        get_config("whisper-tiny")
+        get_config("xlstm-1.3b")
     local = dataclasses.replace(cfg, window=16, block_pattern=("attn_local",))
     model = build_model(local, "cpu")
     with pytest.raises(NotImplementedError):
