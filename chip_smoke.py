@@ -124,7 +124,8 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    one fused mixed step with kernels 1 and 2's bounds.  Then serves A and
    C once more at the paper's fidelity (behavioral attention, 6-bit ADC)
    and checks A == C there too.
-11. Serves, with the phase 6 weights at decode_block_k 16, a 16-request
+11. Serves, with the phase 6 weights cut to their first 6 layers
+   (CUT_DEPTH) at decode_block_k 16, a 16-request
    trace (prompts of 48-400 tokens, 12 of them a repeated motif before a
    random tail; budgets 32-96) through 8 slots of 1,024 tokens on the
    paged pool, seven ways: greedy (G), + speculation with draft_len 4
@@ -258,6 +259,22 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    linear, the encoder's at M 6,000 included, kernel 4 on self rows and on
    cross rows of 1,500 positions, launches counted and replayed bit for
    bit), and the Scheduler refusing the arch.
+18. xlstm-1.3b: (c) kernel 3 at M 4 on its linears (2048 -> 4096, 4096 ->
+   4096, 4096 -> 2048) in both ADC modes, bit for bit and timed beside
+   its bounds and `torch._int_mm`; (a) xlstm-1.3b at published widths and
+   full depth (42 mLSTM and 6 sLSTM layers, d_model 2,048, 4 heads; the
+   mLSTM's inner width 4,096 in heads of 1,024; vocab 50,304), random
+   weights from seed 0, bf16, the ideal ADC (no kernel of the port's: the
+   PIM linears on cuBLAS's int8 GEMM): the classic request (batch 4, a
+   1,100-token prompt, so the chunk scan runs a whole 1,024-step chunk
+   and a padded one, 16 new tokens), its launches per forward and its
+   8-token cut profiled; (d) one mLSTM and one sLSTM layer's device time
+   at the prefill and at decode; (e) token 1,100's logits from one
+   prefill against a prefill of 1,099 and a decode step, within 0.05 at
+   one 7:1 repetition (8 layers), printed at 48; (b) the request at the
+   paper's fidelity (4 new tokens: kernel 3 in all 264 linears of a
+   forward, served launches replayed bit for bit), and the Scheduler
+   refusing the arch.
 Phases 10-12 first run a row probe: RMSNorm, the bf16 unembed, the
 top-k / top-p truncation, its softmax and the Gumbel arg-max must give a
 row the same bits alone and among other rows (up to 40 = 8 slots x 5
@@ -322,7 +339,7 @@ F32_OPS = 67e12
 REL_TOL = 1e-5
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)
 # what a phase needs run first: kernel entries (2, 8) or the small model (4)
 NEEDS = {3: {2}, 5: {4}, 6: {2}, 7: {2}, 9: {8}}
 
@@ -2531,6 +2548,39 @@ def softmax_kernel(dev, lut, gen, same, entries) -> None:
               "no one PyTorch call computes the LUT softmax")
 
 
+def timed_matmul(x, w, pim_q, pim_i) -> dict:
+    """Kernel 3 on (M, K) int8 x against the (K, N) int8 view w, timed in
+    both ADC modes (device ms per call, torch.profiler), beside its plain
+    version, `torch._int_mm` (the ideal mode's product; cuBLAS takes more
+    than 16 rows, so x is padded to 32) and its bounds; printed."""
+    (M, K), N = x.shape, w.shape[1]
+    xp = F.pad(x, (0, 0, 0, max(0, 32 - M)))
+    t = {}
+    for mode, pc in (("quantized", pim_q), ("ideal", pim_i)):
+        def call(pc=pc):
+            return mm_k.pim_matmul_int(x, w, pc)
+        times = profiled_until(
+            call, 20, lambda t: kernel_us(t, "pim_matmul_kernel")[1] == 20,
+            f"some of the 20 {mode} pim_matmul launches")
+        t[mode] = (event_timed(call, 20, f"M{M} K{K} N{N} {mode} pim_matmul")
+                   if times is None else per_call_ms(times, 20))
+    t["plain"] = device_ms(lambda: mm_k.pim_matmul_int_plain(x, w, pim_q), 2)
+    t["int_mm"] = device_ms(lambda: torch._int_mm(xp, w), 20)
+    b_ms, b_by = matmul_bound(M, K, N, True)
+    bi_ms, _ = matmul_bound(M, K, N, False)
+    tops = {m: 2 * M * N * K / (t[m] * 1e-3) / 1e12 for m in ("quantized", "ideal")}
+    print(f"  pim_matmul M{M} K{K} N{N}: quantized {t['quantized']:.4f} "
+          f"({tops['quantized']:.1f} TOP/s, {b_ms / t['quantized']:.1%} of the bound "
+          f"{b_ms:.4f}, {b_by}), ideal {t['ideal']:.4f} ({tops['ideal']:.1f} TOP/s, "
+          f"{bi_ms / t['ideal']:.1%} of {bi_ms:.4f}; {t['ideal'] / t['int_mm']:.2f}x "
+          f"torch._int_mm {t['int_mm']:.4f}), plain (quantized) {t['plain']:.4f}",
+          flush=True)
+    return dict(M=M, K=K, N=N, ms=t["quantized"], ideal_ms=t["ideal"],
+                plain_ms=t["plain"], int_mm_ms=t["int_mm"], bound_ms=b_ms,
+                bound_by=b_by, ideal_bound_ms=bi_ms, tops=tops["quantized"],
+                ideal_tops=tops["ideal"])
+
+
 def adc_kernels(dev, cfg, gen, entries) -> None:
     """Kernel 3 in both ADC modes and kernel 4, each against its plain
     version bit for bit at the served shapes, then timed (device time from
@@ -2586,35 +2636,8 @@ def adc_kernels(dev, cfg, gen, entries) -> None:
 
     # ---- timing at the served shapes -----------------------------------
     print("kernel 3 times, device ms per call (torch.profiler):", flush=True)
-    rows = []
-    for M in (4, 512, 2048):
-        for K, N in LINEARS:
-            x, w = int8_codes((M, K), gen, dev), deployed(K, N)
-            xp = F.pad(x, (0, 0, 0, max(0, 32 - M)))       # cuBLAS takes > 16 rows
-            t = {}
-            for mode, pc in (("quantized", pim_q), ("ideal", pim_i)):
-                def call(pc=pc):
-                    return mm_k.pim_matmul_int(x, w, pc)
-                times = profiled_until(
-                    call, 20, lambda t: kernel_us(t, "pim_matmul_kernel")[1] == 20,
-                    f"some of the 20 {mode} pim_matmul launches")
-                t[mode] = (event_timed(call, 20, f"M{M} K{K} N{N} {mode} pim_matmul")
-                           if times is None else per_call_ms(times, 20))
-            t["plain"] = device_ms(lambda: mm_k.pim_matmul_int_plain(x, w, pim_q), 2)
-            t["int_mm"] = device_ms(lambda: torch._int_mm(xp, w), 20)
-            b_ms, b_by = matmul_bound(M, K, N, True)
-            bi_ms, _ = matmul_bound(M, K, N, False)
-            tops = {m: 2 * M * N * K / (t[m] * 1e-3) / 1e12 for m in ("quantized", "ideal")}
-            rows.append(dict(M=M, K=K, N=N, ms=t["quantized"], ideal_ms=t["ideal"],
-                             plain_ms=t["plain"], int_mm_ms=t["int_mm"], bound_ms=b_ms,
-                             bound_by=b_by, ideal_bound_ms=bi_ms, tops=tops["quantized"],
-                             ideal_tops=tops["ideal"]))
-            print(f"  pim_matmul M{M} K{K} N{N}: quantized {t['quantized']:.4f} "
-                  f"({tops['quantized']:.1f} TOP/s, {b_ms / t['quantized']:.1%} of the bound "
-                  f"{b_ms:.4f}, {b_by}), ideal {t['ideal']:.4f} ({tops['ideal']:.1f} TOP/s, "
-                  f"{bi_ms / t['ideal']:.1%} of {bi_ms:.4f}; {t['ideal'] / t['int_mm']:.2f}x "
-                  f"torch._int_mm {t['int_mm']:.4f}), plain (quantized) {t['plain']:.4f}",
-                  flush=True)
+    rows = [timed_matmul(int8_codes((M, K), gen, dev), deployed(K, N), pim_q, pim_i)
+            for M in (4, 512, 2048) for K, N in LINEARS]
     head = next(r for r in rows if (r["M"], r["K"], r["N"]) == HEAD_MM)
     entries["pim_matmul"] = dict(
         name="pim_matmul", route="cuda",
@@ -3330,6 +3353,8 @@ def main(argv=None) -> int:
         phi3_phase(entries, compare, results)
     if 17 in phases:
         whisper_phase(dev, entries, compare, results)
+    if 18 in phases:
+        xlstm_phase(dev, entries, compare, results)
     stamp(f"phases {sorted(phases)} done: every check passed")
     for name in max_err:
         if name in entries:
@@ -3349,7 +3374,7 @@ def main(argv=None) -> int:
              "paged_launches", "dense_sched_launches", "mixed_launches", "verify_launches",
              "kv4_launches", "paged_kv4_ms", "paged_kv4_bound_ms",
              "ideal_ms", "int_mm_ms", "quantized_ms", "quantized_bound_ms",
-             "int_mm_loop_ms", "dh256", "dh96", "dh64", "griffin_launches")
+             "int_mm_loop_ms", "dh256", "dh96", "dh64", "griffin_launches", "xlstm")
     print(json.dumps({"kernels": [{**{k: e.get(k) for k in keys},
                                    **{k: e[k] for k in extra if k in e}}
                                   for e in entries.values()]}))
@@ -3833,7 +3858,7 @@ def small_model(dev, scheduler: bool) -> None:
         smoke_scheduler(dev, small, p_gpu)
 
 
-CUT_DEPTH = 6   # layers of phases 10 and 12: their checks are identities
+CUT_DEPTH = 6   # layers of phases 10, 11 and 12: their checks are identities
 
 
 def cut_depth(cfg, params, layers: int):
@@ -3850,8 +3875,8 @@ def cut_depth(cfg, params, layers: int):
 
 def serve_phases(dev, cfg, phases, entries, compare, results) -> None:
     """Phases 6, 7, 9, 10, 11, 12 and 13 at full width, on the phase 6
-    weights: at full depth but for phases 10 and 12, which run the first
-    CUT_DEPTH layers to leave the time limit room for phase 13."""
+    weights: at full depth but for phases 10, 11 and 12, which run the
+    first CUT_DEPTH layers to leave the time limit room for phases 13-18."""
     stamp("phase 6: model and weights")
     Dh = cfg.resolved_head_dim
     cfg = dataclasses.replace(cfg, attn_impl="kernel")
@@ -3883,8 +3908,8 @@ def serve_phases(dev, cfg, phases, entries, compare, results) -> None:
                                            compare, results["card"])
     if 11 in phases:
         stamp("phase 11")
-        results["spec"] = spec_scheduler(model, params, cfg, entries, compare,
-                                         results["card"])
+        results["spec"] = spec_scheduler(cut_model, cut_params, cut_cfg, entries,
+                                         compare, results["card"])
     if 12 in phases:
         stamp("phase 12")
         results["starved"] = starved_scheduler(cut_model, cut_params, cut_cfg, entries,
@@ -4046,22 +4071,24 @@ def griffin_launches(entries, name: str, what: str, n: int) -> None:
 
 
 def fidelity_run(cfg, params, batch, label: str, linears: int,
-                 prefill_rows: tuple = ()) -> dict:
+                 prefill_rows: tuple = (), first: int = LINEARS_PER_LAYER) -> dict:
     """One paper-fidelity request (the batch's prompt, 4 new tokens): every
     PIM linear through the 6-bit ADC (kernel 3) and behavioral attention,
     whose LUT softmax is kernel 4 at the model's head_dim; `linears` PIM
     linears a forward, and in the prefill alone one more of each of
     `prefill_rows`' M rows first (a VLM's image projection); one kernel 4
-    launch per attention layer and forward.  Kernel 3's launches of the
-    prefill's first layer (and its prefill-only linears) and of the first
-    decode forward's are held against the plain version bit for bit."""
+    launch per attention layer and forward (none in a stack without
+    attention).  Kernel 3's first `first` launches of the prefill (an
+    attention layer's 7 linears; after its prefill-only linears) and of
+    the first decode forward are held against the plain version bit for
+    bit."""
     pcfg = dataclasses.replace(cfg, attn_impl="behavioral",
                                pim=dataclasses.replace(cfg.pim, adc_mode="quantized"))
     model = build_model(pcfg)
     n_attn = sum(k.startswith("attn") for k in
                  (cfg.block_pattern * cfg.num_layers)[:cfg.num_layers])
     B, P = batch["tokens"].shape
-    T, first, pre = 4, LINEARS_PER_LAYER, len(prefill_rows)
+    T, pre = 4, len(prefill_rows)
 
     def pick(name, i):
         if i < pre:
@@ -4084,7 +4111,8 @@ def fidelity_run(cfg, params, batch, label: str, linears: int,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {k: n for k, n in _build.LAUNCHES.items() if n}
-    want = {"pim_matmul": linears * T + pre, "lut_softmax": n_attn * T}
+    want = {k: n for k, n in (("pim_matmul", linears * T + pre),
+                              ("lut_softmax", n_attn * T)) if n}
     check(not n_plain, f"{label} paper fidelity: no plain-version call ({n_plain})")
     check(launches == want, f"{label} paper fidelity: launches {launches} == {want}")
     replay_adc(f"{label} paper fidelity", kept, rows)
@@ -4778,6 +4806,235 @@ def whisper_phase(dev, entries, compare, results) -> None:
           "whisper-tiny: the Scheduler refuses the encoder-decoder arch, as the "
           "reference's does")
     results["whisper"] = out
+
+
+# ---- 18. xlstm-1.3b: the mLSTM chunk scan and the sLSTM recurrence ----------
+XLSTM_PROMPT = 1100   # the classic request's prompt: a whole 1,024-step chunk and a padded one
+XLSTM_TOKENS = 16     # and its new tokens
+XLSTM_CUT = 8         # layers of the prefill / recurrence bound: one 7:1 repetition
+# (K, N) of xlstm-1.3b's PIM linears: w_up / w_gate and the sLSTM MLP's w_in;
+# wq / wk / wv; w_down and the sLSTM MLP's w_out
+XLSTM_LINEARS = ((2048, 4096), (4096, 4096), (4096, 2048))
+
+
+def xlstm_kernel3(dev, entries) -> list:
+    """(c) Kernel 3 at M 4 (a decode step's rows) on xlstm-1.3b's three
+    linear shapes in both ADC modes: bit for bit against its plain version
+    on the deployed (K, N) view of an (N, K) store, then timed."""
+    cfg = get_config("xlstm-1.3b")
+    pim_q = dataclasses.replace(cfg.pim, adc_mode="quantized")
+    pim_i = dataclasses.replace(cfg.pim, adc_mode="ideal")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rows = []
+    for K, N in XLSTM_LINEARS:
+        w = int8_codes((N, K), gen, dev).t()
+        x = int8_codes((4, K), gen, dev)
+        for pc in (pim_q, pim_i):
+            check(torch.equal(mm_k.pim_matmul_int(x, w, pc),
+                              mm_k.pim_matmul_int_plain(x, w, pc)),
+                  f"xlstm-1.3b kernel 3, M4 K{K} N{N} {pc.adc_mode}: kernel == plain "
+                  "bit for bit")
+        rows.append(timed_matmul(x, w, pim_q, pim_i))
+    if "pim_matmul" in entries:
+        entries["pim_matmul"]["xlstm"] = rows
+    return rows
+
+
+def forward_launches(fn, what: str) -> dict:
+    """Host kernel launches (cudaLaunchKernel), device kernels and device ms
+    of one call of `fn`, under torch.profiler."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times, host = raw_device_us(prof)
+    out = dict(host_launches=host, device_kernels=sum(n for _, n in times.values()),
+               device_ms=sum(us for us, _ in times.values()) / 1e3)
+    print(f"  {what}: {host} kernel launches, {out['device_kernels']} device kernels "
+          f"and copies, {out['device_ms']:.2f} ms of device time", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def xlstm_layer_inputs():
+    """Within the block, keeps the parameters, input and state (copies
+    taken before the call) of the first mLSTM and the first sLSTM layer of
+    each sequence length served: yields {(kind, S): (params, x, state)}."""
+    from repro_torch.models import blocks as TB
+    fns = {"mlstm": TB.mlstm_block_fwd_serve, "slstm": TB.slstm_block_fwd_serve}
+    xs = {}
+
+    def keeper(kind):
+        def keep(p, x, state, c):
+            if (kind, x.shape[1]) not in xs:
+                xs[kind, x.shape[1]] = (p, x.clone(),
+                                        {k: v.clone() for k, v in state.items()})
+            return fns[kind](p, x, state, c)
+        return keep
+
+    TB.mlstm_block_fwd_serve, TB.slstm_block_fwd_serve = keeper("mlstm"), keeper("slstm")
+    try:
+        yield xs
+    finally:
+        TB.mlstm_block_fwd_serve, TB.slstm_block_fwd_serve = fns["mlstm"], fns["slstm"]
+
+
+def xlstm_split(xs: dict, cfg) -> dict:
+    """(d) Device ms (and the wall of back-to-back calls) and host launches
+    of one mLSTM and one sLSTM layer at the classic request's prefill and
+    at a decode step, on the inputs and states `xlstm_layer_inputs` kept
+    (each call carries its state on); the sLSTM prefill's CUDA-graph replay
+    held against its loop of steps bit for bit."""
+    from repro_torch.models import blocks as TB
+    from repro_torch.models import layers as TL
+    fns = {"mlstm": TB.mlstm_block_fwd_serve, "slstm": TB.slstm_block_fwd_serve}
+    out = {}
+    with torch.inference_mode():
+        p, x, state = xs["slstm", XLSTM_PROMPT]
+        h = TL.norm_apply(p["norm"], x, cfg.norm)
+        runs = []
+        for steps in (TB._SLSTM_GRAPH_STEPS, XLSTM_PROMPT + 1):   # replayed, looped
+            saved, TB._SLSTM_GRAPH_STEPS = TB._SLSTM_GRAPH_STEPS, steps
+            try:
+                st = {k: v.clone() for k, v in state.items()}
+                runs.append((TB._slstm_scan(p, h, st, cfg), st))
+            finally:
+                TB._SLSTM_GRAPH_STEPS = saved
+        (y_g, st_g), (y_l, st_l) = runs
+        check(torch.equal(y_g, y_l) and all(torch.equal(st_g[k], st_l[k]) for k in st_g),
+              f"xlstm-1.3b sLSTM prefill of {XLSTM_PROMPT} steps: the CUDA-graph replay "
+              "equals the loop of steps bit for bit (outputs and state)")
+        for (kind, S), (p, x, state) in sorted(xs.items()):
+            what = "prefill" if S > 1 else "decode"
+            ms, wall = layer_ms(lambda: fns[kind](p, x, state, cfg),
+                                f"an {kind} layer at {what}", iters=1 if S > 1 else 5)
+            launches = forward_launches(lambda: fns[kind](p, x, state, cfg),
+                                        f"an {kind} layer at {what}")["host_launches"]
+            out[f"{kind} {what}"] = dict(device_ms=ms, wall_ms=wall, launches=launches)
+            print(f"  xlstm-1.3b {kind} layer at {what} (S {S}, batch {x.shape[0]}): "
+                  f"{ms:.3f} ms of device time a layer, {wall:.3f} ms wall back to back",
+                  flush=True)
+    return out
+
+
+def xlstm_phase(dev, entries, compare, results) -> None:
+    """Phase 18, xlstm-1.3b at full width and depth (48 layers, 7 mLSTM : 1
+    sLSTM, d_model 2,048, 4 heads; the mLSTM's inner width 4,096 in heads
+    of 1,024; vocab 50,304), random weights from seed 0, bf16."""
+    stamp("phase 18 (c): kernel 3 at xlstm-1.3b's linears")
+    out = {"kernel3": xlstm_kernel3(dev, entries)}
+    stamp("phase 18 (a): xlstm-1.3b")
+    torch.cuda.empty_cache()
+    cfg = get_config("xlstm-1.3b")
+    model, params, facts = load_model(cfg, "xlstm-1.3b")
+    out.update(facts)
+    kinds = (cfg.block_pattern * cfg.num_layers)[:cfg.num_layers]
+    n_m, n_s = kinds.count("mlstm"), kinds.count("slstm")
+    linears = 6 * n_m + 2 * n_s
+    check((n_m, n_s, linears) == (42, 6, 264), f"42 mLSTM and 6 sLSTM layers, 264 PIM "
+          f"linears a forward ({n_m}, {n_s}, {linears})")
+    V, Bs, P, T = cfg.vocab_size, 4, XLSTM_PROMPT, XLSTM_TOKENS
+    max_len = P + T
+    batch = {"tokens": torch.from_numpy(data.lm_batch(0, Bs, P, V)).long()}
+    toks_d = batch["tokens"].to(dev)
+    cache = model.init_cache(Bs, max_len)
+    state_gb = sum(t.untyped_storage().nbytes() for t in ckpt_flatten(cache)
+                   if isinstance(t, torch.Tensor)) / 1e9
+    # the prefill and a decode step, warming both paths: the layers' inputs
+    # kept for (d), the prefill's logits for (e)
+    with torch.inference_mode(), xlstm_layer_inputs() as xs:
+        logits, cache = model.forward_serve(params, {"tokens": toks_d}, cache, 0)
+        m0 = cache["blocks"][0]
+        check(tuple(logits.shape) == (Bs, V) and bool(torch.isfinite(logits).all())
+              and bool(torch.isfinite(m0["C"]).all()) and bool((m0["m"] > -1e29).all()),
+              f"xlstm-1.3b prefill of {Bs} x {P} tokens (chunks of 1,024, the second "
+              f"padded): finite ({Bs}, {V}) logits and mLSTM states, every m moved off "
+              "-1e30")
+        prefill_logits = logits.float()
+        model.forward_serve(params, {"tokens": logits.argmax(-1)[:, None]}, cache, P)
+    with torch.inference_mode():
+        out["decode_launches"] = forward_launches(
+            lambda: model.forward_serve(params, {"tokens": toks_d[:, :1]}, cache, P + 1),
+            "xlstm-1.3b decode forward")
+    del cache, logits, m0
+    print(f"  serve states at batch {Bs}: {state_gb:.2f} GB (mLSTM C, n, m and sLSTM "
+          f"c, n, m, h, float32)", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve_lib.generate(model, params, batch, 1, max_len)          # prefill only
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    toks, launches, wall = classic_run(model, params, batch, T, max_len,
+                                       "xlstm-1.3b classic request (ideal ADC: no "
+                                       "kernel of the port's)", {})
+    decode_ms = (wall - prefill_s) / (T - 1) * 1e3
+    print(f"  classic request (batch {Bs}, prompt {P}, {T} new tokens): prefill "
+          f"{prefill_s * 1e3:.1f} ms, decode {decode_ms:.2f} ms/token, "
+          f"{Bs * T / wall:.1f} tokens/s; first sequence {toks[0, :12].tolist()}",
+          flush=True)
+    out["classic"] = dict(prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_ms,
+                          tokens_per_s=Bs * T / wall, wall_s=wall)
+
+    def cut(_):
+        serve_lib.generate(model, params, batch, PROFILED_TOKENS, max_len)
+
+    _, cut_wall = unprofiled_wall(lambda: None, cut, contextlib.nullcontext)
+    prof = profiled_report(
+        lambda: None, cut, f"xlstm-1.3b request cut to {PROFILED_TOKENS} new tokens",
+        cut_wall, kernel_names=())
+    out["profile"] = prof
+    # the cut is a prefill and PROFILED_TOKENS - 1 decode forwards
+    out["prefill_launches"] = (prof["host_launches"] - (PROFILED_TOKENS - 1)
+                               * out["decode_launches"]["host_launches"])
+    print(f"  kernel launches a forward: prefill {out['prefill_launches']} (the cut's "
+          f"{prof['host_launches']} less {PROFILED_TOKENS - 1} decode forwards), decode "
+          f"{out['decode_launches']['host_launches']}", flush=True)
+    stamp("phase 18 (d): one mLSTM and one sLSTM layer")
+    out["split"] = xlstm_split(xs, cfg)
+    del xs
+
+    # (e) the prefill against the recurrence: token P's logits from one
+    # prefill, and from a prefill of P - 1 tokens and one decode step (the
+    # reference's test_prefill_decode_consistency, bound 0.05), held at one
+    # 7:1 repetition and printed at full depth
+    stamp("phase 18 (e): the prefill against the recurrence")
+    out["prefill_decode_rel"] = {}
+    for layers in (XLSTM_CUT, cfg.num_layers):
+        c, p = cut_depth(cfg, params, layers) if layers < cfg.num_layers else (cfg, params)
+        m = build_model(c)
+        with torch.inference_mode():
+            if layers < cfg.num_layers:
+                a, _ = m.forward_serve(p, {"tokens": toks_d}, m.init_cache(Bs, P), 0)
+                a = a.float()
+            else:
+                a = prefill_logits
+            _, cb = m.forward_serve(p, {"tokens": toks_d[:, :P - 1]},
+                                    m.init_cache(Bs, P), 0)
+            b, _ = m.forward_serve(p, {"tokens": toks_d[:, P - 1:]}, cb, P - 1)
+        b = b.float()
+        rel = float(torch.linalg.norm(a - b) / (torch.linalg.norm(a) + 1e-9))
+        out["prefill_decode_rel"][f"{layers} layers"] = rel
+        what = (f"xlstm-1.3b, {layers} layers: token {P}'s logits from one prefill vs a "
+                f"prefill of {P - 1} and one decode step, relative L2 gap {rel:.3g}")
+        if layers == XLSTM_CUT:
+            check(bool(torch.isfinite(a).all()) and rel <= 0.05, f"{what} <= 0.05")
+        else:
+            print(f"  {what}", flush=True)
+        del a, b, cb
+
+    stamp("phase 18 (b): xlstm-1.3b at the paper's fidelity")
+    out["paper_fidelity"] = fidelity_run(cfg, params, batch, "xlstm-1.3b", linears,
+                                         first=6)
+    griffin_launches(entries, "pim_matmul", "xlstm-1.3b paper fidelity",
+                     out["paper_fidelity"]["launches"]["pim_matmul"])
+    try:
+        serve_lib.Scheduler(model, params, page_size=PAGE, **SCHED_KW)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused and not serve_lib.scheduler_supported(cfg),
+          "xlstm-1.3b: the Scheduler refuses the recurrent arch, as the reference's does")
+    results["xlstm"] = out
 
 
 if __name__ == "__main__":

@@ -9,6 +9,7 @@ from repro_torch.configs import (
     qwen2_72b,
     recurrentgemma_9b,
     whisper_tiny,
+    xlstm_1_3b,
 )
 from repro_torch.configs.base import (  # noqa: F401
     LUTSoftmaxConfig, ModelConfig, MoEConfig, PIMConfig,
@@ -24,6 +25,7 @@ _MODULES = {
     "recurrentgemma-9b": recurrentgemma_9b,
     "phi-3-vision-4.2b": phi_3_vision_4_2b,
     "whisper-tiny": whisper_tiny,
+    "xlstm-1.3b": xlstm_1_3b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -106,8 +106,10 @@ class ModelConfig:
         counts every routed and shared expert and the router, a dense
         prefix layer its MLP, and an RG-LRU layer, as the reference counts
         it, its x / gate / out projections, conv and two gate vectors and
-        its MLP (the reference leaves out its (w, w) gate matrices), and an
-        encoder-decoder's encoder and cross attention."""
+        its MLP (the reference leaves out its (w, w) gate matrices), an
+        mLSTM or sLSTM layer the reference's flat 12 d^2 + 2 d (its own
+        estimate, not the blocks' leaves), and an encoder-decoder's encoder
+        and cross attention."""
         d, h = self.d_model, self.resolved_head_dim
         attn = d * h * self.num_heads + 2 * d * h * self.num_kv_heads \
             + h * self.num_heads * d
@@ -115,15 +117,19 @@ class ModelConfig:
         ffn_dense = mult * d * self.d_ff
         w = self.lru_width or d
         rglru = 3 * d * w + self.conv1d_width * w + 2 * w + ffn_dense + 2 * d
-        n_rglru = _pattern_kinds(self).count("rglru")
-        ffn, dense = ffn_dense, self.num_layers - n_rglru
+        kinds = _pattern_kinds(self)
+        n_rglru = kinds.count("rglru")
+        n_xlstm = kinds.count("mlstm") + kinds.count("slstm")
+        ffn, dense = ffn_dense, self.num_layers - n_rglru - n_xlstm
         if self.moe.num_experts:
             ffn = (self.moe.num_experts + self.moe.num_shared) * ffn_dense \
                 + d * self.moe.num_experts
             dense = self.num_dense_layers
         total = (dense * (attn + ffn_dense + 2 * d)
-                 + (self.num_layers - dense - n_rglru) * (attn + ffn + 2 * d)
-                 + n_rglru * rglru + self.vocab_size * d)
+                 + (self.num_layers - dense - n_rglru - n_xlstm)
+                 * (attn + ffn + 2 * d)
+                 + n_rglru * rglru + n_xlstm * (12 * d * d + 2 * d)
+                 + self.vocab_size * d)
         if not self.tie_embeddings:
             total += self.vocab_size * d
         if self.is_encoder_decoder:

@@ -12,7 +12,8 @@ phi-3-vision-4.2b (head_dim 96; the classic prefill also takes the batch's
 576 random image patch embeddings) and the encoder-decoder whisper-tiny
 (the classic prefill encodes the batch's 1,500 random frame embeddings;
 the classic path only: `--continuous-batching` raises, as the reference's
-does) (`--smoke` for their small variants).
+does) and xlstm-1.3b (mLSTM and sLSTM blocks; the classic path only)
+(`--smoke` for their small variants).
 The batch is `data.make_batch(cfg, (batch, prompt_len), step 0)`, as the
 JAX package's CLI builds it: the tokens of `lm_batch`, and the modality
 stubs a config has.

@@ -1,11 +1,11 @@
 """The serve-path blocks: attention (`attn`; `attn_local`, its sliding-
 window form; `moe`, the same block with a Mixture-of-Experts FFN in place
-of the MLP), Griffin's RG-LRU recurrence (`rglru`), and whisper's
+of the MLP), Griffin's RG-LRU recurrence (`rglru`), whisper's
 bidirectional encoder block (`enc_attn`) and cross-attention decoder block
-(`xattn`).
+(`xattn`), and xLSTM's mLSTM (`mlstm`) and sLSTM (`slstm`) blocks.
 
-Counterpart of the attention, cross-attention and RG-LRU blocks of the JAX
-package's `models/blocks.py`; attention on three storages: the classic
+Counterpart of the attention, cross-attention, RG-LRU and xLSTM blocks of
+the JAX package's `models/blocks.py`; attention on three storages: the classic
 dense cache (scalar offset), ragged dense slots and the paged pool (per-row
 offsets).  Serve-path attention runs the
 paper's PIM pipeline, either the behavioral two-pass
@@ -374,5 +374,213 @@ def rglru_block_fwd_serve(params, x: torch.Tensor, state,
     state["conv"].copy_(conv.float())
     y = pim.pim_linear_apply(params["w_out"], hseq.to(x.dtype) * gate, p, en)
     x = x + y
+    h = L.norm_apply(params["norm2"], x, cfg.norm)
+    return x + L.mlp_apply(params["mlp"], h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: the mLSTM block (matrix memory, chunked scan) and the sLSTM block
+# (scalar memory, sequential recurrence)
+# ---------------------------------------------------------------------------
+def _time_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim.  On the card in a fixed pairwise order
+    (`layers.pairwise_row_sum`), so a row's sum never depends on the rows
+    beside it; the CPU keeps torch's sum."""
+    if not x.is_cuda:
+        return x.sum(-1)
+    return L.pairwise_row_sum(x)[..., 0]
+
+
+def _mlstm_qkv_gates(params, x: torch.Tensor, cfg: ModelConfig):
+    """The mLSTM's projections: the output gate z, and over the
+    up-projection u (PIM linears from d_model to 2 d_model) q, k, v (PIM
+    linears, (B, S, H, dh)) and the float32 log input and forget gates (B,
+    S, H) from u's raw float32 gate matrices: log_f = log sigmoid(.) as
+    the reference's -softplus(-.)."""
+    B, S, _ = x.shape
+    p, en = cfg.pim, cfg.pim_linears
+    h = L.norm_apply(params["norm"], x, cfg.norm)
+    u = pim.pim_linear_apply(params["w_up"], h, p, en)
+    z = pim.pim_linear_apply(params["w_gate"], h, p, en)
+    H = cfg.num_heads
+    dh = u.shape[-1] // H
+    q = pim.pim_linear_apply(params["wq"], u, p, en).reshape(B, S, H, dh)
+    k = pim.pim_linear_apply(params["wk"], u, p, en).reshape(B, S, H, dh)
+    v = pim.pim_linear_apply(params["wv"], u, p, en).reshape(B, S, H, dh)
+    uf = u.float()
+    log_i = uf @ params["w_igate"] + params["b_igate"]
+    log_f = -L.softplus(-(uf @ params["w_fgate"] + params["b_fgate"]))
+    return z, q, k, v, log_i, log_f
+
+
+_MLSTM_CHUNK = 1024
+
+
+def _mlstm_chunk_scan(q, k, v, log_i, log_f, state, chunk: int) -> torch.Tensor:
+    """The chunkwise-stabilized mLSTM, the reference's linear-attention
+    chunked form: q, k, v (B, S, H, dh), log_i / log_f (B, S, H) float32,
+    from `state` {"C" (B, H, dh, dh), "n" (B, H, dh), "m" (B, H)}, float32,
+    which is updated in place.  S is cut into chunks of T = min(chunk, S)
+    steps, the last padded (its steps carry log_i = -1e30: no input).
+    Within a chunk the (T, T) log weights F_t - F_s + log_i_s (s <= t, F
+    the inclusive sum of log_f) against the carried state's weight F_t +
+    m, stabilized by their maximum m_t; the chunk's end state folds the
+    carried one and the chunk's keys and values in.  Returns h (B, S, H,
+    dh) in q's dtype.  Sums over time are row-local: F by
+    `layers.blocked_cumsum` (XLA's order of `jnp.cumsum`), the weights'
+    row sums by `_time_sum`."""
+    B, S, H, dh = q.shape
+    T = min(chunk, S)
+    pad = (-S) % T
+    if pad:
+        zpad = (0, 0, 0, 0, 0, pad)
+        q, k, v = (torch.nn.functional.pad(a, zpad) for a in (q, k, v))
+        log_i = torch.nn.functional.pad(log_i, (0, 0, 0, pad), value=-1e30)
+        log_f = torch.nn.functional.pad(log_f, (0, 0, 0, pad))
+    C, n, m = state["C"], state["n"], state["m"]
+    causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    hs = []
+    for c0 in range(0, S + pad, T):
+        # (B, H, T, dh) and (B, H, T) views of the chunk, in float32
+        qt = q[:, c0:c0 + T].transpose(1, 2).float()
+        kt = k[:, c0:c0 + T].transpose(1, 2).float() / (dh ** 0.5)
+        vt = v[:, c0:c0 + T].transpose(1, 2).float()
+        li = log_i[:, c0:c0 + T].transpose(1, 2)
+        F = L.blocked_cumsum(log_f[:, c0:c0 + T].transpose(1, 2))
+        Lw = F[..., :, None] - F[..., None, :] + li[..., None, :]   # (B, H, T, T)
+        Lw = torch.where(causal, Lw, -torch.inf)
+        G = F + m[..., None]                                       # (B, H, T)
+        m_t = torch.maximum(Lw.amax(-1), G)
+        D = torch.exp(Lw - m_t[..., None])
+        g = torch.exp(G - m_t)
+        w = (qt @ kt.transpose(-1, -2)) * D
+        num = w @ vt + g[..., None] * (qt @ C)
+        den_s = _time_sum(w) + g * (qt @ n[..., None])[..., 0]
+        den = torch.maximum(den_s.abs(), torch.exp(-m_t))
+        hs.append((num / den[..., None]).transpose(1, 2).to(q.dtype))
+        # the state at the chunk's end
+        F_T = F[..., -1]                                           # (B, H)
+        lw_end = F_T[..., None] - F + li                           # (B, H, T)
+        m_new = torch.maximum(F_T + m, lw_end.amax(-1))
+        c_old = torch.exp(F_T + m - m_new)
+        wts = torch.exp(lw_end - m_new[..., None])
+        kw = kt * wts[..., None]
+        C.mul_(c_old[..., None, None]).add_(kw.transpose(-1, -2) @ vt)
+        n.mul_(c_old[..., None]).add_(_time_sum(kw.transpose(-1, -2)))
+        m.copy_(m_new)
+    return torch.cat(hs, dim=1)[:, :S]
+
+
+def mlstm_block_fwd_serve(params, x: torch.Tensor, state,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """Prefill or decode of one mLSTM block from its state {"C", "n",
+    "m"} (float32, updated in place): the chunk scan over q, k, v and the
+    gates, an RMSNorm of h over the inner width, times silu(z), `w_down`
+    and the residual.  Six PIM linears (w_up, w_gate, wq, wk, wv, w_down);
+    the gate matrices and biases are raw float32 leaves."""
+    B, S, _ = x.shape
+    z, q, k, v, log_i, log_f = _mlstm_qkv_gates(params, x, cfg)
+    h = _mlstm_chunk_scan(q, k, v, log_i, log_f, state, _MLSTM_CHUNK)
+    h = L.norm_apply(params["out_norm"], h.reshape(B, S, -1).to(x.dtype),
+                     "rmsnorm")
+    out = h * L.silu(z)
+    return x + pim.pim_linear_apply(params["w_down"], out, cfg.pim,
+                                    cfg.pim_linears)
+
+
+_SLSTM_GATES = ("z", "i", "f", "o")
+# a prefill of at least this many tokens on the card replays a CUDA graph
+# of one recurrent step (`_slstm_replayed`); shorter ones loop
+_SLSTM_GRAPH_STEPS = 16
+
+
+def _slstm_step(pre_t, r, c, n, m, h):
+    """One sLSTM step: the step's input pre-activations pre_t (4, B, d)
+    plus the block-diagonal recurrent products h R_* (one (dh, dh) block a
+    head; the four gates' blocks in one product, r (H, dh, 4 dh)), the
+    exponential input and forget gates stabilized by m, n kept at least
+    1e-6.  Returns the new (c, n, m, h)."""
+    B, d = h.shape
+    H, dh = r.shape[:2]
+    rec = torch.bmm(h.view(B, H, dh).transpose(0, 1), r)           # (H, B, 4 dh)
+    rec = rec.view(H, B, 4, dh).permute(2, 1, 0, 3).reshape(4, B, d)
+    z = torch.tanh(pre_t[0] + rec[0])
+    lo_i = pre_t[1] + rec[1]
+    lo_f = pre_t[2] + rec[2]
+    o = L.sigmoid(pre_t[3] + rec[3])
+    log_f = -L.softplus(-lo_f)
+    m_new = torch.maximum(log_f + m, lo_i)
+    i_ = torch.exp(lo_i - m_new)
+    f_ = torch.exp(log_f + m - m_new)
+    c = f_ * c + i_ * z
+    n = torch.clamp_min(f_ * n + i_, 1e-6)
+    return c, n, m_new, o * (c / n)
+
+
+def _slstm_replayed(pre, r, st, hs) -> list:
+    """The steps of `pre` (S, 4, B, d) from the state st [c, n, m, h],
+    replayed from a CUDA graph of one `_slstm_step`: the same kernels on
+    the same shapes, so the same bits as the loop, in three launches a
+    token (the step's input in, the replay, h out) where a step launches
+    about 35.  Writes h into hs (B, S, d); returns the end state."""
+    g = torch.empty_like(pre[0])
+    work = [x.clone() for x in st]
+
+    def step():
+        for w, v in zip(work, _slstm_step(g, r, *work)):
+            w.copy_(v)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):        # cuBLAS's lazy set-up, outside the capture
+        g.copy_(pre[0])
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    for w, x in zip(work, st):           # undo the warm-up step
+        w.copy_(x)
+    for t in range(pre.shape[0]):
+        g.copy_(pre[t])
+        graph.replay()
+        hs[:, t].copy_(work[3])
+    return work
+
+
+def _slstm_scan(params, x: torch.Tensor, state,
+                cfg: ModelConfig) -> torch.Tensor:
+    """The sLSTM recurrence over x (B, S, d), one `_slstm_step` per token,
+    from `state` {"c", "n", "m", "h"} (B, d) float32, updated in place: the
+    input products x W_* + b_* in float32 for the whole sequence, then the
+    steps in order (on the card a prefill replays a CUDA graph of a step).
+    Returns the step outputs h (B, S, d) in x's dtype."""
+    B, S, d = x.shape
+    xf = x.float()
+    pre = torch.stack([xf @ params[f"w_{g}"] + params[f"b_{g}"]
+                       for g in _SLSTM_GATES]).permute(2, 0, 1, 3).contiguous()
+    r = torch.cat([params[f"r_{g}"] for g in _SLSTM_GATES], dim=-1)
+    st = [state[f] for f in ("c", "n", "m", "h")]
+    hs = torch.empty((B, S, d), dtype=torch.float32, device=x.device)
+    if x.is_cuda and S >= _SLSTM_GRAPH_STEPS:
+        st = _slstm_replayed(pre, r, st, hs)
+    else:
+        for t in range(S):
+            st = _slstm_step(pre[t], r, *st)
+            hs[:, t] = st[3]
+    for f, val in zip(("c", "n", "m", "h"), st):
+        state[f].copy_(val)
+    return hs.to(x.dtype)
+
+
+def slstm_block_fwd_serve(params, x: torch.Tensor, state,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """Prefill or decode of one sLSTM block from its state (updated in
+    place): the recurrence over the normed input and the residual, then
+    the GELU MLP (PIM linears w_in, w_out of width 2 d_model) and its
+    residual.  The gates' (d, d) input matrices and (H, dh, dh) recurrent
+    blocks are raw float32 leaves."""
+    h = L.norm_apply(params["norm"], x, cfg.norm)
+    x = x + _slstm_scan(params, h, state, cfg)
     h = L.norm_apply(params["norm2"], x, cfg.norm)
     return x + L.mlp_apply(params["mlp"], h, cfg)

@@ -1,5 +1,6 @@
-"""Shared model layers: norms, embeddings, RoPE, sinusoidal positions and
-the MLP (through PIM linears).  Counterpart of the JAX package's
+"""Shared model layers: norms, embeddings, RoPE, sinusoidal positions, the
+MLP (through PIM linears) and the row-local sums and softplus of the
+recurrent blocks.  Counterpart of the JAX package's
 `models/layers.py`; parameters are plain dicts of tensors in the same tree
 layout."""
 from __future__ import annotations
@@ -40,6 +41,43 @@ def row_mean(x: torch.Tensor) -> torch.Tensor:
     if not x.is_cuda:
         return x.mean(dim=-1, keepdim=True)
     return pairwise_row_sum(x) / x.shape[-1]
+
+
+SCAN_BLOCK = 16
+
+
+def _sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
+    out = x.clone()
+    for k in range(1, x.shape[-1]):
+        out[..., k] += out[..., k - 1]
+    return out
+
+
+def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float sum over the last dim in the order of XLA's
+    reduce-window rewrite of `jnp.cumsum` on the CPU: blocks of 16 summed
+    in sequence, their totals scanned the same way recursively and added
+    in.  Equal bit for bit to the reference's cumsum, and made of
+    elementwise ops, so a row's sums never depend on the rows beside it
+    (on CUDA torch.cumsum scans a lone row with another algorithm).  The
+    sampler's nucleus sums and the mLSTM's forget-gate sums run on it."""
+    n = x.shape[-1]
+    if n <= SCAN_BLOCK:
+        return _sequential_cumsum(x)
+    nb = -(-n // SCAN_BLOCK)
+    xp = torch.nn.functional.pad(x, (0, nb * SCAN_BLOCK - n))
+    within = _sequential_cumsum(xp.view(*x.shape[:-1], nb, SCAN_BLOCK))
+    before = torch.nn.functional.pad(blocked_cumsum(within[..., -1])[..., :-1],
+                                     (1, 0))
+    return (within + before[..., None]).view(*x.shape[:-1], -1)[..., :n]
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as the reference's `jax.nn.softplus` computes it,
+    `logaddexp(x, 0)`: max(x, 0) + log1p(exp(-|x|)), op by op in x's
+    dtype.  torch's `F.softplus` returns x itself past a threshold of 20
+    and computes log1p(exp(x)) below it, another order of float ops."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def norm_apply(params, x: torch.Tensor, kind: str,
@@ -188,11 +226,19 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)), each op rounded to x's dtype: the reference's
+    sigmoid, bit for bit in bfloat16."""
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * sigmoid(x)
+
+
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind in ("silu", "swiglu"):
-        # x * 1 / (1 + exp(-x)), each op rounded to x's dtype: the
-        # reference's sigmoid, bit for bit in bfloat16
-        return x * torch.reciprocal(1 + torch.exp(-x))
+        return silu(x)
     if kind in ("gelu", "geglu"):
         return gelu(x)
     if kind == "relu_sq":

@@ -13,7 +13,10 @@ with its own int8 codes and per-output-channel scales: bit for bit what
 the reference's vmapped QAT linear computes on every call (its own
 `deploy_tree` leaves them in floating point).  An RG-LRU block's raw
 float32 leaves (conv taps and bias, the (w, w) gate matrices, lambda) are
-kept as they are: the reference reads them in float32.
+kept as they are: the reference reads them in float32, and so are an
+mLSTM block's gate matrices and biases and an sLSTM block's input
+matrices, recurrent blocks and biases (only their PIM linears, six in an
+mLSTM block and the MLP's two in an sLSTM block, are deployed).
 """
 from __future__ import annotations
 

@@ -1,13 +1,14 @@
-"""Model assembly for attention, MoE, hybrid RG-LRU and encoder-decoder
-stacks: parameter init, the serve state and the serve forward (with a
+"""Model assembly for attention, MoE, hybrid RG-LRU, encoder-decoder and
+xLSTM stacks: parameter init, the serve state and the serve forward (with a
 VLM's image patch embeddings projected into the first positions of a
 prompt, and an encoder-decoder's frames encoded at its prefill).
 
 Counterpart of the JAX package's `models/transformer.py` for serving:
 attention and MoE stacks on the classic dense cache, ragged slots and the
 paged pool; sliding-window attention (`attn_local`, ring caches past the
-window), RG-LRU blocks and whisper's cross-attention decoder blocks
-(`xattn`, with the bidirectional encoder `encode`) on the classic path.
+window), RG-LRU blocks, whisper's cross-attention decoder blocks
+(`xattn`, with the bidirectional encoder `encode`) and xLSTM's mLSTM and
+sLSTM blocks on the classic path.
 Parameters keep the reference's tree: `"blocks"` is a tuple with one stack
 per block-pattern position, each leaf carrying a leading layer-repetition
 axis; `"tail"` holds the unrolled remainder and, for a MoE arch with dense
@@ -33,20 +34,22 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 
 
-SERVED_KINDS = ("attn", "attn_local", "moe", "rglru", "xattn", "enc_attn")
+SERVED_KINDS = ("attn", "attn_local", "moe", "rglru", "xattn", "enc_attn",
+                "mlstm", "slstm")
+# the kinds whose state is a recurrence or a cross cache: the classic path only
+CLASSIC_ONLY = ("rglru", "xattn", "mlstm", "slstm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves attention, sliding-window attention, MoE, RG-LRU and
-    cross-attention decoder stacks, with image patch embeddings (the VLM
-    stub) or an encoder over frame embeddings (the audio stub), and rope,
-    absolute or no positions; anything else raises, naming the ROADMAP
-    item (§1) that ports it."""
+    """The port serves attention, sliding-window attention, MoE, RG-LRU,
+    cross-attention decoder and xLSTM (mLSTM, sLSTM) stacks, with image
+    patch embeddings (the VLM stub) or an encoder over frame embeddings
+    (the audio stub), and rope, absolute or no positions; anything else
+    raises."""
     unsupported = []
     kinds = set(cfg.block_pattern) - set(SERVED_KINDS)
     if kinds:
-        unsupported.append(f"block kinds {sorted(kinds)} (item 7: xlstm-1.3b's "
-                           "mlstm / slstm)")
+        unsupported.append(f"block kinds {sorted(kinds)}")
     if "moe" in cfg.block_pattern and not cfg.moe.num_experts:
         unsupported.append("a moe block without experts")
     if cfg.is_encoder_decoder and "xattn" not in cfg.block_pattern:
@@ -115,6 +118,10 @@ def _block_init(kind: str, normal, ones, linear, expert_linear,
 
     if kind == "rglru":
         return _rglru_init(normal, ones, lin, mlp, cfg, lead)
+    if kind == "mlstm":
+        return _mlstm_init(ones, lin, cfg, lead)
+    if kind == "slstm":
+        return _slstm_init(normal, ones, lin, cfg, lead)
     if kind == "moe":
         ffn = {"moe": M.moe_ffn_init(normal, cfg, lead, expert_linear)}
     else:
@@ -145,6 +152,43 @@ def _rglru_init(normal, ones, lin, mlp, cfg: ModelConfig, lead):
          "lambda_p": ones(lead + (w,)) * 4.0,
          "w_out": lin(w, d)}
     return {**p, "norm2": {"scale": ones(lead + (d,))}, "mlp": mlp()}
+
+
+def _mlstm_init(ones, lin, cfg: ModelConfig, lead):
+    """An mLSTM block in the reference's tree: PIM linears w_up, w_gate
+    (d -> di = 2 d), wq, wk, wv (di -> di), w_down (di -> d); raw float32
+    gate matrices w_igate, w_fgate (di, H) and biases b_igate, b_fgate
+    (H,), zeros but b_fgate = 3.0, as the reference's; the out-norm over
+    di."""
+    d, H = cfg.d_model, cfg.num_heads
+    di = 2 * d
+    p = {"norm": {"scale": ones(lead + (d,))},
+         "w_up": lin(d, di), "w_gate": lin(d, di),
+         "wq": lin(di, di), "wk": lin(di, di), "wv": lin(di, di)}
+    p.update(w_igate=ones(lead + (di, H)).zero_(),
+             w_fgate=ones(lead + (di, H)).zero_(),
+             b_igate=ones(lead + (H,)).zero_(),
+             b_fgate=ones(lead + (H,)) * 3.0)
+    return {**p, "out_norm": {"scale": ones(lead + (di,))},
+            "w_down": lin(di, d)}
+
+
+def _slstm_init(normal, ones, lin, cfg: ModelConfig, lead):
+    """An sLSTM block in the reference's tree: raw float32 input matrices
+    w_z, w_i, w_f, w_o (d, d) N(0, 1 / d), recurrent blocks r_* (H, dh,
+    dh) and biases b_* (d,), zeros but b_f = 3.0, as the reference's;
+    norm2 and a GELU MLP of width max(d_ff, 2 d) (PIM linears)."""
+    d, H = cfg.d_model, cfg.num_heads
+    dh, f = d // H, max(cfg.d_ff, 2 * d)
+    p = {"norm": {"scale": ones(lead + (d,))}}
+    for g in ("z", "i", "f", "o"):
+        p[f"w_{g}"] = normal(lead + (d, d), 1.0 / d ** 0.5)
+    for g in ("z", "i", "f", "o"):
+        p[f"r_{g}"] = ones(lead + (H, dh, dh)).zero_()
+    for g in ("z", "i", "f", "o"):
+        p[f"b_{g}"] = ones(lead + (d,)) * (3.0 if g == "f" else 0.0)
+    return {**p, "norm2": {"scale": ones(lead + (d,))},
+            "mlp": {"w_in": lin(d, f), "w_out": lin(f, d)}}
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
@@ -214,9 +258,12 @@ def _state_init(kind: str, cfg: ModelConfig, batch: int, max_len: int,
     (dense, ragged or a paged pool) for an attention kind, {"h", "conv"}
     for an RG-LRU block, {"self", "cross"} for a cross-attention block: a
     cache of max_len tokens and one of encoder_seq_len, both int8 whatever
-    cfg.kv_bits says, as the reference's.  A sliding-window layer whose
-    context outgrows its window (max_len > window) gets a ring of `window`
-    slots, always int8, as the reference's."""
+    cfg.kv_bits says, as the reference's; float32 {"C" (B, H, dh, dh), "n"
+    (B, H, dh), "m" (B, H) = -1e30} for an mLSTM block (dh = 2 d_model /
+    H) and {"c", "n" = 1, "m", "h"} (B, d_model) for an sLSTM block.  A
+    sliding-window layer whose context outgrows its window (max_len >
+    window) gets a ring of `window` slots, always int8, as the
+    reference's."""
     dh = cfg.resolved_head_dim
     if page_size:
         if kind not in ("attn", "moe"):
@@ -225,20 +272,29 @@ def _state_init(kind: str, cfg: ModelConfig, batch: int, max_len: int,
         return A.init_paged_kv_cache(num_pages, page_size, cfg.num_kv_heads,
                                      dh, kv_bits=cfg.kv_bits, device=device,
                                      layers=layers)
+    if kind in ("xattn", "mlstm", "slstm") and ragged:
+        raise NotImplementedError(f"{kind} layers serve the classic path only")
     if kind == "xattn":
-        if ragged:
-            raise NotImplementedError("cross-attention layers serve the "
-                                      "classic path only")
         return {name: A.init_kv_cache(batch, n, cfg.num_kv_heads, dh,
                                       device=device, layers=layers)
                 for name, n in (("self", max_len),
                                 ("cross", max(cfg.encoder_seq_len, 1)))}
     lead = () if layers is None else (layers,)
+    z = dict(dtype=torch.float32, device=device)
     if kind == "rglru":
         w = cfg.lru_width or cfg.d_model
-        z = dict(dtype=torch.float32, device=device)
         return {"h": torch.zeros(lead + (batch, w), **z),
                 "conv": torch.zeros(lead + (batch, cfg.conv1d_width - 1, w), **z)}
+    if kind == "mlstm":
+        H = cfg.num_heads
+        dh = 2 * cfg.d_model // H
+        return {"C": torch.zeros(lead + (batch, H, dh, dh), **z),
+                "n": torch.zeros(lead + (batch, H, dh), **z),
+                "m": torch.full(lead + (batch, H), -1e30, **z)}
+    if kind == "slstm":
+        shape = lead + (batch, cfg.d_model)
+        return {"c": torch.zeros(shape, **z), "n": torch.ones(shape, **z),
+                "m": torch.zeros(shape, **z), "h": torch.zeros(shape, **z)}
     ring = kind == "attn_local" and bool(cfg.window) and max_len > cfg.window
     return A.init_kv_cache(batch, min(max_len, cfg.window) if ring else max_len,
                            cfg.num_kv_heads, dh,
@@ -251,9 +307,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     """Serve state: one preallocated state per layer, stacked like the
     parameters; forward steps update it in place.  An attention layer
     holds a KV cache (a ring for a sliding-window layer past its window),
-    an RG-LRU layer its recurrent and conv state.  `ragged` gives every
-    cache (B,) per-slot lengths (all 0: every slot empty), the layout the
-    continuous-batching scheduler needs.  With `page_size` every layer
+    an RG-LRU, mLSTM or sLSTM layer its recurrent state.  `ragged` gives
+    every cache (B,) per-slot lengths (all 0: every slot empty), the
+    layout the continuous-batching scheduler needs.  With `page_size` every layer
     holds instead a `PagedKVCache` pool of `num_pages` pages (page 0 is the
     trash page); slots are rows of the page table that the caller passes
     to `forward_serve(pages=...)`, the same row naming the same pages in
@@ -377,13 +433,16 @@ def _index(tree, r: int):
 
 def _block_fwd_serve(kind: str, params, x, state, offset, cfg: ModelConfig,
                      enc_out=None, **kw) -> torch.Tensor:
-    if kind in ("rglru", "xattn"):
+    if kind in CLASSIC_ONLY:
         if kw["seq_lens"] is not None or kw["pages"] is not None:
             raise NotImplementedError(f"{kind} layers serve the classic path only")
         if kind == "xattn":
             return blocks.xattn_block_fwd_serve(params, x, state, offset, cfg,
                                                 enc_out=enc_out)
-        return blocks.rglru_block_fwd_serve(params, x, state, cfg)
+        fwd = {"rglru": blocks.rglru_block_fwd_serve,
+               "mlstm": blocks.mlstm_block_fwd_serve,
+               "slstm": blocks.slstm_block_fwd_serve}[kind]
+        return fwd(params, x, state, cfg)
     window = cfg.window if kind == "attn_local" else 0
     causal = True if kind == "attn_local" else cfg.causal
     return blocks.attn_block_fwd_serve(params, x, state, offset, cfg,
@@ -500,7 +559,7 @@ def forward_serve(params, batch: Dict[str, torch.Tensor], cache, offset,
                     c["cross"].length = enc_out.shape[1]
                 c = c["self"]
             if not isinstance(c, A.KVCache):
-                continue            # an RG-LRU state has no length
+                continue            # a recurrent state has no length
             max_len = c.k_q.shape[-2]
             c.length = offset + S if not ragged else torch.clamp(
                 offset + (S if seq_lens is None else seq_lens), max=max_len

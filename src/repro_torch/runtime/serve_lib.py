@@ -53,6 +53,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as A
 from repro_torch.core.attention import TRASH_PAGE
 from repro_torch.models import transformer as T
+from repro_torch.models.layers import blocked_cumsum
 from repro_torch.models.model_zoo import Model, build_model
 from repro_torch.runtime import prng
 from repro_torch.runtime.fault import CrashInjected, FaultPlan
@@ -104,34 +105,6 @@ class AuditError(AssertionError):
     """`Scheduler.audit()` found a broken invariant of the page accounting
     (slot rows, directory entries and victim records against the
     refcounts and the free list)."""
-
-
-SCAN_BLOCK = 16
-
-
-def _sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
-    out = x.clone()
-    for k in range(1, x.shape[-1]):
-        out[..., k] += out[..., k - 1]
-    return out
-
-
-def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive float sum over the last dim in the order of XLA's
-    reduce-window rewrite of `jnp.cumsum` on the CPU: blocks of 16 summed
-    in sequence, their totals scanned the same way recursively and added
-    in.  Equal bit for bit to the reference's cumsum, and made of
-    elementwise ops, so a row's sums never depend on the rows beside it
-    (on CUDA torch.cumsum scans a lone row with another algorithm)."""
-    n = x.shape[-1]
-    if n <= SCAN_BLOCK:
-        return _sequential_cumsum(x)
-    nb = -(-n // SCAN_BLOCK)
-    xp = torch.nn.functional.pad(x, (0, nb * SCAN_BLOCK - n))
-    within = _sequential_cumsum(xp.view(*x.shape[:-1], nb, SCAN_BLOCK))
-    before = torch.nn.functional.pad(blocked_cumsum(within[..., -1])[..., :-1],
-                                     (1, 0))
-    return (within + before[..., None]).view(*x.shape[:-1], -1)[..., :n]
 
 
 def _truncate_logits(l: torch.Tensor, top_k: int, top_p: float) -> torch.Tensor:

@@ -297,7 +297,8 @@ def test_cuda_head_dim_256(cuda_device, heads):
 # leaves, bytes, shapes and strides, in bf16 and float32 compute, as the
 # port drew them before the Griffin blocks joined `init` (the Griffin archs
 # and phi-3-vision-4.2b as the port drew them once its `img_proj` joined,
-# whisper-tiny once its encoder, positions and cross attention joined)
+# whisper-tiny once its encoder, positions and cross attention joined,
+# xlstm-1.3b once its mLSTM and sLSTM blocks joined)
 _EARLIER_INITS = {
     ("internlm2-1.8b", "bfloat16"): "337e97c6aba2aa35",
     ("internlm2-1.8b", "float32"): "10ef9f9792203e11",
@@ -315,6 +316,8 @@ _EARLIER_INITS = {
     ("phi-3-vision-4.2b", "float32"): "21970df66da4ed82",
     ("whisper-tiny", "bfloat16"): "b09b99ed3c98d4b4",
     ("whisper-tiny", "float32"): "6b7ddca4add7818a",
+    ("xlstm-1.3b", "bfloat16"): "2d4e551561e2499e",
+    ("xlstm-1.3b", "float32"): "5d1b38171867c49a",
 }
 
 

@@ -187,18 +187,21 @@ def test_rglru_block_prefill_then_decode_matches_jax(rglru_block):
 def _teacher_forced(jcfg, tcfg, jp, tp, prompt_len, steps, max_len, seed):
     """JAX's greedy stream from a prefill of `prompt_len` tokens and
     `steps` decode steps; the port fed the same tokens.  Returns each
-    step's (jax logits, port logits)."""
+    step's (jax logits, port logits).  The reference's forward runs
+    jitted, one compile a shape: its logits equal its eager run's bit for
+    bit on every path and dtype here (its layer scan compiles the blocks
+    in both), at a tenth of the time of a decode step."""
     jm, tm = jax_build(jcfg), build_model(tcfg, "cpu")
+    fwd = jax.jit(jm.forward_serve)
+    jp = jax.tree.map(jnp.asarray, jp)
     toks = np.random.RandomState(seed).randint(0, 256, (2, prompt_len)).astype(np.int32)
-    jl, jc, _ = jm.forward_serve(jp, {"tokens": jnp.asarray(toks)},
-                                 jm.init_cache(2, max_len), 0)
+    jl, jc, _ = fwd(jp, {"tokens": jnp.asarray(toks)}, jm.init_cache(2, max_len), 0)
     tl, tc = tm.forward_serve(tp, {"tokens": torch.from_numpy(toks).long()},
                               tm.init_cache(2, max_len), 0)
     out = [(jl, tl)]
     for t in range(steps):
         nxt = np.asarray(jnp.argmax(jl, axis=-1), np.int32)[:, None]
-        jl, jc, _ = jm.forward_serve(jp, {"tokens": jnp.asarray(nxt)}, jc,
-                                     prompt_len + t)
+        jl, jc, _ = fwd(jp, {"tokens": jnp.asarray(nxt)}, jc, prompt_len + t)
         tl, tc = tm.forward_serve(tp, {"tokens": torch.from_numpy(nxt).long()}, tc,
                                   prompt_len + t)
         out.append((jl, tl))

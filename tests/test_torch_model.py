@@ -204,17 +204,14 @@ def test_entry_points_without_a_device_raise(monkeypatch, jax_params):
 
 
 def test_unported_features_raise():
-    """What is still unported raises: xLSTM blocks, xlstm-1.3b's config,
-    and a sliding window on the paged or ragged path (the reference has
-    none there either).  Windows on the classic path, gemma-7b /
-    recurrentgemma-9b and whisper-tiny are ported
-    (tests/test_torch_griffin.py, tests/test_torch_gemma.py,
-    tests/test_torch_whisper.py)."""
+    """What the port does not serve raises: an unknown block kind, and a
+    sliding window on the paged or ragged path (the reference has none
+    there either).  Windows on the classic path and every arch of the zoo
+    are served (tests/test_torch_griffin.py, tests/test_torch_gemma.py,
+    tests/test_torch_whisper.py, tests/test_torch_xlstm.py)."""
     cfg = get_config(ARCH, smoke=True)
     with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, block_pattern=("attn", "mlstm")), "cpu")
-    with pytest.raises(KeyError):
-        get_config("xlstm-1.3b")
+        build_model(dataclasses.replace(cfg, block_pattern=("attn", "mamba")), "cpu")
     local = dataclasses.replace(cfg, window=16, block_pattern=("attn_local",))
     model = build_model(local, "cpu")
     with pytest.raises(NotImplementedError):
