@@ -275,6 +275,24 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    paper's fidelity (4 new tokens: kernel 3 in all 264 linears of a
    forward, served launches replayed bit for bit), and the Scheduler
    refusing the arch.
+19. Training: (a) internlm2-1.8b at full width and depth, float32
+   master weights from a CUDA generator (seed 0), bf16 compute, the 6-bit
+   ADC, per-block remat: 3 AdamW steps (lr 3e-4, warmup 1) of `lm_batch`
+   at 4 x 1,025 tokens (the chunked CE's two chunks of 512), each with
+   336 kernel-3 launches (168 PIM linears a forward and again in the
+   recompute) and no plain-version call, finite losses and grad norms,
+   the parameters moved; step 0's first 7 kernel-3 launches (layer 0's
+   forward: every K x N of the stack at M 4,100) replayed against its
+   plain version bit for bit, then timed (kernel 3's us per launch at M
+   4,100, the mean of the 7, beside its mean bound over a step's
+   launches); step ms, training tokens/s, peak memory; a fourth step under
+   torch.profiler (busy share, the step's top device kernels).  (b) Its first 2 layers at batch 1 x 129: the loss
+   and every gradient through kernel 3 equal those through its plain
+   version on the card bit for bit (deterministic algorithms on).  (c)
+   SMOKE, 50 steps at lr 1e-2 lower the loss by 0.5 in both ADC modes;
+   each trained tree, deployed, serves 8 tokens on kernels 1 and 2.  (d)
+   The train CLI at SMOKE with a crash injected at step 7 ends bit for
+   bit where an uninterrupted run ends.
 Phases 10-12 first run a row probe: RMSNorm, the bf16 unembed, the
 top-k / top-p truncation, its softmax and the Gumbel arg-max must give a
 row the same bits alone and among other rows (up to 40 = 8 slots x 5
@@ -339,7 +357,7 @@ F32_OPS = 67e12
 REL_TOL = 1e-5
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19)
 # what a phase needs run first: kernel entries (2, 8) or the small model (4)
 NEEDS = {3: {2}, 5: {4}, 6: {2}, 7: {2}, 9: {8}}
 
@@ -3355,6 +3373,8 @@ def main(argv=None) -> int:
         whisper_phase(dev, entries, compare, results)
     if 18 in phases:
         xlstm_phase(dev, entries, compare, results)
+    if 19 in phases:
+        train_phase(dev, entries, results)
     stamp(f"phases {sorted(phases)} done: every check passed")
     for name in max_err:
         if name in entries:
@@ -3374,7 +3394,8 @@ def main(argv=None) -> int:
              "paged_launches", "dense_sched_launches", "mixed_launches", "verify_launches",
              "kv4_launches", "paged_kv4_ms", "paged_kv4_bound_ms",
              "ideal_ms", "int_mm_ms", "quantized_ms", "quantized_bound_ms",
-             "int_mm_loop_ms", "dh256", "dh96", "dh64", "griffin_launches", "xlstm")
+             "int_mm_loop_ms", "dh256", "dh96", "dh64", "griffin_launches", "xlstm",
+             "train")
     print(json.dumps({"kernels": [{**{k: e.get(k) for k in keys},
                                    **{k: e[k] for k in extra if k in e}}
                                   for e in entries.values()]}))
@@ -5035,6 +5056,330 @@ def xlstm_phase(dev, entries, compare, results) -> None:
     check(refused and not serve_lib.scheduler_supported(cfg),
           "xlstm-1.3b: the Scheduler refuses the recurrent arch, as the reference's does")
     results["xlstm"] = out
+
+
+# ---- 19. training: internlm2-1.8b trained at full width and depth ----------
+TRAIN_BATCH, TRAIN_SEQ = 4, 1025   # T = 1,024 predicted positions: two CE chunks of 512
+TRAIN_STEPS = 3
+TRAIN_SMOKE_STEPS = 50
+TRAIN_CUT = 2                       # layers of (b)'s kernel-against-plain step
+TRAIN_CUT_SEQ = 129
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic implementations within the block (the
+    embedding's and the CE gather's backward sum without atomics); an op
+    that has none warns (the warnings are printed) instead of raising."""
+    import warnings
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for w in {str(w.message)[:160] for w in caught
+              if "deterministic" in str(w.message)}:
+        print(f"  deterministic mode warned: {w}", flush=True)
+
+
+def train_cfg(cfg, adc: str):
+    return dataclasses.replace(cfg, remat="block",
+                               pim=dataclasses.replace(cfg.pim, adc_mode=adc))
+
+
+def train_batch(step: int, B: int, S: int, V: int, dev) -> dict:
+    return {"tokens": torch.from_numpy(data.lm_batch(step, B, S, V)).long().to(dev)}
+
+
+def train_launch_ms(args, kw) -> float:
+    """Device ms of one kernel-3 launch on a train step's recorded operands
+    (torch.profiler, padded retries; CUDA events where no session saw every
+    launch)."""
+    (M, K), N = args[0].shape, args[1].shape[1]
+
+    def call():
+        return mm_k.pim_matmul_int(*args, **kw)
+
+    times = profiled_until(call, 10, lambda t: kernel_us(t, "pim_matmul_kernel")[1] == 10,
+                           f"some of the 10 pim_matmul launches at M{M} K{K} N{N}")
+    if times is None:
+        return event_timed(call, 10, f"train M{M} K{K} N{N} pim_matmul")
+    return per_call_ms(times, 10)
+
+
+def train_full(dev, entries) -> dict:
+    """(a) internlm2-1.8b at full width and depth: float32 master weights
+    drawn from a CUDA generator, bf16 compute, the 6-bit ADC (kernel 3 in
+    every PIM linear of every forward and of every block's recompute),
+    per-block remat; TRAIN_STEPS steps of `lm_batch` at 4 x 1,025 tokens,
+    lr 3e-4, warmup 1, each with its kernel counts set to 0 just before
+    and read just after; step 0's layer-0 launches replayed against
+    kernel 3's plain version; then one more step under torch.profiler."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.runtime import train_lib
+    cfg = train_cfg(get_config("internlm2-1.8b"), "quantized")
+    B, S, V, L = TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size, cfg.num_layers
+    per_step = 2 * LINEARS_PER_LAYER * L        # a forward and the recompute
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), deploy=False)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    opt = train_lib.init_opt_state(params, tcfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = ckpt_flatten(params)
+    n_params = sum(t.numel() for t in leaves)
+    check(all(t.dtype == torch.float32 and t.is_cuda for t in leaves)
+          and n_params == cfg.param_count() + cfg.d_model,
+          f"internlm2-1.8b fp32 master tree on the card: {n_params:,} parameters "
+          f"== param_count() {cfg.param_count():,} + the final norm's {cfg.d_model}")
+    print(f"train internlm2-1.8b: {L} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {V}; {n_params / 1e9:.3f} B float32 parameters, init + "
+          f"AdamW state {init_s:.1f} s, {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          "GiB", flush=True)
+    probe = params["blocks"][0]["mlp"]["w_gate"]["w"][0, :64, :64].clone()
+    step = train_lib.make_train_step(model, tcfg)
+    out = dict(steps=[], launches_per_step=per_step)
+    bounds = None
+    # step 0 keeps the operands of its first LINEARS_PER_LAYER launches
+    # (layer 0's forward: every K x N of the stack at M = B x S), which are
+    # then held against kernel 3's plain version bit for bit
+    first = {f"step 0 linear {i}": B * S for i in range(LINEARS_PER_LAYER)}
+
+    def pick(name, i):
+        return f"step 0 linear {i}" if i < LINEARS_PER_LAYER else None
+
+    for s in range(TRAIN_STEPS):
+        batch = train_batch(s, B, S, V, dev)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        rec = adc_bounds() if s == TRAIN_STEPS - 1 else contextlib.nullcontext({})
+        keep = (recorded(pick, {"pim_matmul": ADC_TARGETS["pim_matmul"]}) if s == 0
+                else contextlib.nullcontext({}))
+        with plain_calls() as n_plain, rec as seen, keep as kept:
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        bounds = seen or bounds
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        check(not n_plain, f"train step {s}: no plain-version call ({n_plain})")
+        check(launches == {"pim_matmul": per_step},
+              f"train step {s}: launches {launches} == pim_matmul {per_step} "
+              f"({LINEARS_PER_LAYER} linears x {L} layers, forward and recompute)")
+        check(math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0,
+              f"train step {s}: finite loss {loss:.4f} and grad norm {gnorm:.4f}")
+        out["steps"].append(dict(loss=loss, grad_norm=gnorm, lr=float(met["lr"]),
+                                 ms=wall * 1e3))
+        print(f"  train step {s}: loss {loss:.4f}, |g| {gnorm:.4f}, lr "
+              f"{float(met['lr']):.2e}, {wall * 1e3:.1f} ms, "
+              f"{B * S / wall:.1f} tokens/s", flush=True)
+        del batch, met
+        if s == 0:
+            replay_adc("train step 0", kept, first)
+            k3_ms = [train_launch_ms(args, kw) for _, args, kw in kept.values()]
+            print(f"  train step 0: kernel 3 == plain bit for bit at M {B * S}, K x N "
+                  f"{[tuple(a[1].shape) for _, a, _ in kept.values()]}; device ms a "
+                  f"launch {[round(t, 4) for t in k3_ms]}", flush=True)
+            kept.clear()
+    moved = (params["blocks"][0]["mlp"]["w_gate"]["w"][0, :64, :64] - probe).abs().max()
+    check(float(moved) > 0 and int(opt["step"]) == TRAIN_STEPS,
+          f"the parameters moved (max |dw| {float(moved):.3g} over a 64 x 64 probe) "
+          f"and the optimizer counted {int(opt['step'])} steps")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = [r["ms"] for r in out["steps"][1:]]
+    out["step_ms"] = sum(steady) / len(steady)
+    out["tokens_per_s"] = B * S / (out["step_ms"] / 1e3)
+    print(f"  steady step {out['step_ms']:.1f} ms (steps 1-{TRAIN_STEPS - 1}), "
+          f"{out['tokens_per_s']:.1f} training tokens/s ({B} x {S} a step), peak "
+          f"{out['peak_gib']:.2f} GiB", flush=True)
+
+    # the profiled steps replace the state: no other reference to the old
+    # trees may stay live, or a profiling retry holds two of them beside
+    # the step's own new ones (21 GiB each at full width)
+    state = {"params": params, "opt": opt}
+    del params, opt
+
+    def run(_):
+        state["params"], state["opt"], m = step(state["params"], state["opt"],
+                                                train_batch(TRAIN_STEPS, B, S, V, dev))
+        float(m["loss"])
+
+    # the busy share and the step's top kernels only: late in a long
+    # process the profiler can drop an event of a 23,000-kernel session, so
+    # kernel 3's time per launch comes from its own sessions above
+    report = profiled_report(lambda: None, run, "full-width train step",
+                             out["step_ms"] / 1e3, kernel_names=())
+    k3_us = sum(k3_ms) / len(k3_ms) * 1e3
+    b_us = sum(bounds["pim_matmul"]) / len(bounds["pim_matmul"])
+    check(len(bounds["pim_matmul"]) == per_step,
+          f"kernel 3's bounds recorded at each of the step's {per_step} launches")
+    # the step is device-bound: its device time under the profiler passes
+    # the unprofiled wall, so its busy share is over the profiled wall
+    busy = report["device_busy_ms"] / report["profiled_wall_ms"]
+    print(f"  device busy {busy:.1%} of the profiled step's wall", flush=True)
+    out.update(profile=report, kernel3_us=k3_us, kernel3_bound_us=b_us,
+               busy_share=busy)
+    print(f"  kernel 3 in the train step (M {B * S}): {k3_us:.2f} us per launch (the "
+          f"mean of its {LINEARS_PER_LAYER} shapes, each {per_step // LINEARS_PER_LAYER}"
+          f" times a step), bound {b_us:.3f} us (mean over its {per_step} launches' "
+          f"shapes), {b_us / k3_us:.1%} of it; {per_step} launches {k3_us * per_step / 1e3:.1f}"
+          f" ms = {k3_us * per_step / 1e3 / report['device_busy_ms']:.1%} of the "
+          "profiled step's device time", flush=True)
+    if "pim_matmul" in entries:
+        entries["pim_matmul"]["train"] = dict(
+            launches_per_step=per_step, us_per_launch=k3_us,
+            bound_us=b_us, step_ms=out["step_ms"], tokens_per_s=out["tokens_per_s"],
+            busy_share=busy, peak_gib=out["peak_gib"], M=B * S)
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_kernel_vs_plain(dev) -> dict:
+    """(b) The first TRAIN_CUT layers at full width, batch 1 x 129: the
+    loss and every gradient of a step through kernel 3 equal, bit for bit,
+    those of the same step through kernel 3's plain version on the card
+    (deterministic algorithms on)."""
+    from repro_torch.runtime import train_lib
+    cfg = dataclasses.replace(train_cfg(get_config("internlm2-1.8b"), "quantized"),
+                              num_layers=TRAIN_CUT)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1), deploy=False)
+    batch = train_batch(0, 1, TRAIN_CUT_SEQ, cfg.vocab_size, dev)
+    runs = {}
+    for route in ("kernel", "plain"):
+        saved = core_pim._adc_matmul
+        if route == "plain":
+            core_pim._adc_matmul = mm_k.pim_matmul_int_plain
+        try:
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            with deterministic():
+                grads, loss, _ = train_lib.grad_fn(model)(params, batch)
+                torch.cuda.synchronize()
+        finally:
+            core_pim._adc_matmul = saved
+        runs[route] = (grads, loss, {k: n for k, n in _build.LAUNCHES.items() if n})
+    (gk, lk, nk), (gp, lp, npl) = runs["kernel"], runs["plain"]
+    want = 2 * LINEARS_PER_LAYER * TRAIN_CUT
+    check(nk == {"pim_matmul": want} and not npl,
+          f"(b) kernel 3 launched {nk} ({want} expected), the plain route {npl or 'none'}")
+    diffs = [float((a.double() - b.double()).abs().max())
+             for a, b in zip(ckpt_flatten(gk), ckpt_flatten(gp))]
+    check(torch.equal(lk, lp) and max(diffs) == 0.0,
+          f"(b) {TRAIN_CUT} layers at full width, batch 1 x {TRAIN_CUT_SEQ}: loss "
+          f"{float(lk):.6f} and all {len(diffs)} gradients through kernel 3 == through "
+          f"its plain version bit for bit (max |diff| {max(diffs):.3g})")
+    out = dict(loss=float(lk), leaves=len(diffs), launches=nk["pim_matmul"])
+    del gk, gp, params, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_smoke(dev) -> dict:
+    """(c) SMOKE internlm2-1.8b from seed 0: TRAIN_SMOKE_STEPS steps of
+    `lm_batch` (8 x 32) at lr 1e-2 lower the loss by 0.5 at least in both
+    ADC modes; each trained tree, deployed by `deploy_tree`, then serves 8
+    greedy tokens on the kernel path (kernels 1 and 2; kernel 3 too at the
+    quantized ADC)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.model_zoo import deploy_tree
+    from repro_torch.runtime import train_lib
+    out = {}
+    for adc in ("ideal", "quantized"):
+        cfg = train_cfg(get_config("internlm2-1.8b", smoke=True), adc)
+        model = build_model(cfg)
+        params = model.init(seed=0, deploy=False)
+        tcfg = TrainConfig(learning_rate=1e-2, warmup_steps=5,
+                           total_steps=TRAIN_SMOKE_STEPS)
+        step, opt = train_lib.make_train_step(model, tcfg), train_lib.init_opt_state(params, tcfg)
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(TRAIN_SMOKE_STEPS):
+            params, opt, m = step(params, opt, train_batch(s, 8, 32, cfg.vocab_size, dev))
+            losses.append(float(m["loss"]))
+        wall = time.perf_counter() - t0
+        check(all(map(math.isfinite, losses)) and losses[-1] < losses[0] - 0.5,
+              f"(c) SMOKE, {adc} ADC: {TRAIN_SMOKE_STEPS} steps lower the loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} by 0.5 at least")
+        served = dataclasses.replace(cfg, attn_impl="kernel")
+        smodel = build_model(served)
+        batch = {"tokens": torch.from_numpy(data.lm_batch(0, 2, 16, cfg.vocab_size)).long()}
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        with plain_calls() as n_plain:
+            toks = serve_lib.generate(smodel, deploy_tree(params, served), batch, 8, 24)
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        L = cfg.num_layers
+        want = {"pim_attention": L, "pim_decode": 7 * L}
+        if adc == "quantized":
+            want["pim_matmul"] = LINEARS_PER_LAYER * L * 8
+        check(not n_plain and launches == want
+              and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+              f"(c) the trained {adc}-ADC tree deployed and served 8 tokens on the kernel "
+              f"path: launches {launches} == {want}, tokens in the vocabulary")
+        print(f"  (c) {adc} ADC: {TRAIN_SMOKE_STEPS} SMOKE steps in {wall:.2f} s, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; served {toks[0].tolist()}", flush=True)
+        out[adc] = dict(first=losses[0], last=losses[-1], wall_s=wall)
+    return out
+
+
+def train_restart(dev) -> dict:
+    """(d) The train CLI at SMOKE (10 steps, a checkpoint every 2) with a
+    crash injected at step 7 equals an uninterrupted run bit for bit
+    (deterministic algorithms on)."""
+    from repro_torch.launch import train as train_cli
+    argv = ["--arch", "internlm2-1.8b", "--smoke", "--steps", "10", "--batch", "8",
+            "--seq", "32", "--ckpt-every", "2"]
+    make_batch = data.make_batch
+    crashed = []
+
+    def crashing(cfg, shape, step, **kw):
+        if step == 7 and not crashed:
+            crashed.append(step)
+            raise RuntimeError("injected failure at step 7")
+        return make_batch(cfg, shape, step, **kw)
+
+    states = []
+    for crash in (False, True):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+            data.make_batch = crashing if crash else make_batch
+            try:
+                with deterministic():
+                    state, metrics = train_cli.main(argv + ["--ckpt-dir", d])
+            finally:
+                data.make_batch = make_batch
+        states.append((state, metrics))
+    (a, ma), (b, mb) = states
+    la, lb = ckpt_flatten(a), ckpt_flatten(b)
+    check(crashed == [7] and len(la) == len(lb)
+          and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+          and ma["loss"] == mb["loss"],
+          f"(d) the train CLI crashed at step 7 and restored from its step-5 checkpoint "
+          f"ends bit for bit where an uninterrupted run ends ({len(la)} leaves, final "
+          f"loss {mb['loss']:.4f})")
+    return dict(final_loss=mb["loss"], leaves=len(la))
+
+
+def train_phase(dev, entries, results) -> None:
+    """Phase 19: the training path (see the module docstring)."""
+    stamp("phase 19 (a): internlm2-1.8b trained at full width")
+    out = {"full": train_full(dev, entries)}
+    stamp("phase 19 (b): kernel 3 against its plain version inside a train step")
+    out["kernel_vs_plain"] = train_kernel_vs_plain(dev)
+    stamp("phase 19 (c): SMOKE training in both ADC modes, then served")
+    out["smoke"] = train_smoke(dev)
+    stamp("phase 19 (d): the train CLI restarted after a crash")
+    out["restart"] = train_restart(dev)
+    results["train"] = out
 
 
 if __name__ == "__main__":

@@ -12,7 +12,7 @@ from repro_torch.configs import (
     xlstm_1_3b,
 )
 from repro_torch.configs.base import (  # noqa: F401
-    LUTSoftmaxConfig, ModelConfig, MoEConfig, PIMConfig,
+    LUTSoftmaxConfig, ModelConfig, MoEConfig, PIMConfig, TrainConfig,
 )
 
 _MODULES = {

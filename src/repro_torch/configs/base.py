@@ -1,12 +1,14 @@
 """Configuration dataclasses, copied from the JAX package's `configs/base.py`.
 
 The port keeps its own copy so that it imports nothing of the JAX package.
-Only the parts the serving path reads are kept: the PIM macro model, the LUT
-softmax and the model architecture.
+Kept: the PIM macro model, the LUT softmax, the model architecture and
+the training hyperparameters.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Tuple
 
 
@@ -146,3 +148,27 @@ def _pattern_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
     pat = cfg.block_pattern
     reps = -(-cfg.num_layers // len(pat))
     return (pat * reps)[: cfg.num_layers]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The reference's training hyperparameters, field for field.  The
+    default checkpoint directory lies under the temporary directory
+    (`TMPDIR`, else /tmp).  `remat` is read by nothing, as in the
+    reference: the model config's `remat` decides the recompute."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    microbatches: int = 1          # gradient accumulation
+    remat: str = "block"           # none|block|full
+    grad_compression: str = "none" # none|int8_ef
+    seed: int = 0
+    checkpoint_every: int = 100
+    checkpoint_dir: str = os.path.join(tempfile.gettempdir(),
+                                       "attentionlego_ckpt")
+    keep_checkpoints: int = 3

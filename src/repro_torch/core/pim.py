@@ -17,6 +17,11 @@ MoE layer's experts, each its own engine with its own per-channel scales
 them through kernel 3's expert launch, one launch for the stack (cuBLAS's
 int8 GEMM has no batch axis); on the CPU the ideal mode is a batched int32
 product and the quantized one kernel 3's plain version.
+
+Training (QAT) runs fp weights {"w"} through `_PIMLinearSTE`, the
+reference's straight-through estimator: the forward quantizes `w` and
+goes through the PIM matmul (kernel 3 on the card at the quantized ADC),
+the backward is the gradient of the plain fp product.
 """
 from __future__ import annotations
 
@@ -90,19 +95,54 @@ def quantize_weights(w: torch.Tensor, cfg: PIMConfig):
     return quant.quantize(w, scale, cfg.weight_bits), scale
 
 
+def kn_view(w_q: torch.Tensor) -> torch.Tensor:
+    """(..., K, N) views of an (..., N, K) store: the layout cuBLAS's int8
+    GEMM and kernel 3's vector loads read (each expert's slice
+    contiguous)."""
+    return w_q.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+class _PIMLinearSTE(torch.autograd.Function):
+    """The reference's `_pim_linear_core` with its custom VJP: forward
+    through the PIM model from `w` quantized on every call, backward the
+    straight-through fp gradients dx = g w^T (in g's dtype, cast to x's)
+    and dw = x^T g summed in float32 (cast to w's dtype).  Saves (x, w)."""
+
+    @staticmethod
+    def forward(ctx, x, w, cfg):
+        w_q, w_scale = quantize_weights(w, cfg)
+        if w_q.is_cuda:
+            w_q = kn_view(w_q)
+        ctx.save_for_backward(x, w)
+        return pim_matmul(x, w_q, w_scale, cfg, out_dtype=x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (g @ w.to(g.dtype).t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            x2 = x.reshape(-1, x.shape[-1])
+            g2 = g.reshape(-1, g.shape[-1])
+            dw = (x2.float().t() @ g2.float()).to(w.dtype)
+        return dx, dw, None
+
+
 def pim_linear_apply(params, x: torch.Tensor, cfg: PIMConfig,
                      enabled: bool = True) -> torch.Tensor:
     """Apply a linear layer through the PIM model.
 
     Takes deployed params {"w_q", "w_scale"} (weights quantized once at
     load) or fp params {"w"}, which are quantized from `w` cast to the
-    activation dtype on every call, as the reference's QAT layer does."""
+    activation dtype on every call, as the reference's QAT layer does; their
+    gradients are the straight-through estimator's (`_PIMLinearSTE`), and
+    the cast's own backward takes dw back to the master weight's dtype."""
     if "w_q" in params:
         y = pim_matmul(x, params["w_q"], params["w_scale"], cfg,
                        out_dtype=x.dtype)
     elif enabled:
-        w_q, w_scale = quantize_weights(params["w"].to(x.dtype), cfg)
-        y = pim_matmul(x, w_q, w_scale, cfg, out_dtype=x.dtype)
+        y = _PIMLinearSTE.apply(x, params["w"].to(x.dtype), cfg)
     else:
         y = x @ params["w"].to(x.dtype)
     if "b" in params:

@@ -5,7 +5,8 @@ bidirectional encoder block (`enc_attn`) and cross-attention decoder block
 (`xattn`), and xLSTM's mLSTM (`mlstm`) and sLSTM (`slstm`) blocks.
 
 Counterpart of the attention, cross-attention, RG-LRU and xLSTM blocks of
-the JAX package's `models/blocks.py`; attention on three storages: the classic
+the JAX package's `models/blocks.py`, and of its attention block's
+training forward (`attn_block_fwd_train`); attention on three storages: the classic
 dense cache (scalar offset), ragged dense slots and the paged pool (per-row
 offsets).  Serve-path attention runs the
 paper's PIM pipeline, either the behavioral two-pass
@@ -222,20 +223,30 @@ def attn_block_fwd_serve(params, x: torch.Tensor, cache, offset,
 # ---------------------------------------------------------------------------
 # whisper: the encoder block and the cross-attention decoder block
 # ---------------------------------------------------------------------------
-def attn_block_fwd_encode(params, x: torch.Tensor,
-                          cfg: ModelConfig) -> torch.Tensor:
-    """One encoder block over the whole (B, Se, D) sequence: the
-    reference's `attn_block_fwd_train(causal=False)`, forward only.  Its
-    attention is `fp_attention` (float32 softmax, no KV cache), which is
-    plain arithmetic in the reference too, outside every Pallas kernel."""
+def attn_block_fwd_train(params, x: torch.Tensor, pos_ids: torch.Tensor,
+                         cfg: ModelConfig, window: int = 0,
+                         causal: bool = True):
+    """One attention block over the whole (B, S, D) sequence, as the
+    reference's training forward: its attention is `fp_attention` (float32
+    softmax, no KV cache), plain arithmetic in the reference too, and its
+    PIM linears carry the straight-through gradients.  Returns (x, aux),
+    aux the float32 zero of a block without a MoE load-balance term."""
     B, S, _ = x.shape
     h = L.norm_apply(params["norm1"], x, cfg.norm)
-    q, k, v = _qkv(params["attn"], h, cfg, torch.arange(S, device=x.device))
-    o = A.fp_attention(q, k, v, q_offset=0, causal=False)
+    q, k, v = _qkv(params["attn"], h, cfg, pos_ids)
+    o = A.fp_attention(q, k, v, q_offset=0, causal=causal, window=window)
     x = x + pim.pim_linear_apply(params["attn"]["wo"], o.reshape(B, S, -1),
                                  cfg.pim, cfg.pim_linears)
     h = L.norm_apply(params["norm2"], x, cfg.norm)
-    return x + _ffn(params, h, cfg)
+    return x + _ffn(params, h, cfg), torch.zeros((), dtype=torch.float32,
+                                                 device=x.device)
+
+
+def attn_block_fwd_encode(params, x: torch.Tensor,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """One encoder block: `attn_block_fwd_train(causal=False)`'s output."""
+    pos_ids = torch.arange(x.shape[1], device=x.device)
+    return attn_block_fwd_train(params, x, pos_ids, cfg, causal=False)[0]
 
 
 def xattn_block_fwd_serve(params, x: torch.Tensor, state, offset: int,

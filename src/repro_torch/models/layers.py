@@ -95,7 +95,11 @@ def norm_apply(params, x: torch.Tensor, kind: str,
 
 
 def embed_apply(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return params["table"][tokens].to(dtype)
+    """Rows of the table cast to `dtype`.  The table is cast first, as the
+    reference casts it, so that a training step sums the gradient of a
+    repeated token in `dtype` as the reference's does (a served table is
+    already in the compute dtype: no copy)."""
+    return params["table"].to(dtype)[tokens]
 
 
 UNEMBED_ROWS = 64

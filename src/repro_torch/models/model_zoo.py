@@ -1,7 +1,10 @@
-"""Public model bundle: `build_model(cfg, device)` and the parameter bridge
-from the JAX package's trees.
+"""Public model bundle: `build_model(cfg, device)`, the parameter bridge
+from the JAX package's trees and the training loss (`cross_entropy`,
+`chunked_ce_from_hidden`).
 
-Counterpart of the JAX package's `models/model_zoo.py` for serving.  The
+Counterpart of the JAX package's `models/model_zoo.py`.  Training takes the
+fp master tree (`init(deploy=False)`, `from_jax_params(deploy=False)`),
+which `deploy_tree` turns into the serving form.  The
 port's serving parameters are deployed once at load: every PIM linear's
 weight is quantized to int8 with per-channel scales in the compute dtype,
 which is what the reference's QAT layer computes from `w.astype(compute
@@ -35,9 +38,52 @@ from repro_torch.models import transformer as T
 class Model(NamedTuple):
     cfg: ModelConfig
     device: torch.device
-    init: Callable[..., Any]            # (generator=None, seed=0) -> params
+    init: Callable[..., Any]            # (generator=None, seed=0, deploy=True) -> params
     init_cache: Callable[..., Any]      # (batch, max_len[, ragged, page_size, num_pages])
     forward_serve: Callable[..., Any]   # (params, batch, cache, offset[, seq_lens, pages, decode_rows, logit_positions, verify_len])
+    forward_train: Callable[..., Any]   # (params, batch) -> (logits, aux)
+    loss: Callable[..., Any]            # (params, batch) -> (loss, metrics)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean negative log-likelihood of `labels` under `logits`, in float32,
+    over the positions `mask` keeps."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+_CE_CHUNK = 512
+
+
+def chunked_ce_from_hidden(hidden: torch.Tensor, head_table: torch.Tensor,
+                           labels: torch.Tensor) -> torch.Tensor:
+    """Sequence-chunked cross-entropy: positions 0..S-2 of `hidden` (B, S,
+    D) predict labels 1..S-1.  Where those T = S - 1 positions are a
+    multiple of _CE_CHUNK above it, each chunk computes its own (B, 512, V)
+    logits tile against the (V, D) head table (cast per chunk, as the
+    reference's scan body casts it) and the chunks' NLL sums add in order;
+    otherwise one product and `cross_entropy`."""
+    B, S, D = hidden.shape
+    h = hidden[:, :-1]
+    y = labels[:, 1:].long()
+    T = h.shape[1]
+    cq = _CE_CHUNK
+    if T <= cq or T % cq:
+        return cross_entropy(h @ head_table.to(h.dtype).t(), y)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, T, cq):
+        lf = (h[:, lo:lo + cq] @ head_table.to(h.dtype).t()).float()
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, y[:, lo:lo + cq, None])[..., 0]
+        total = total + torch.sum(logz - gold)
+    return total / (B * T)
 
 
 def _is_linear(node) -> bool:
@@ -49,12 +95,6 @@ def _is_linear(node) -> bool:
 _EXPERT_STACKS = ("experts", "shared")
 
 
-def _kn_view(w_q: torch.Tensor) -> torch.Tensor:
-    """(..., K, N) views of an (..., N, K) store: the layout cuBLAS's int8
-    GEMM and kernel 3 read (each expert's slice contiguous)."""
-    return w_q.transpose(-1, -2).contiguous().transpose(-1, -2)
-
-
 def deploy_linear(node, cfg: ModelConfig):
     """One fp linear {"w"[, "b"]} -> its serving form (int8 codes in the
     (K, N) view, per-channel scales); deployed linears and the fp linears
@@ -62,7 +102,7 @@ def deploy_linear(node, cfg: ModelConfig):
     if "w_q" in node or not cfg.pim_linears:
         return node
     out = pim.deploy_params(node, cfg.pim, dtype=getattr(torch, cfg.compute_dtype))
-    out["w_q"] = _kn_view(out["w_q"])
+    out["w_q"] = pim.kn_view(out["w_q"])
     return out
 
 
@@ -97,11 +137,13 @@ def _to_torch(leaf, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
-def from_jax_params(tree, cfg: ModelConfig, device=None):
+def from_jax_params(tree, cfg: ModelConfig, device=None, deploy: bool = True):
     """The JAX package's parameter tree (its leaves as numpy arrays, e.g.
     from `jax.device_get`) -> the port's serving parameters on `device`.
     QAT trees are deployed here, once; deployed trees are taken as they
-    are.  The stacked "blocks" layer axis is kept."""
+    are.  With `deploy=False` the tree's leaves are taken as they are (an
+    fp master tree for training).  The stacked "blocks" layer axis is
+    kept."""
     T.check_supported(cfg)
     device = resolve_device(device)
 
@@ -112,7 +154,7 @@ def from_jax_params(tree, cfg: ModelConfig, device=None):
             return tuple(conv(v) for v in node)
         return _to_torch(node, device)
 
-    return deploy_tree(conv(tree), cfg)
+    return deploy_tree(conv(tree), cfg) if deploy else conv(tree)
 
 
 def _drawn_experts(generator, cfg: ModelConfig, device, lead, d_in, d_out,
@@ -138,9 +180,20 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
     T.check_supported(cfg)
     device = resolve_device(device)
 
-    def init(generator: Optional[torch.Generator] = None, seed: int = 0):
+    def init(generator: Optional[torch.Generator] = None, seed: int = 0,
+             deploy: bool = True):
+        """Random parameters from `generator` (else a generator on the
+        model's device seeded with `seed`): the serving tree, or with
+        `deploy=False` the fp master tree of the same draws (not of a MoE
+        arch's experts: ROADMAP.md §1 item 8)."""
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(seed)
+        if not deploy:
+            if cfg.moe.num_experts:
+                raise NotImplementedError(
+                    f"{cfg.name}: the port draws no fp master tree of MoE "
+                    "experts yet (ROADMAP.md §1 item 8)")
+            return T.init_params(generator, cfg, device, None)
         experts = None
         if cfg.pim_linears:
             experts = functools.partial(_drawn_experts, generator, cfg, device)
@@ -164,4 +217,15 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
                                logit_positions=logit_positions,
                                verify_len=verify_len)
 
-    return Model(cfg, device, init, init_cache, forward_serve)
+    def forward_train(params, batch):
+        return T.forward_train(params, batch, cfg)
+
+    def loss(params, batch):
+        hidden, aux = T.forward_hidden(params, batch, cfg)
+        head = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        ce = chunked_ce_from_hidden(hidden, head["table"], batch["tokens"])
+        total = ce + aux
+        return total, {"loss": total, "ce": ce, "aux": aux}
+
+    return Model(cfg, device, init, init_cache, forward_serve, forward_train,
+                 loss)

@@ -1,7 +1,9 @@
 """Model assembly for attention, MoE, hybrid RG-LRU, encoder-decoder and
 xLSTM stacks: parameter init, the serve state and the serve forward (with a
 VLM's image patch embeddings projected into the first positions of a
-prompt, and an encoder-decoder's frames encoded at its prefill).
+prompt, and an encoder-decoder's frames encoded at its prefill); and the
+training forward of pure-attention stacks (`forward_hidden`,
+`forward_train`).
 
 Counterpart of the JAX package's `models/transformer.py` for serving:
 attention and MoE stacks on the classic dense cache, ragged slots and the
@@ -25,6 +27,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as A
@@ -59,6 +62,26 @@ def check_supported(cfg: ModelConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: the port does not serve {', '.join(unsupported)} yet")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """The port trains stacks of `attn` blocks with an MLP (rope, absolute
+    or no positions); anything else raises (ROADMAP.md §1 item 8)."""
+    check_supported(cfg)
+    unsupported = []
+    kinds = set(cfg.block_pattern) - {"attn"}
+    if kinds:
+        unsupported.append(f"block kinds {sorted(kinds)}")
+    if cfg.moe.num_experts:
+        unsupported.append("MoE FFNs and their aux loss")
+    if cfg.is_encoder_decoder:
+        unsupported.append("an encoder")
+    if cfg.num_image_patches:
+        unsupported.append("image patches")
+    if unsupported:
+        raise NotImplementedError(
+            f"{cfg.name}: the port does not train {', '.join(unsupported)} "
+            "yet (ROADMAP.md §1 item 8)")
 
 
 def pattern_layout(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
@@ -421,6 +444,56 @@ def cache_restore_pages(cache, pages, data):
     for k, v in cache.items():
         visit(v, data[k], _layer_axis(k))
     return cache
+
+
+def _layer_views(tree, layers: int) -> list:
+    """The `layers` per-layer views of a stacked parameter tree, one
+    `torch.unbind` per leaf: their backward writes each leaf's gradient
+    once (indexing layer by layer would write a zero-filled stack per
+    layer)."""
+    if isinstance(tree, dict):
+        views = {k: _layer_views(v, layers) for k, v in tree.items()}
+        return [{k: v[r] for k, v in views.items()} for r in range(layers)]
+    return list(torch.unbind(tree, 0))
+
+
+def forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """Final normed hidden states (B, S, D) and the aux loss (a float32
+    zero: no trained block has one), as the reference's: the loss computes
+    the chunked cross-entropy from them without the full logits.  With
+    `cfg.remat != "none"` each block is recomputed in the backward
+    (`torch.utils.checkpoint`, the counterpart of the reference's
+    per-block `jax.checkpoint`: no value changes).  The reference's
+    sharding constraints are left out (a single device)."""
+    check_trainable(cfg)
+    pat, R, _ = pattern_layout(cfg)
+    x = _embed_inputs(params, batch, cfg)
+    pos_ids = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def block(p, x):                        # every trained kind is "attn"
+        return blocks.attn_block_fwd_train(p, x, pos_ids, cfg,
+                                           causal=cfg.causal)
+
+    layers = [_layer_views(stack, R) for stack in params["blocks"]]
+    for r in range(R):
+        for j in range(len(pat)):
+            if cfg.remat != "none":
+                x, a = checkpoint(block, layers[j][r], x, use_reentrant=False)
+            else:
+                x, a = block(layers[j][r], x)
+            aux = aux + a
+    for p in params["tail"]:                # unrolled, as the reference's
+        x, a = block(p, x)
+        aux = aux + a
+    return L.norm_apply(params["final_norm"], x, cfg.norm), aux
+
+
+def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """(logits (B, S, V), aux loss)."""
+    x, aux = forward_hidden(params, batch, cfg)
+    head = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return L.unembed_apply(head, x), aux
 
 
 def _index(tree, r: int):

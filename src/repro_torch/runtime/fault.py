@@ -1,20 +1,27 @@
-"""Deterministic fault injection for the serving Scheduler.
+"""Deterministic fault injection for the serving Scheduler, and the
+training loop's watchdog and restarts.
 
 Counterpart of the JAX package's `runtime/fault.py` (`FaultPlan`,
-`CrashInjected`, `FaultState`): a plan fires from the same
-`numpy.random.RandomState(seed)` stream, in the same query order and under
-the same `max_faults` cap, so one plan fires at the same scheduler queries
-in both packages.  Neither `crash_at_step` nor `bitflip_spilled_page_steps`
-draws from the stream, so a plan with or without them fires its rate
-faults at the same queries.  The watchdog, elastic meshes and restartable
-training are ROADMAP.md §1 item 9.
+`CrashInjected`, `FaultState`, `StepWatchdog`, `run_restartable`): a plan
+fires from the same `numpy.random.RandomState(seed)` stream, in the same
+query order and under the same `max_faults` cap, so one plan fires at the
+same scheduler queries in both packages.  Neither `crash_at_step` nor
+`bitflip_spilled_page_steps` draws from the stream, so a plan with or
+without them fires its rate faults at the same queries.
+`run_restartable` resumes a training run from the newest intact
+checkpoint generation after any exception in a step; the data of a step
+comes from its index, so nothing else needs saving.  Elastic meshes are
+ROADMAP.md §1 item 9.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.checkpoint import checkpoint as ckpt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,3 +124,91 @@ class FaultState:
             self.fired["crash"] += 1
             return True
         return False
+
+
+@dataclasses.dataclass
+class StepWatchdog:
+    """Rolling-median step timer: a step longer than `slo_factor` x the
+    median of the last `window` steps (once 4 are known) is a straggler,
+    counted and passed to `on_straggler(step, seconds, median)`."""
+
+    slo_factor: float = 3.0
+    window: int = 16
+    clock: Callable[[], float] = time.monotonic
+    on_straggler: Optional[Callable[[int, float, float], None]] = None
+    _durations: List[float] = dataclasses.field(default_factory=list)
+    _t0: Optional[float] = None
+    stragglers: int = 0
+
+    def start(self):
+        self._t0 = self.clock()
+
+    def stop(self, step: int) -> bool:
+        """True if this step breached the straggler SLO."""
+        assert self._t0 is not None, "start() not called"
+        dt = self.clock() - self._t0
+        self._t0 = None
+        is_straggler = False
+        if len(self._durations) >= 4:
+            med = float(np.median(self._durations[-self.window:]))
+            if dt > self.slo_factor * med:
+                is_straggler = True
+                self.stragglers += 1
+                if self.on_straggler:
+                    self.on_straggler(step, dt, med)
+        self._durations.append(dt)
+        return is_straggler
+
+    @property
+    def median(self) -> float:
+        return float(np.median(self._durations)) if self._durations else 0.0
+
+
+def run_restartable(
+    total_steps: int,
+    make_state: Callable[[], Any],
+    step_fn: Callable[[Any, int], Tuple[Any, Dict[str, Any]]],
+    ckpt_dir: str,
+    checkpoint_every: int = 10,
+    keep: int = 3,
+    watchdog: Optional[StepWatchdog] = None,
+    max_restarts: int = 10,
+) -> Tuple[Any, Dict[str, Any]]:
+    """Run `step_fn(state, step)` up to `total_steps`, saving a checkpoint
+    generation after every `checkpoint_every`-th step and the last.  A run
+    starts from the newest intact generation in `ckpt_dir` where there is
+    one; an exception in a step restores it (or a fresh `make_state()`)
+    and goes on, up to `max_restarts` times."""
+    state = make_state()
+    restored, start = ckpt.restore_latest(ckpt_dir, state)
+    if restored is not None:
+        state, start = restored, start + 1
+    else:
+        start = 0
+    restarts = 0
+    metrics: Dict[str, Any] = {}
+    step = start
+    while step < total_steps:
+        try:
+            if watchdog:
+                watchdog.start()
+            state, metrics = step_fn(state, step)
+            if watchdog:
+                watchdog.stop(step)
+            if (step + 1) % checkpoint_every == 0 or step + 1 == total_steps:
+                ckpt.save(ckpt_dir, step, state, keep=keep)
+            step += 1
+        except KeyboardInterrupt:
+            raise
+        except Exception as e:
+            restarts += 1
+            if restarts > max_restarts:
+                raise
+            print(f"[fault] step {step} failed ({e!r}); "
+                  f"restoring latest checkpoint (restart {restarts})")
+            restored, last = ckpt.restore_latest(ckpt_dir, state)
+            if restored is None:
+                state, step = make_state(), 0
+            else:
+                state, step = restored, last + 1
+    return state, metrics

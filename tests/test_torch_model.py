@@ -30,6 +30,7 @@ from repro.models.model_zoo import build_model as jax_build, deploy_tree
 from repro.core import attention as JA
 from repro.runtime import serve_lib as JS
 from repro_torch.configs import get_config
+from repro_torch.configs.base import TrainConfig
 from repro_torch.core import attention as TA
 from repro_torch.data import pipeline as TD
 from repro_torch.launch import serve as tserve
@@ -37,6 +38,7 @@ from repro_torch.models import blocks as TB
 from repro_torch.models import transformer as TT
 from repro_torch.models.model_zoo import build_model, from_jax_params
 from repro_torch.runtime import serve_lib as TS
+from repro_torch.runtime import train_lib as TL
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "internlm2-1.8b"
@@ -185,7 +187,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert 'repro_torch.launch.serve' in sys.modules\n")
+        "for m in ('launch.serve', 'launch.train', 'optim.adamw', 'runtime.train_lib'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
@@ -208,8 +211,25 @@ def test_unported_features_raise():
     sliding window on the paged or ragged path (the reference has none
     there either).  Windows on the classic path and every arch of the zoo
     are served (tests/test_torch_griffin.py, tests/test_torch_gemma.py,
-    tests/test_torch_whisper.py, tests/test_torch_xlstm.py)."""
+    tests/test_torch_whisper.py, tests/test_torch_xlstm.py).  What the port
+    does not train raises too: a MoE, recurrent or encoder-decoder arch
+    (item 8), a mesh or int8 gradient compression (item 9)."""
     cfg = get_config(ARCH, smoke=True)
+    toks = {"tokens": torch.zeros(2, 4, dtype=torch.long)}
+    for arch in ("deepseek-moe-16b", "dbrx-132b", "recurrentgemma-9b",
+                 "xlstm-1.3b", "whisper-tiny"):
+        tm = build_model(get_config(arch, smoke=True), "cpu")
+        with pytest.raises(NotImplementedError, match="item 8"):
+            tm.loss({}, toks)
+        with pytest.raises(NotImplementedError, match="item 8"):
+            tm.forward_train({}, toks)
+    tm = build_model(cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        TL.make_train_step(tm, TrainConfig(), mesh="data")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        TL.make_train_step(tm, TrainConfig(grad_compression="int8_ef"))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        TL.init_opt_state({}, TrainConfig(grad_compression="int8_ef"))
     with pytest.raises(NotImplementedError):
         build_model(dataclasses.replace(cfg, block_pattern=("attn", "mamba")), "cpu")
     local = dataclasses.replace(cfg, window=16, block_pattern=("attn_local",))
