@@ -162,9 +162,10 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    device time of each spill and restore (per page, GB/s), R's and S's
    longest steps, and a profile of a step that restores (kernels 1 and
    2's us per launch beside their bounds).
-13. Serves, with the phase 6 weights at decode_block_k 16 and kv_bits=4
-   (the Scheduler rebuilds the model: 16-token pages of 417,792 bytes
-   against 811,008 at int8), the first 8 requests of phase 12's trace
+13. Serves, with the phase 6 weights cut to their first 6 layers
+   (CUT_DEPTH) at decode_block_k 16 and kv_bits=4 (the Scheduler rebuilds
+   the model: 16-token pages of 104,448 bytes against 202,752 at int8),
+   the first 8 requests of phase 12's trace
    through 8 slots of 1,024 tokens: (P4) the default pool, counting
    kernel launches over 4-bit pages and replaying an admission wave's
    kernel 1 and a decode's kernel 2 against the plain versions, with one
@@ -177,7 +178,8 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    snapshot every 2 steps, crashed at the step after a snapshot that
    holds a victim record and restored by a fresh scheduler (bytes on
    disk, write and restore times); (L4) P4 with fused mixed steps
-   (chunk budget 256) under the SLA ladder at a 50 ms target on the real
+   (chunk budget 256) under the SLA ladder at a 12.5 ms target (the 50
+   ms of the 24-layer model scaled by the step time's 6 / 24) on the real
    clock, then idle steps.  Checks D4 == P4, S4 == P4, C4 == S4 and
    L4 == P4 token for token, B4's flip detected and its request
    recomputed (equal to P4 up to its re-prefill, the others equal), the
@@ -293,6 +295,33 @@ kernels, dense and paged, `--phases 1,8` the PIM matmul and LUT softmax.
    each trained tree, deployed, serves 8 tokens on kernels 1 and 2.  (d)
    The train CLI at SMOKE with a crash injected at step 7 ends bit for
    bit where an uninterrupted run ends.
+20. Training of MoE, encoder-decoder and image-patch stacks: (a)
+   deepseek-moe-16b at full width, cut to its dense layer and first two
+   MoE layers (d_model 2,048, 16/16 heads of 128, 64 routed experts top-6
+   and 2 shared of d_ff 1,408, vocab 102,400), float32 master weights
+   from a CUDA generator (seed 0), bf16, the 6-bit ADC, per-block remat:
+   3 AdamW steps (lr 3e-4, warmup 1) of `make_batch` at 4 x 1,025 tokens,
+   each with 47 kernel-3 launches (the dense layer's 7 once; a MoE
+   layer's 4 attention linears and 6 expert stacks, routed at E 64 M 481
+   and shared at E 2 M 4,100, twice with the recompute) and no
+   plain-version call, finite losses, aux terms and grad norms, the
+   router, every stack and the dense layer moved; step 0's dense, routed
+   and shared launches replayed against kernel 3's plain version bit for
+   bit and timed beside their bounds; step ms, training tokens/s, peak
+   memory, a profiled step's busy share.  (b) whisper-tiny at full width
+   and depth (4 + 4 layers, d_model 384, 6/6 heads of 64, vocab 51,865),
+   4 x 1,500 stub frames and 4 x 1,025 tokens a step: 104 kernel-3
+   launches a step (the encoder's 24 once, 10 a decoder layer twice), the
+   same checks and prints, the encoder and the cross wk / wv moved.  (c)
+   deepseek's dense layer and first MoE layer at batch 1 x 129, then
+   phi-3-vision-4.2b's first 2 layers at 1 x 641 with its 576 image
+   patches (`img_proj` through kernel 3: 29 launches): the loss and
+   every gradient through kernel 3 equal those through its plain version
+   bit for bit (deterministic algorithms on).  (d) deepseek-moe-16b,
+   dbrx-132b (at head_dim 32), whisper-tiny and phi-3-vision-4.2b SMOKE:
+   50 steps at lr 1e-2 at the 6-bit ADC lower each loss by 0.5; each
+   trained tree, deployed, serves 8 tokens on kernels 1 and 2 (whisper
+   with its frames, phi-3 with its image), launches counted.
 Phases 10-12 first run a row probe: RMSNorm, the bf16 unembed, the
 top-k / top-p truncation, its softmax and the Gumbel arg-max must give a
 row the same bits alone and among other rows (up to 40 = 8 slots x 5
@@ -357,7 +386,7 @@ F32_OPS = 67e12
 REL_TOL = 1e-5
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20)
 # what a phase needs run first: kernel entries (2, 8) or the small model (4)
 NEEDS = {3: {2}, 5: {4}, 6: {2}, 7: {2}, 9: {8}}
 
@@ -718,6 +747,7 @@ def served_attention(entries, label: str, report: dict, shapes, cfg) -> dict:
 
 
 PAGE = 16     # tokens per KV page in phases 3, 5 and 7
+CUT_DEPTH = 6   # layers of phases 10-13: their checks are identities
 PROFILED_STEPS = 1   # scheduler steps of the paged trace under the profiler
 PROFILED_TOKENS = 8  # new tokens of the classic request under the profiler
 
@@ -2108,7 +2138,9 @@ def starved_scheduler(model, params, cfg, entries, compare, smi) -> dict:
 # ---- 13. 4-bit KV pools, page integrity, the SLA ladder, crash restore -----
 KV4_REQUESTS = 8     # the first requests of phase 12's trace
 KV4_CHUNK = 256      # L4's prefill chunk budget
-KV4_TBT_MS = 50.0    # L4's time-between-tokens target: below every full-width step
+# L4's time-between-tokens target, below every step of the CUT_DEPTH-layer
+# model: 50 ms at 24 layers, scaled by the step time's CUT_DEPTH / 24
+KV4_TBT_MS = 50.0 * CUT_DEPTH / 24
 SNAP_EVERY = 2       # C4's snapshot period (steps)
 IDLE_STEPS = 64      # most idle steps L4 takes to release its ladder
 
@@ -2716,7 +2748,8 @@ def replay_adc(label: str, kept: dict, rows: dict) -> None:
           f"{label}: recorded served launches {sorted(kept)}, expected {sorted(rows)}")
     for what, (name, args, kw) in kept.items():
         s = args[0].shape
-        tokens = s[0] if name == "pim_matmul" else s[0] * s[-2]
+        # kernel 3: rows of every expert of a stack; kernel 4: batch x rows
+        tokens = math.prod(s[:-1]) if name == "pim_matmul" else s[0] * s[-2]
         check(tokens == rows[what], f"{label}, {what}: {name} operands hold "
               f"{tokens} tokens, expected {rows[what]}")
         kern, ref = plain[name]
@@ -3375,6 +3408,8 @@ def main(argv=None) -> int:
         xlstm_phase(dev, entries, compare, results)
     if 19 in phases:
         train_phase(dev, entries, results)
+    if 20 in phases:
+        zoo_train_phase(dev, entries, results)
     stamp(f"phases {sorted(phases)} done: every check passed")
     for name in max_err:
         if name in entries:
@@ -3395,7 +3430,7 @@ def main(argv=None) -> int:
              "kv4_launches", "paged_kv4_ms", "paged_kv4_bound_ms",
              "ideal_ms", "int_mm_ms", "quantized_ms", "quantized_bound_ms",
              "int_mm_loop_ms", "dh256", "dh96", "dh64", "griffin_launches", "xlstm",
-             "train")
+             "train", "train_zoo")
     print(json.dumps({"kernels": [{**{k: e.get(k) for k in keys},
                                    **{k: e[k] for k in extra if k in e}}
                                   for e in entries.values()]}))
@@ -3724,10 +3759,10 @@ def moe_model(cfg, entries, compare, full: bool) -> dict:
     xs = []
     fn = moe_mod.moe_ffn_local
 
-    def keep_input(p, xf, c):
+    def keep_input(p, xf, c, *rest):
         if len(xs) < 1 or (len(xs) < 2 and xf.shape[0] != xs[0].shape[0]):
             xs.append(xf.clone())
-        return fn(p, xf, c)
+        return fn(p, xf, c, *rest)
 
     moe_mod.moe_ffn_local = keep_input
     try:
@@ -3879,9 +3914,6 @@ def small_model(dev, scheduler: bool) -> None:
         smoke_scheduler(dev, small, p_gpu)
 
 
-CUT_DEPTH = 6   # layers of phases 10, 11 and 12: their checks are identities
-
-
 def cut_depth(cfg, params, layers: int):
     """(config, parameters) of the model's first `layers` layers: the
     phase 6 weights, each stacked leaf cut on its layer axis."""
@@ -3896,8 +3928,8 @@ def cut_depth(cfg, params, layers: int):
 
 def serve_phases(dev, cfg, phases, entries, compare, results) -> None:
     """Phases 6, 7, 9, 10, 11, 12 and 13 at full width, on the phase 6
-    weights: at full depth but for phases 10, 11 and 12, which run the
-    first CUT_DEPTH layers to leave the time limit room for phases 13-18."""
+    weights: at full depth but for phases 10-13, which run the first
+    CUT_DEPTH layers to leave the time limit room for phases 14-20."""
     stamp("phase 6: model and weights")
     Dh = cfg.resolved_head_dim
     cfg = dataclasses.replace(cfg, attn_impl="kernel")
@@ -3937,8 +3969,8 @@ def serve_phases(dev, cfg, phases, entries, compare, results) -> None:
                                                compare, results["card"])
     if 13 in phases:
         stamp("phase 13")
-        results["kv4_recovery"] = recovery_scheduler(model, params, cfg, entries, compare,
-                                                     results["card"])
+        results["kv4_recovery"] = recovery_scheduler(cut_model, cut_params, cut_cfg,
+                                                     entries, compare, results["card"])
 
 
 def serve_classic(model, params, cfg, entries, results) -> None:
@@ -5097,7 +5129,8 @@ def train_launch_ms(args, kw) -> float:
     """Device ms of one kernel-3 launch on a train step's recorded operands
     (torch.profiler, padded retries; CUDA events where no session saw every
     launch)."""
-    (M, K), N = args[0].shape, args[1].shape[1]
+    *_, M, K = args[0].shape
+    N = args[1].shape[-1]
 
     def call():
         return mm_k.pim_matmul_int(*args, **kw)
@@ -5380,6 +5413,358 @@ def train_phase(dev, entries, results) -> None:
     stamp("phase 19 (d): the train CLI restarted after a crash")
     out["restart"] = train_restart(dev)
     results["train"] = out
+
+
+# ---- 20. training of MoE, encoder-decoder and image-patch stacks -----------
+MOE_TRAIN_LAYERS = 3     # deepseek-moe-16b's dense layer and first two MoE layers
+MOE_CUT_LAYERS = 2       # (c)'s deepseek cut: the dense layer and one MoE layer
+PHI3_CUT_LAYERS = 2      # (c)'s phi-3-vision-4.2b cut
+PHI3_CUT_SEQ = 641       # its 576 image patches and 65 more tokens
+ZOO_SMOKE = ("deepseek-moe-16b", "dbrx-132b", "whisper-tiny", "phi-3-vision-4.2b")
+# step 0's kernel-3 launches kept and replayed, by index among the step's
+# launches: deepseek's dense layer (0-6), its first MoE layer's attention
+# (7-10), routed (11-13) and shared (14-16) stacks; whisper's first encoder
+# layer (0-5, M 6,000), then after the encoder's 24 its first decoder
+# layer: self wq (24), cross wk (29, M 6,000), MLP (32-33)
+ZOO_KEPT = {
+    "deepseek-moe-16b": {0: "dense wq", 4: "dense w_gate", 6: "dense w_out",
+                         11: "routed w_gate", 13: "routed w_out",
+                         14: "shared w_gate", 16: "shared w_out"},
+    "whisper-tiny": {0: "encoder wq", 4: "encoder w_in", 5: "encoder w_out",
+                     24: "decoder wq", 29: "cross wk", 32: "decoder w_in",
+                     33: "decoder w_out"},
+}
+
+
+def zoo_cfg(name: str, layers=None, smoke: bool = False):
+    """The arch at the 6-bit ADC with per-block remat, cut to `layers`;
+    dbrx-132b's SMOKE at head_dim 32 (its 16 is no kernel head dim)."""
+    cfg = train_cfg(get_config(name, smoke=smoke), "quantized")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if smoke and name == "dbrx-132b":
+        cfg = dataclasses.replace(cfg, head_dim=32)
+    return cfg
+
+
+def zoo_batch(cfg, step: int, B: int, S: int, dev) -> dict:
+    """`make_batch`'s step: tokens, and the frames or image embeddings the
+    arch takes."""
+    b = data.make_batch(cfg, types.SimpleNamespace(global_batch=B, seq_len=S), step)
+    out = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    out["tokens"] = out["tokens"].long()
+    return out
+
+
+def _linears(cfg, kind: str, prefill: bool = True) -> tuple:
+    """(dense PIM linears, expert stacks) of one block's forward: the
+    attention's 4, a cross block's 4 more (2 at decode: its cross K/V are
+    cached), the MLP's 2 or 3, or a MoE FFN's 3 stacks, routed and
+    shared."""
+    mlp = 3 if cfg.activation in ("swiglu", "geglu") else 2
+    if kind == "moe":
+        return 4, 3 * (1 + (cfg.moe.num_shared > 0))
+    return 4 + (4 if prefill else 2) * (kind == "xattn") + mlp, 0
+
+
+def _counts(dense: int, stacks: int) -> dict:
+    return {k: n for k, n in (("pim_matmul", dense), ("pim_matmul_experts", stacks)) if n}
+
+
+def train_launches(cfg) -> dict:
+    """Kernel-3 launches of one train step at the 6-bit ADC with per-block
+    remat: every PIM linear of the forward, those of the stacked blocks
+    again in their recompute; the dense prefix, the encoder, the unrolled
+    tail and `img_proj` run once."""
+    pat, R, tail = TT.pattern_layout(cfg)
+    dense = stacks = 0
+    for kind, times in ([(k, 2 * R) for k in pat] + [(k, 1) for k in tail]
+                        + [("attn", 1)] * (cfg.num_dense_layers if "moe" in pat else 0)
+                        + [("enc_attn", 1)] * cfg.num_encoder_layers):
+        d, e = _linears(cfg, kind)
+        dense, stacks = dense + d * times, stacks + e * times
+    return _counts(dense + bool(cfg.num_image_patches), stacks)
+
+
+def served_launches(cfg, new: int) -> dict:
+    """Launches of `generate`'s `new` tokens on the kernel path at the 6-bit
+    ADC: kernel 1 once a layer (twice a cross layer) in the prefill,
+    kernel 2 so in each decode forward; kernel 3 in every PIM linear of
+    every forward (the encoder and `img_proj` in the prefill only)."""
+    pat, R, tail = TT.pattern_layout(cfg)
+    kinds = [k for k in pat for _ in range(R)] + list(tail)
+    kinds += ["attn"] * (cfg.num_dense_layers if "moe" in pat else 0)
+    attn = sum(2 if k == "xattn" else 1 for k in kinds)
+    dense = stacks = 0
+    for prefill, forwards in ((True, 1), (False, new - 1)):
+        for k in kinds:
+            d, e = _linears(cfg, k, prefill)
+            dense, stacks = dense + d * forwards, stacks + e * forwards
+    dense += cfg.num_encoder_layers * _linears(cfg, "enc_attn")[0]
+    dense += bool(cfg.num_image_patches)
+    return {"pim_attention": attn, "pim_decode": (new - 1) * attn,
+            **_counts(dense, stacks)}
+
+
+def zoo_probes(params, cfg) -> dict:
+    """Views of the leaves the step must move: deepseek's router, every
+    routed and shared stack and its dense layer; whisper's encoder, its
+    decoder's self and cross linears."""
+    if cfg.moe.num_experts:
+        moe = params["blocks"][0]["moe"]
+        out = {"router": moe["router"][:, :64]}
+        for stack in ("experts", "shared"):
+            for k, w in moe[stack].items():
+                out[f"{stack} {k}"] = w[..., :64, :64]
+        out["dense wq"] = params["dense_prefix"][0]["attn"]["wq"]["w"][:64, :64]
+        out["dense w_gate"] = params["dense_prefix"][0]["mlp"]["w_gate"]["w"][:64, :64]
+        return out
+    enc, dec = params["enc_blocks"], params["blocks"][0]
+    return {"encoder wq": enc["attn"]["wq"]["w"][:, :64, :64],
+            "encoder w_in": enc["mlp"]["w_in"]["w"][:, :64, :64],
+            "decoder wq": dec["attn"]["wq"]["w"][:, :64, :64],
+            "cross wk": dec["xattn"]["wk"]["w"][:, :64, :64],
+            "cross wv": dec["xattn"]["wv"]["w"][:, :64, :64]}
+
+
+def zoo_train_full(dev, entries, name: str, layers=None) -> dict:
+    """(a) / (b): `name` at full width (cut to `layers`), float32 master
+    weights from a CUDA generator (seed 0), bf16 compute, the 6-bit ADC,
+    per-block remat: TRAIN_STEPS steps of `make_batch` at 4 x 1,025 tokens
+    (whisper's with 4 x 1,500 frames), lr 3e-4, warmup 1, each with its
+    kernel counts set to 0 just before and read just after; step 0's
+    `ZOO_KEPT` launches replayed against kernel 3's plain version bit for
+    bit and timed; then one more step under torch.profiler."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.runtime import train_lib
+    cfg = zoo_cfg(name, layers)
+    B, S, V = TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size
+    want = train_launches(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), deploy=False)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    opt = train_lib.init_opt_state(params, tcfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = ckpt_flatten(params)
+    n_params = sum(t.numel() for t in leaves)
+    check(all(t.dtype == torch.float32 and t.is_cuda for t in leaves),
+          f"{name}: fp32 master tree on the card, {n_params:,} parameters")
+    print(f"train {name}: {cfg.num_layers} layers ({cfg.num_encoder_layers} encoder), "
+          f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, experts {cfg.moe.num_experts} "
+          f"top-{cfg.moe.top_k} + {cfg.moe.num_shared} shared, vocab {V}; "
+          f"{n_params / 1e9:.3f} B float32 parameters, init + AdamW state {init_s:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    probes = {k: v.clone() for k, v in zoo_probes(params, cfg).items()}
+    step = train_lib.make_train_step(model, tcfg)
+    out = dict(steps=[], launches_per_step=want, params=n_params)
+    keep_at = ZOO_KEPT[name]
+    C = moe_mod.capacity(B * S, cfg) if cfg.moe.num_experts else 0
+    Se = cfg.encoder_seq_len
+
+    def tokens(label):
+        if label.startswith("routed"):
+            return cfg.moe.num_experts * C
+        if label.startswith("shared"):
+            return cfg.moe.num_shared * B * S
+        return B * (Se if label.startswith(("encoder", "cross")) else S)
+
+    for s in range(TRAIN_STEPS):
+        batch = zoo_batch(cfg, s, B, S, dev)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        keep = (recorded(lambda n, i: keep_at.get(i), {"pim_matmul": ADC_TARGETS["pim_matmul"]})
+                if s == 0 else contextlib.nullcontext({}))
+        with plain_calls() as n_plain, keep as kept:
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            loss, gnorm, aux = float(met["loss"]), float(met["grad_norm"]), float(met["aux"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        check(not n_plain, f"{name} train step {s}: no plain-version call ({n_plain})")
+        check(launches == want, f"{name} train step {s}: launches {launches} == {want}")
+        check(all(map(math.isfinite, (loss, gnorm, aux))) and gnorm > 0
+              and (aux > 0) == bool(cfg.moe.num_experts),
+              f"{name} train step {s}: finite loss {loss:.4f}, grad norm {gnorm:.4f} and "
+              f"aux {aux:.6f}")
+        out["steps"].append(dict(loss=loss, grad_norm=gnorm, aux=aux, lr=float(met["lr"]),
+                                 ms=wall * 1e3))
+        print(f"  {name} train step {s}: loss {loss:.4f} (aux {aux:.6f}), |g| {gnorm:.4f}, "
+              f"{wall * 1e3:.1f} ms, {B * S / wall:.1f} tokens/s", flush=True)
+        del batch, met
+        if s == 0:
+            replay_adc(f"{name} train step 0", kept, {k: tokens(k) for k in keep_at.values()})
+            timed = {}
+            for label, (_, args, kw) in kept.items():
+                *lead, M, K = args[0].shape
+                N = args[1].shape[-1]
+                E = lead[0] if lead else 1
+                b_ms = expert_bound(E, M, K, N, True)[0]
+                timed[label] = dict(E=E, M=M, K=K, N=N, us=train_launch_ms(args, kw) * 1e3,
+                                    bound_us=b_ms * 1e3)
+            for label, t in timed.items():
+                print(f"  {label}: E {t['E']} M {t['M']} K {t['K']} N {t['N']}, kernel 3 == "
+                      f"plain bit for bit, {t['us']:.2f} us a launch, bound "
+                      f"{t['bound_us']:.2f} us ({t['bound_us'] / t['us']:.1%})", flush=True)
+            out["kept"] = timed
+            kept.clear()
+    moved = {k: float((v - probes[k]).abs().max())
+             for k, v in zoo_probes(params, cfg).items()}
+    check(all(d > 0 for d in moved.values()) and int(opt["step"]) == TRAIN_STEPS,
+          f"{name}: every probed leaf moved ({ {k: f'{d:.3g}' for k, d in moved.items()} }) "
+          f"and the optimizer counted {int(opt['step'])} steps")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = [r["ms"] for r in out["steps"][1:]]
+    out["step_ms"] = sum(steady) / len(steady)
+    out["tokens_per_s"] = B * S / (out["step_ms"] / 1e3)
+    print(f"  {name}: steady step {out['step_ms']:.1f} ms, {out['tokens_per_s']:.1f} "
+          f"training tokens/s ({B} x {S} a step), peak {out['peak_gib']:.2f} GiB", flush=True)
+    state = {"params": params, "opt": opt}
+    del params, opt
+
+    def run(_):
+        state["params"], state["opt"], m = step(state["params"], state["opt"],
+                                                zoo_batch(cfg, TRAIN_STEPS, B, S, dev))
+        float(m["loss"])
+
+    report = profiled_report(lambda: None, run, f"{name} train step",
+                             out["step_ms"] / 1e3, kernel_names=())
+    busy = report["device_busy_ms"] / report["profiled_wall_ms"]
+    print(f"  {name}: device busy {busy:.1%} of the profiled step's wall", flush=True)
+    out.update(profile=report, busy_share=busy)
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_kernel_vs_plain(dev, name: str, layers: int, seq: int) -> dict:
+    """(c) `name`'s first `layers` layers at full width, batch 1 x `seq`
+    (`make_batch`'s, phi-3's with its image): the loss and every gradient
+    of a step through kernel 3 equal, bit for bit, those through its plain
+    version on the card (deterministic algorithms on)."""
+    from repro_torch.runtime import train_lib
+    cfg = zoo_cfg(name, layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1), deploy=False)
+    batch = zoo_batch(cfg, 0, 1, seq, dev)
+    runs = {}
+    for route in ("kernel", "plain"):
+        saved = core_pim._adc_matmul
+        if route == "plain":
+            core_pim._adc_matmul = mm_k.pim_matmul_int_plain
+        try:
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            with deterministic():
+                grads, loss, _ = train_lib.grad_fn(model)(params, batch)
+                torch.cuda.synchronize()
+        finally:
+            core_pim._adc_matmul = saved
+        runs[route] = (grads, loss, {k: n for k, n in _build.LAUNCHES.items() if n})
+    (gk, lk, nk), (gp, lp, npl) = runs["kernel"], runs["plain"]
+    want = train_launches(cfg)
+    check(nk == want and not npl,
+          f"(c) {name}: kernel 3 launched {nk} ({want} expected), the plain route "
+          f"{npl or 'none'}")
+    diffs = [float((a.double() - b.double()).abs().max())
+             for a, b in zip(ckpt_flatten(gk), ckpt_flatten(gp))]
+    check(torch.equal(lk, lp) and max(diffs) == 0.0,
+          f"(c) {name}, {layers} layers at full width, batch 1 x {seq}: loss "
+          f"{float(lk):.6f} and all {len(diffs)} gradients through kernel 3 == through "
+          f"its plain version bit for bit (max |diff| {max(diffs):.3g})")
+    out = dict(loss=float(lk), leaves=len(diffs), launches=nk)
+    del gk, gp, params, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_smoke(dev) -> dict:
+    """(d) ZOO_SMOKE's SMOKE models (dbrx-132b's at head_dim 32) from seed
+    0 at the 6-bit ADC: TRAIN_SMOKE_STEPS steps of `make_batch` (8 x 32,
+    with frames or image embeddings) at lr 1e-2 lower each loss by 0.5 at
+    least; each trained tree, deployed by `deploy_tree`, then serves 8
+    greedy tokens on the kernel path (whisper with its frames, phi-3 with
+    its image), its launches counted."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.model_zoo import deploy_tree
+    from repro_torch.runtime import train_lib
+    out = {}
+    for name in ZOO_SMOKE:
+        cfg = zoo_cfg(name, smoke=True)
+        model = build_model(cfg)
+        params = model.init(seed=0, deploy=False)
+        tcfg = TrainConfig(learning_rate=1e-2, warmup_steps=5,
+                           total_steps=TRAIN_SMOKE_STEPS)
+        step, opt = train_lib.make_train_step(model, tcfg), train_lib.init_opt_state(params, tcfg)
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(TRAIN_SMOKE_STEPS):
+            params, opt, m = step(params, opt, zoo_batch(cfg, s, 8, 32, dev))
+            losses.append(float(m["loss"]))
+        wall = time.perf_counter() - t0
+        check(all(map(math.isfinite, losses)) and losses[-1] < losses[0] - 0.5,
+              f"(d) {name} SMOKE: {TRAIN_SMOKE_STEPS} steps lower the loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} by 0.5 at least")
+        served = dataclasses.replace(cfg, attn_impl="kernel")
+        smodel = build_model(served)
+        batch = {k: torch.from_numpy(v) for k, v in data.make_batch(
+            cfg, types.SimpleNamespace(global_batch=2, seq_len=16), 0).items()}
+        batch["tokens"] = batch["tokens"].long()
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        with plain_calls() as n_plain:
+            toks = serve_lib.generate(smodel, deploy_tree(params, served), batch, 8, 24)
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        want = served_launches(cfg, 8)
+        check(not n_plain and launches == want
+              and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+              f"(d) the trained {name} tree deployed and served 8 tokens on the kernel "
+              f"path: launches {launches} == {want}, tokens in the vocabulary")
+        print(f"  (d) {name}: {TRAIN_SMOKE_STEPS} SMOKE steps in {wall:.2f} s, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; served {toks[0].tolist()}", flush=True)
+        out[name] = dict(first=losses[0], last=losses[-1], wall_s=wall)
+    return out
+
+
+def zoo_train_phase(dev, entries, results) -> None:
+    """Phase 20: training of MoE, encoder-decoder and image-patch stacks
+    (see the module docstring)."""
+    stamp("phase 20 (a): deepseek-moe-16b trained at full width, 3 layers")
+    out = {"deepseek": zoo_train_full(dev, entries, "deepseek-moe-16b", MOE_TRAIN_LAYERS)}
+    stamp("phase 20 (b): whisper-tiny trained at full width and depth")
+    out["whisper"] = zoo_train_full(dev, entries, "whisper-tiny")
+    stamp("phase 20 (c): kernel 3 against its plain version inside MoE and image steps")
+    out["kernel_vs_plain"] = {
+        "deepseek": zoo_kernel_vs_plain(dev, "deepseek-moe-16b", MOE_CUT_LAYERS,
+                                        TRAIN_CUT_SEQ),
+        "phi3": zoo_kernel_vs_plain(dev, "phi-3-vision-4.2b", PHI3_CUT_LAYERS, PHI3_CUT_SEQ)}
+    stamp("phase 20 (d): SMOKE training of the MoE, whisper and phi-3 archs, then served")
+    out["smoke"] = zoo_smoke(dev)
+    ds = out["deepseek"]
+    routed = [t for k, t in ds["kept"].items() if k.startswith(("routed", "shared"))]
+    train = dict(launches_per_step=ds["launches_per_step"].get("pim_matmul_experts"),
+                 us_per_launch={k: t["us"] for k, t in ds["kept"].items()
+                                if k.startswith(("routed", "shared"))},
+                 bound_us={k: t["bound_us"] for k, t in ds["kept"].items()
+                           if k.startswith(("routed", "shared"))},
+                 shapes=[(t["E"], t["M"], t["K"], t["N"]) for t in routed],
+                 step_ms=ds["step_ms"], tokens_per_s=ds["tokens_per_s"],
+                 busy_share=ds["busy_share"], peak_gib=ds["peak_gib"])
+    if "pim_matmul_experts" in entries:
+        entries["pim_matmul_experts"]["train"] = train
+    if "pim_matmul" in entries:
+        entries["pim_matmul"]["train_zoo"] = {
+            k: dict(launches_per_step=out[k]["launches_per_step"].get("pim_matmul"),
+                    step_ms=out[k]["step_ms"], tokens_per_s=out[k]["tokens_per_s"],
+                    busy_share=out[k]["busy_share"], peak_gib=out[k]["peak_gib"])
+            for k in ("deepseek", "whisper")}
+    results["train_zoo"] = out
 
 
 if __name__ == "__main__":

@@ -106,7 +106,16 @@ class _PIMLinearSTE(torch.autograd.Function):
     """The reference's `_pim_linear_core` with its custom VJP: forward
     through the PIM model from `w` quantized on every call, backward the
     straight-through fp gradients dx = g w^T (in g's dtype, cast to x's)
-    and dw = x^T g summed in float32 (cast to w's dtype).  Saves (x, w)."""
+    and dw = x^T g summed in float32 (cast to w's dtype).  Saves (x, w).
+
+    A stack of experts, (E, M, K) x (E, K, N), is the reference's
+    `_expert_mm`, the linear vmapped over experts: each expert quantizes
+    its own weight per output channel (the forward is one kernel-3 expert
+    launch on the card in either ADC mode), and each gets its own
+    gradients, dx = g_e w_e^T and dw = x_e^T g_e over that expert's rows
+    only.  A stack fed by an `expand` (the shared experts) has the
+    expand's backward sum dx over the stack, as the reference's broadcast
+    does."""
 
     @staticmethod
     def forward(ctx, x, w, cfg):
@@ -121,11 +130,14 @@ class _PIMLinearSTE(torch.autograd.Function):
         x, w = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = (g @ w.to(g.dtype).t()).to(x.dtype)
+            dx = (g @ w.to(g.dtype).transpose(-1, -2)).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            x2 = x.reshape(-1, x.shape[-1])
-            g2 = g.reshape(-1, g.shape[-1])
-            dw = (x2.float().t() @ g2.float()).to(w.dtype)
+            if w.dim() == 3:                # per expert: (E, K, M) @ (E, M, N)
+                x2, g2 = x, g
+            else:
+                x2 = x.reshape(-1, x.shape[-1])
+                g2 = g.reshape(-1, g.shape[-1])
+            dw = (x2.float().transpose(-1, -2) @ g2.float()).to(w.dtype)
         return dx, dw, None
 
 

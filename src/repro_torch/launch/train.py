@@ -9,12 +9,16 @@ The CLI of the JAX package's `launch/train.py`: fp master weights from
 accumulation, a checkpoint generation every `--ckpt-every` steps under
 `--ckpt-dir` (a run resumes from the newest intact one there, and a step
 that raises is restored from it), batches of `data.make_batch` (`--data
-lm`, a Markov chain, or `copy`).  The port trains stacks of attention
-blocks (internlm2-1.8b, qwen2-72b, mistral-large-123b, gemma-7b: the
-tests hold internlm2-1.8b's and gemma-7b's SMOKE models and a qwen2-72b
-block against the JAX package's); other archs raise (ROADMAP.md §1 item 8), as do `--mesh` and `--compression
-int8_ef` (item 9).  Runs on the GPU; `--device cpu` runs the plain
-PyTorch versions instead (use `--smoke` there).
+lm`, a Markov chain, or `copy`; whisper-tiny's batches carry `frames`,
+phi-3-vision-4.2b's `image_embeds`).  The port trains every arch but the
+recurrent ones: attention stacks (internlm2-1.8b, qwen2-72b,
+mistral-large-123b, gemma-7b), MoE stacks with their load-balance aux
+term (deepseek-moe-16b, dbrx-132b), whisper-tiny's encoder-decoder and
+phi-3-vision-4.2b's image patches (the tests hold their SMOKE models
+against the JAX package's); recurrentgemma-9b and xlstm-1.3b raise
+(ROADMAP.md §1 item 8), as do `--mesh` and `--compression int8_ef` (item
+9).  Runs on the GPU; `--device cpu` runs the plain PyTorch versions
+instead (use `--smoke` there).
 """
 from __future__ import annotations
 

@@ -5,8 +5,9 @@ bidirectional encoder block (`enc_attn`) and cross-attention decoder block
 (`xattn`), and xLSTM's mLSTM (`mlstm`) and sLSTM (`slstm`) blocks.
 
 Counterpart of the attention, cross-attention, RG-LRU and xLSTM blocks of
-the JAX package's `models/blocks.py`, and of its attention block's
-training forward (`attn_block_fwd_train`); attention on three storages: the classic
+the JAX package's `models/blocks.py`, and of its attention and
+cross-attention blocks' training forwards (`attn_block_fwd_train`,
+`xattn_block_fwd_train`); attention on three storages: the classic
 dense cache (scalar offset), ragged dense slots and the paged pool (per-row
 offsets).  Serve-path attention runs the
 paper's PIM pipeline, either the behavioral two-pass
@@ -40,13 +41,17 @@ def _qkv(params, x: torch.Tensor, cfg: ModelConfig, pos_ids: torch.Tensor):
     return q, k, v
 
 
-def _ffn(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn(params, x: torch.Tensor, cfg: ModelConfig, with_aux: bool = False):
     """The block's FFN: the MoE layer where the block carries "moe", else
-    the MLP.  The reference also returns the MoE load-balance aux term,
-    which only training reads; serving drops it."""
+    the MLP.  With `with_aux` (training) it returns (y, aux) as the
+    reference's does, aux the MoE load-balance term or a float32 zero;
+    serving drops the term."""
     if "moe" in params:
-        return M.moe_ffn_apply(params["moe"], x, cfg)
-    return L.mlp_apply(params["mlp"], x, cfg)
+        return M.moe_ffn_apply(params["moe"], x, cfg, with_aux)
+    y = L.mlp_apply(params["mlp"], x, cfg)
+    if not with_aux:
+        return y
+    return y, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _serve_attend(q, cache: A.KVCache, offset, cfg: ModelConfig,
@@ -230,7 +235,9 @@ def attn_block_fwd_train(params, x: torch.Tensor, pos_ids: torch.Tensor,
     reference's training forward: its attention is `fp_attention` (float32
     softmax, no KV cache), plain arithmetic in the reference too, and its
     PIM linears carry the straight-through gradients.  Returns (x, aux),
-    aux the float32 zero of a block without a MoE load-balance term."""
+    aux the MoE load-balance term of a `moe` block, else a float32 zero.
+    A sliding-window block (`attn_local`) trains with `window` and
+    causal."""
     B, S, _ = x.shape
     h = L.norm_apply(params["norm1"], x, cfg.norm)
     q, k, v = _qkv(params["attn"], h, cfg, pos_ids)
@@ -238,8 +245,8 @@ def attn_block_fwd_train(params, x: torch.Tensor, pos_ids: torch.Tensor,
     x = x + pim.pim_linear_apply(params["attn"]["wo"], o.reshape(B, S, -1),
                                  cfg.pim, cfg.pim_linears)
     h = L.norm_apply(params["norm2"], x, cfg.norm)
-    return x + _ffn(params, h, cfg), torch.zeros((), dtype=torch.float32,
-                                                 device=x.device)
+    y, aux = _ffn(params, h, cfg, with_aux=True)
+    return x + y, aux
 
 
 def attn_block_fwd_encode(params, x: torch.Tensor,
@@ -247,6 +254,36 @@ def attn_block_fwd_encode(params, x: torch.Tensor,
     """One encoder block: `attn_block_fwd_train(causal=False)`'s output."""
     pos_ids = torch.arange(x.shape[1], device=x.device)
     return attn_block_fwd_train(params, x, pos_ids, cfg, causal=False)[0]
+
+
+def xattn_block_fwd_train(params, x: torch.Tensor, enc_out: torch.Tensor,
+                          pos_ids: torch.Tensor, cfg: ModelConfig):
+    """One decoder block of whisper over the whole sequence, as the
+    reference's training forward: causal self-attention through
+    `fp_attention`, then cross-attention of the `norm_x`-normed stream
+    over `enc_out` (B, Se, D), whose K/V this layer's `xattn` wk / wv
+    project on every call (no cache), then the MLP.  Returns (x, aux)."""
+    B, S, _ = x.shape
+    p, en, dh = cfg.pim, cfg.pim_linears, cfg.resolved_head_dim
+    h = L.norm_apply(params["norm1"], x, cfg.norm)
+    q, k, v = _qkv(params["attn"], h, cfg, pos_ids)
+    o = A.fp_attention(q, k, v, q_offset=0, causal=True)
+    x = x + pim.pim_linear_apply(params["attn"]["wo"], o.reshape(B, S, -1),
+                                 p, en)
+    h = L.norm_apply(params["norm_x"], x, cfg.norm)
+    Se = enc_out.shape[1]
+    qx = pim.pim_linear_apply(params["xattn"]["wq"], h, p, en
+                              ).reshape(B, S, cfg.num_heads, dh)
+    kx = pim.pim_linear_apply(params["xattn"]["wk"], enc_out, p, en
+                              ).reshape(B, Se, cfg.num_kv_heads, dh)
+    vx = pim.pim_linear_apply(params["xattn"]["wv"], enc_out, p, en
+                              ).reshape(B, Se, cfg.num_kv_heads, dh)
+    ox = A.fp_attention(qx, kx, vx, q_offset=0, causal=False)
+    x = x + pim.pim_linear_apply(params["xattn"]["wo"], ox.reshape(B, S, -1),
+                                 p, en)
+    h = L.norm_apply(params["norm2"], x, cfg.norm)
+    y, aux = _ffn(params, h, cfg, with_aux=True)
+    return x + y, aux
 
 
 def xattn_block_fwd_serve(params, x: torch.Tensor, state, offset: int,

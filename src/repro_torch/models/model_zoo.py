@@ -175,6 +175,25 @@ def _drawn_experts(generator, cfg: ModelConfig, device, lead, d_in, d_out,
     return {"w_q": w_q, "w_scale": w_scale}
 
 
+def _drawn_fp_experts(generator, device, lead, d_in, d_out, scale):
+    """A stack of experts for `init(deploy=False)`: `_drawn_experts`'s
+    draws, one expert at a time, kept in float32 as the reference's bare
+    (..., E, d_in, d_out) array, so that `deploy_tree` of it equals
+    `init()`'s store bit for bit."""
+    w = torch.empty(lead + (d_in, d_out), device=device)
+    for i in np.ndindex(*lead):
+        w[i] = torch.randn((d_in, d_out), generator=generator,
+                           device=device) * scale
+    return w
+
+
+def _whole_fp_experts(generator, device, lead, d_in, d_out, scale):
+    """Without PIM linears `init()` draws a stack whole, as any linear:
+    the same draw, as a bare array."""
+    return torch.randn(lead + (d_in, d_out), generator=generator,
+                       device=device) * scale
+
+
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """Model bundle on `device` (default: the GPU; raises without one)."""
     T.check_supported(cfg)
@@ -184,16 +203,20 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
              deploy: bool = True):
         """Random parameters from `generator` (else a generator on the
         model's device seeded with `seed`): the serving tree, or with
-        `deploy=False` the fp master tree of the same draws (not of a MoE
-        arch's experts: ROADMAP.md §1 item 8)."""
+        `deploy=False` the fp master tree of the same draws, a MoE arch's
+        expert stacks as the reference's bare arrays."""
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(seed)
         if not deploy:
+            experts = None
             if cfg.moe.num_experts:
-                raise NotImplementedError(
-                    f"{cfg.name}: the port draws no fp master tree of MoE "
-                    "experts yet (ROADMAP.md §1 item 8)")
-            return T.init_params(generator, cfg, device, None)
+                if cfg.pim_linears:
+                    experts = functools.partial(_drawn_fp_experts, generator,
+                                                device)
+                else:
+                    experts = functools.partial(_whole_fp_experts, generator,
+                                                device)
+            return T.init_params(generator, cfg, device, experts)
         experts = None
         if cfg.pim_linears:
             experts = functools.partial(_drawn_experts, generator, cfg, device)

@@ -22,8 +22,16 @@ The result equals the reference's eager run bit for bit in bfloat16:
   * a dropped pick adds `value x 0`, as the reference's gather of the
     clamped slot times its masked gate does.
 No step reads a value back to the host: C is a shape the host knows.  The
-load-balance aux loss is a training term and serving drops it, as the
-reference's serve block does.
+load-balance aux loss is a training term (`with_aux=True`, the training
+forward); serving drops it, as the reference's serve block does.
+
+Training carries gradients through the same ops: to the router through
+the top-k gates, their normalisation and the aux term's mean
+probabilities; to the tokens through the dispatch gather and the combine
+gather and adds (a dropped pick is `value x 0`, a zero gradient); to the
+expert stacks through the STE linear over each expert (`core/pim.py`).
+The fp tree's expert stacks are the reference's bare (..., E, D, F)
+arrays; `models/model_zoo.deploy_tree` makes them linears.
 """
 from __future__ import annotations
 
@@ -70,9 +78,9 @@ def capacity(T: int, cfg: ModelConfig) -> int:
     return max(int(math.ceil(T * m.top_k * m.capacity_factor / m.num_experts)), 1)
 
 
-def route(params, xf: torch.Tensor, cfg: ModelConfig):
-    """(gate, idx): each row's top-k experts, (T, k) int64 in descending
-    probability, and their float32 gates normalised over the k."""
+def _route(params, xf: torch.Tensor, cfg: ModelConfig):
+    """(probs, gate, idx): the float32 router probabilities (T, E) and
+    `route`'s picks."""
     logits = xf.float() @ params["router"]
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, cfg.moe.top_k, dim=-1)
@@ -81,7 +89,25 @@ def route(params, xf: torch.Tensor, cfg: ModelConfig):
     total = gate[:, :1]
     for i in range(1, gate.shape[1]):
         total = total + gate[:, i:i + 1]
-    return gate / torch.clamp(total, min=1e-9), idx
+    return probs, gate / torch.clamp(total, min=1e-9), idx
+
+
+def route(params, xf: torch.Tensor, cfg: ModelConfig):
+    """(gate, idx): each row's top-k experts, (T, k) int64 in descending
+    probability, and their float32 gates normalised over the k."""
+    return _route(params, xf, cfg)[1:]
+
+
+def load_balance_aux(probs: torch.Tensor, idx: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """The Switch load-balance term in float32: E * sum_e f_e * P_e *
+    router_aux_weight, f_e the share of rows' picks that chose expert e
+    (its pick count over T, as the mean of the one-hot sums is) and P_e
+    its mean probability."""
+    E = cfg.moe.num_experts
+    picks = idx[:, :, None] == torch.arange(E, device=idx.device)
+    f_e = picks.sum(dim=(0, 1)).float() / idx.shape[0]
+    return E * torch.sum(f_e * probs.mean(dim=0)) * cfg.moe.router_aux_weight
 
 
 def dispatch(xf: torch.Tensor, idx: torch.Tensor, C: int, E: int):
@@ -129,26 +155,41 @@ def combine(ye: torch.Tensor, gate: torch.Tensor, idx: torch.Tensor,
     return y
 
 
-def moe_ffn_local(params, xf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Route T local tokens, (T, D) -> (T, D)."""
+def _stack(params):
+    """An expert stack as linears: the fp tree's bare (E, D, F) arrays
+    become {"w"}; deployed stacks are linears already."""
+    return {k: v if isinstance(v, dict) else {"w": v}
+            for k, v in params.items()}
+
+
+def moe_ffn_local(params, xf: torch.Tensor, cfg: ModelConfig,
+                  with_aux: bool = False):
+    """Route T local tokens, (T, D) -> (T, D); with `with_aux` (y, aux),
+    aux the float32 load-balance term."""
     m = cfg.moe
     T = xf.shape[0]
-    gate, idx = route(params, xf, cfg)
+    probs, gate, idx = _route(params, xf, cfg)
     xe, slot, keep = dispatch(xf, idx, capacity(T, cfg), m.num_experts)
     # (E, C, D) through the expert stacks: per-token scales over each row
     # of each expert, per-channel scales per expert
-    y = combine(mlp_apply(params["experts"], xe, cfg), gate, idx, slot, keep)
+    y = combine(mlp_apply(_stack(params["experts"]), xe, cfg), gate, idx,
+                slot, keep)
     if m.num_shared:
-        shared = mlp_apply(params["shared"],
+        shared = mlp_apply(_stack(params["shared"]),
                            xf.expand((m.num_shared,) + xf.shape), cfg)
         y = y + shared.sum(0)
-    return y
+    if not with_aux:
+        return y
+    return y, load_balance_aux(probs, idx, cfg)
 
 
-def moe_ffn_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(B, S, D) -> (B, S, D).  A step of more than _MOE_TOKEN_CHUNK rows is
-    routed in chunks along the sequence axis (the smallest divisor nc of S
-    with B * S / nc within the budget), as the reference's scan does."""
+def moe_ffn_apply(params, x: torch.Tensor, cfg: ModelConfig,
+                  with_aux: bool = False):
+    """(B, S, D) -> (B, S, D), or with `with_aux` (y, aux).  A step of more
+    than _MOE_TOKEN_CHUNK rows is routed in chunks along the sequence axis
+    (the smallest divisor nc of S with B * S / nc within the budget), as
+    the reference's scan does, which averages the chunks' aux terms as
+    acc + aux / nc in chunk order from a float32 zero."""
     B, S, D = x.shape
     T = B * S
     nc = 1
@@ -158,8 +199,19 @@ def moe_ffn_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                 nc = cand
                 break
     if nc == 1:
-        return moe_ffn_local(params, x.reshape(T, D), cfg).reshape(B, S, D)
+        out = moe_ffn_local(params, x.reshape(T, D), cfg, with_aux)
+        if not with_aux:
+            return out.reshape(B, S, D)
+        return out[0].reshape(B, S, D), out[1]
     xc = x.reshape(B, nc, S // nc, D)
-    ys = [moe_ffn_local(params, xc[:, i].reshape(B * (S // nc), D), cfg)
-          .reshape(B, S // nc, D) for i in range(nc)]
-    return torch.stack(ys, dim=1).reshape(B, S, D)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(nc):
+        out = moe_ffn_local(params, xc[:, i].reshape(B * (S // nc), D), cfg,
+                            with_aux)
+        if with_aux:
+            out, a = out
+            aux = aux + a / nc
+        ys.append(out.reshape(B, S // nc, D))
+    y = torch.stack(ys, dim=1).reshape(B, S, D)
+    return (y, aux) if with_aux else y

@@ -2,8 +2,9 @@
 xLSTM stacks: parameter init, the serve state and the serve forward (with a
 VLM's image patch embeddings projected into the first positions of a
 prompt, and an encoder-decoder's frames encoded at its prefill); and the
-training forward of pure-attention stacks (`forward_hidden`,
-`forward_train`).
+training forward (`forward_hidden`, `forward_train`) of attention, MoE
+(with the load-balance aux term and the dense prefix), sliding-window,
+encoder-decoder and image-patch stacks.
 
 Counterpart of the JAX package's `models/transformer.py` for serving:
 attention and MoE stacks on the classic dense cache, ragged slots and the
@@ -64,24 +65,20 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: the port does not serve {', '.join(unsupported)} yet")
 
 
+UNTRAINED_KINDS = ("rglru", "mlstm", "slstm")
+
+
 def check_trainable(cfg: ModelConfig) -> None:
-    """The port trains stacks of `attn` blocks with an MLP (rope, absolute
-    or no positions); anything else raises (ROADMAP.md §1 item 8)."""
+    """The port trains every served stack but the recurrent ones: `attn`,
+    `attn_local`, `moe` (with its aux term and dense prefix), `xattn` over
+    the `enc_attn` encoder, with image patches or not; an RG-LRU, mLSTM
+    or sLSTM block raises (ROADMAP.md §1 item 8)."""
     check_supported(cfg)
-    unsupported = []
-    kinds = set(cfg.block_pattern) - {"attn"}
+    kinds = set(cfg.block_pattern) & set(UNTRAINED_KINDS)
     if kinds:
-        unsupported.append(f"block kinds {sorted(kinds)}")
-    if cfg.moe.num_experts:
-        unsupported.append("MoE FFNs and their aux loss")
-    if cfg.is_encoder_decoder:
-        unsupported.append("an encoder")
-    if cfg.num_image_patches:
-        unsupported.append("image patches")
-    if unsupported:
         raise NotImplementedError(
-            f"{cfg.name}: the port does not train {', '.join(unsupported)} "
-            "yet (ROADMAP.md §1 item 8)")
+            f"{cfg.name}: the port does not train block kinds "
+            f"{sorted(kinds)} yet (ROADMAP.md §1 item 8)")
 
 
 def pattern_layout(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
@@ -457,34 +454,73 @@ def _layer_views(tree, layers: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
+def _block_fwd_train(kind: str, params, x, pos_ids, cfg: ModelConfig,
+                     enc_out=None):
+    """One block's training forward, (x, aux), dispatched as the
+    reference's."""
+    if kind in ("attn", "moe"):
+        return blocks.attn_block_fwd_train(params, x, pos_ids, cfg,
+                                           causal=cfg.causal)
+    if kind == "attn_local":
+        return blocks.attn_block_fwd_train(params, x, pos_ids, cfg,
+                                           window=cfg.window, causal=True)
+    if kind == "enc_attn":
+        return blocks.attn_block_fwd_train(params, x, pos_ids, cfg,
+                                           causal=False)
+    if kind == "xattn":
+        return blocks.xattn_block_fwd_train(params, x, enc_out, pos_ids, cfg)
+    if kind in UNTRAINED_KINDS:
+        raise NotImplementedError(f"{cfg.name}: the port does not train "
+                                  f"{kind} blocks yet (ROADMAP.md §1 item 8)")
+    raise ValueError(kind)
+
+
 def forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    """Final normed hidden states (B, S, D) and the aux loss (a float32
-    zero: no trained block has one), as the reference's: the loss computes
-    the chunked cross-entropy from them without the full logits.  With
-    `cfg.remat != "none"` each block is recomputed in the backward
-    (`torch.utils.checkpoint`, the counterpart of the reference's
-    per-block `jax.checkpoint`: no value changes).  The reference's
-    sharding constraints are left out (a single device)."""
+    """Final normed hidden states (B, S, D) and the float32 aux loss, as
+    the reference's: the loss computes the chunked cross-entropy from them
+    without the full logits.  A MoE arch's dense prefix runs first,
+    unrolled and not recomputed, its aux dropped; then the stacked blocks
+    (with `cfg.remat != "none"` each recomputed in the backward,
+    `torch.utils.checkpoint`, the counterpart of the reference's per-block
+    `jax.checkpoint`: no value changes) and the unrolled tail.  The aux
+    terms add up in float32 in layer order, a repetition's pattern summed
+    from zero before it joins the total, as the reference's scan does.  An
+    encoder-decoder encodes `batch["frames"]` once, outside the blocks'
+    checkpoints, and each `xattn` block takes the encoder output as an
+    argument of its checkpointed call.  The reference's sharding
+    constraints are left out (a single device)."""
     check_trainable(cfg)
-    pat, R, _ = pattern_layout(cfg)
+    pat, R, tail = pattern_layout(cfg)
     x = _embed_inputs(params, batch, cfg)
     pos_ids = torch.arange(x.shape[1], device=x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = encode(params, batch["frames"], cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def block(p, x):                        # every trained kind is "attn"
-        return blocks.attn_block_fwd_train(p, x, pos_ids, cfg,
-                                           causal=cfg.causal)
+    def block(kind):
+        def f(p, x, enc_out):
+            return _block_fwd_train(kind, p, x, pos_ids, cfg, enc_out)
+        return f
 
+    for p in params.get("dense_prefix", ()):
+        x, _ = _block_fwd_train("attn", p, x, pos_ids, cfg)
+    fns = [block(kind) for kind in pat]
     layers = [_layer_views(stack, R) for stack in params["blocks"]]
+    aux = zero
     for r in range(R):
+        group = zero
         for j in range(len(pat)):
             if cfg.remat != "none":
-                x, a = checkpoint(block, layers[j][r], x, use_reentrant=False)
+                x, a = checkpoint(fns[j], layers[j][r], x, enc_out,
+                                  use_reentrant=False)
             else:
-                x, a = block(layers[j][r], x)
-            aux = aux + a
-    for p in params["tail"]:                # unrolled, as the reference's
-        x, a = block(p, x)
+                x, a = fns[j](layers[j][r], x, enc_out)
+            group = group + a
+        aux = aux + group
+    for i, kind in enumerate(tail):         # unrolled, as the reference's
+        x, a = _block_fwd_train(_moe_kind_for_layer(cfg, kind, R * len(pat) + i),
+                                params["tail"][i], x, pos_ids, cfg, enc_out)
         aux = aux + a
     return L.norm_apply(params["final_norm"], x, cfg.norm), aux
 
@@ -535,7 +571,9 @@ def _embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     PIM linear and are added to the first P = min(P0, S) positions of the
     step, as the reference's stub VLM fusion does: at columns 0..P-1 of
     whatever step carries them, whatever its offset (the classic path
-    passes them to the prefill only)."""
+    passes them to the prefill only).  The add is in place: no op before
+    it saves `x` for its backward, so a training step takes it, and its
+    gradients are those of the reference's `x.at[:, :P].add`."""
     x = L.embed_apply(params["embed"], batch["tokens"],
                       getattr(torch, cfg.compute_dtype))
     if cfg.pos == "absolute":
@@ -561,13 +599,14 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The encoder: (B, Se, D) frame embeddings (the conv stem's stub) cast
     to the compute dtype, plus the sinusoid table in that dtype, through
     the `enc_blocks` stack (bidirectional attention blocks) and
-    `enc_norm`; (B, Se, D) out.  As the reference's `encode`."""
+    `enc_norm`; (B, Se, D) out.  As the reference's `encode`.  Its layers
+    are `_layer_views` of the stack, so a training step writes each
+    leaf's gradient once."""
     x = frames.to(getattr(torch, cfg.compute_dtype))
     x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
                                    x.device).to(x.dtype)
-    for r in range(cfg.num_encoder_layers):
-        x = blocks.attn_block_fwd_encode(_index(params["enc_blocks"], r), x,
-                                         cfg)
+    for p in _layer_views(params["enc_blocks"], cfg.num_encoder_layers):
+        x = blocks.attn_block_fwd_encode(p, x, cfg)
     return L.norm_apply(params["enc_norm"], x, cfg.norm)
 
 
